@@ -1,0 +1,258 @@
+"""The port's choose step vs the JAX package: ``choose_block_plain`` (and
+``choose_block``, which dispatches to it for CPU tensors) must equal both
+the Pallas kernel in interpret mode and the jnp expression tree
+``_choose_block`` bit for bit — same feasibility flags, same choices, same
+best scores — on the cases of tests/test_pallas_choose.py plus salt ≠ 0,
+extended resources and vocabulary widths beyond the Pallas band limit.
+The port's masks and score are also held against the JAX package's
+xp-generic functions evaluated with NumPy."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from tpu_scheduler.core.snapshot import ClusterSnapshot  # noqa: E402
+from tpu_scheduler.models.profiles import DEFAULT_PROFILE, PROFILES, SchedulingProfile  # noqa: E402
+from tpu_scheduler.ops import masks as jax_masks  # noqa: E402
+from tpu_scheduler.ops import score as jax_score  # noqa: E402
+from tpu_scheduler.ops.assign import _choose_block  # noqa: E402
+from tpu_scheduler.ops.pack import pack_snapshot  # noqa: E402
+from tpu_scheduler.ops.pallas_choose import build_node_info, choose_block_pallas  # noqa: E402
+from tpu_scheduler.testing import make_node, make_pod, synth_cluster  # noqa: E402
+from tpu_scheduler_torch.ops import masks, score  # noqa: E402
+from tpu_scheduler_torch.ops.choose import KernelError, choose_block, choose_block_plain  # noqa: E402
+
+POD_KEYS = ("pod_req", "pod_sel", "pod_sel_count", "pod_ntol", "pod_aff", "pod_has_aff", "pod_pref_w", "pod_ntol_soft")
+NODE_KEYS = (
+    "node_avail", "node_alloc", "node_valid", "node_labels", "node_taints", "node_aff", "node_pref", "node_taints_soft",
+)
+
+
+def _case(n_nodes, n_pending, seed, n_bound=None, **soft):
+    snap = synth_cluster(
+        n_nodes=n_nodes, n_pending=n_pending, n_bound=n_nodes if n_bound is None else n_bound, seed=seed, **soft
+    )
+    return dict(pack_snapshot(snap, pod_block=8, node_block=8).device_arrays())
+
+
+def _port_args(a):
+    """choose_block's positional tensors (CPU) from NumPy device arrays."""
+    t = lambda key: torch.from_numpy(np.ascontiguousarray(a[key]))  # noqa: E731
+    p = a["pod_req"].shape[0]
+    return (
+        [t(k) for k in POD_KEYS]
+        + [t("pod_valid"), torch.arange(p, dtype=torch.int32)]
+        + [t(k) for k in NODE_KEYS]
+    )
+
+
+def _jnp_path(a, weights, salt):
+    p = a["pod_req"].shape[0]
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    nodes = {k: v for k, v in j.items() if k.startswith("node_")}
+    blk = {k: j[k] for k in POD_KEYS}
+    blk.update(active=j["pod_valid"], ranks=jnp.arange(p, dtype=jnp.uint32))
+    c, h = _choose_block(j["node_avail"], nodes, jnp.asarray(weights), blk, salt=salt)
+    return np.asarray(c), np.asarray(h)
+
+
+def _pallas_path(a, weights, salt, pod_tile=8, node_tile=128):
+    p = a["pod_req"].shape[0]
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    c, h, b = choose_block_pallas(
+        *(j[k] for k in POD_KEYS), j["pod_valid"], jnp.arange(p, dtype=jnp.uint32),
+        build_node_info(j["node_avail"], j["node_alloc"], j["node_valid"]),
+        j["node_labels"].T, j["node_taints"].T, j["node_aff"].T, j["node_pref"].T, j["node_taints_soft"].T,
+        jnp.asarray(weights), salt=jnp.int32(salt), pod_tile=pod_tile, node_tile=node_tile, interpret=True,
+        return_best=True,
+    )
+    return np.asarray(c), np.asarray(h), np.asarray(b)
+
+
+def _assert_all_paths_equal(a, weights=None, salt=0, pallas=True):
+    """Port (plain and dispatcher) == jnp tree, and == Pallas interpret
+    mode when its band limits admit the cluster.  Returns the port's
+    (choice, has)."""
+    weights = DEFAULT_PROFILE.weights() if weights is None else weights
+    args = _port_args(a)
+    pc, ph, pb = (x.numpy() for x in choose_block_plain(*args, weights, salt))
+    dc, dh, db = (x.numpy() for x in choose_block(*args, weights, salt))
+    np.testing.assert_array_equal(pc, dc)
+    np.testing.assert_array_equal(ph, dh)
+    np.testing.assert_array_equal(pb.view(np.int32), db.view(np.int32))
+    assert pc.dtype == np.int32 and ph.dtype == bool and pb.dtype == np.float32
+    jc, jh = _jnp_path(a, weights, salt)
+    np.testing.assert_array_equal(ph, jh)
+    np.testing.assert_array_equal(pc, jc)  # both give 0 where nothing is feasible
+    assert np.isneginf(pb[~ph]).all()
+    if pallas:
+        kc, kh, kb = _pallas_path(a, weights, salt)
+        np.testing.assert_array_equal(ph, kh)
+        np.testing.assert_array_equal(pc[ph], kc[kh])
+        np.testing.assert_array_equal(pb[ph].view(np.int32), kb[kh].view(np.int32))
+    return pc, ph
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n_nodes,n_pending", [(24, 40), (64, 96), (17, 33)])
+def test_choose_matches_pallas_and_jnp(seed, n_nodes, n_pending):
+    _assert_all_paths_equal(_case(n_nodes, n_pending, seed))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_choose_soft_terms(seed):
+    _assert_all_paths_equal(_case(24, 40, seed, soft_taint_fraction=0.4, preferred_affinity_fraction=0.4))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_choose_dense_hard_predicates(seed):
+    a = _case(
+        32, 48, seed, selector_fraction=0.8, tainted_fraction=0.6, node_affinity_fraction=0.6,
+        soft_taint_fraction=0.5, preferred_affinity_fraction=0.5,
+    )
+    _assert_all_paths_equal(a)
+
+
+def test_choose_tile_remainders():
+    _assert_all_paths_equal(_case(19, 13, seed=7))
+
+
+def test_choose_all_infeasible():
+    a = _case(8, 16, seed=3)
+    a["node_avail"] = np.zeros_like(a["node_avail"])
+    choice, has = _assert_all_paths_equal(a)
+    assert not has.any() and (choice == 0).all()
+
+
+def test_choose_inactive_pods_masked():
+    a = _case(16, 24, seed=5)
+    a["pod_valid"] = np.zeros_like(a["pod_valid"])
+    _, has = _assert_all_paths_equal(a)
+    assert not has.any()
+
+
+def test_choose_exact_tie_lowest_index():
+    """Identical nodes and zero jitter tie every (pod, node) score exactly:
+    torch.argmax, like jnp.argmax, must return the first index."""
+    nodes = [make_node(f"n{i:03d}", cpu="8", memory="16Gi") for i in range(64)]
+    pods = [make_pod(f"p{i}", cpu="100m", memory="128Mi") for i in range(16)]
+    a = dict(pack_snapshot(ClusterSnapshot.build(nodes, pods), pod_block=8, node_block=8).device_arrays())
+    choice, has = _assert_all_paths_equal(a, SchedulingProfile(spread_jitter=0.0).weights())
+    assert has.all() and (choice == 0).all()  # 16 pods: no padding rows
+
+
+def test_choose_two_node_tie_later_pair():
+    """A tie between two nodes past index 0 resolves to the lower one."""
+    nodes = [make_node(f"n{i:02d}", cpu="8", memory="16Gi") for i in range(40)]
+    pods = [make_pod(f"b{i}", cpu="6", memory="1Gi", node_name=f"n{i:02d}", phase="Running") for i in range(40)
+            if i not in (13, 29)]
+    pods += [make_pod(f"p{i}", cpu="100m", memory="128Mi") for i in range(9)]
+    a = dict(pack_snapshot(ClusterSnapshot.build(nodes, pods), pod_block=8, node_block=8).device_arrays())
+    choice, has = _assert_all_paths_equal(a, SchedulingProfile(spread_jitter=0.0).weights())
+    assert has[:9].all() and not has[9:].any()  # 9 pods, padded to 16 rows
+    assert (choice[:9] == 13).all()
+
+
+@pytest.mark.parametrize("salt", [1, 7, 63])
+def test_choose_salted_rounds(salt):
+    a = _case(24, 40, seed=2, soft_taint_fraction=0.3, preferred_affinity_fraction=0.3)
+    _assert_all_paths_equal(a, PROFILES["throughput"].weights(), salt=salt)
+
+
+def test_choose_extended_resources():
+    _assert_all_paths_equal(_case(30, 48, seed=4, extended_fraction=0.4))
+
+
+def test_choose_wide_vocab_beyond_pallas_band():
+    """Vocabulary widths above the Pallas band limit (255): the port serves
+    them directly and must still equal the jnp tree."""
+    a = _case(16, 24, seed=0, selector_fraction=0.6)
+    wide = 264
+    rng = np.random.default_rng(0)
+    for pod_key, node_key in (("pod_sel", "node_labels"), ("pod_ntol", "node_taints")):
+        extra = wide - a[pod_key].shape[1]
+        a[pod_key] = np.pad(a[pod_key], ((0, 0), (0, extra)))
+        a[node_key] = np.pad(a[node_key], ((0, 0), (0, extra)))
+    a["node_labels"][:, -1] = (rng.random(a["node_labels"].shape[0]) < 0.5).astype(np.float32)
+    a["pod_sel"][::3, -1] = 1.0
+    a["pod_sel_count"] = a["pod_sel"].sum(1).astype(np.float32)
+    _assert_all_paths_equal(a, pallas=False)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_masks_match_numpy_reference(seed):
+    a = _case(
+        20, 32, seed, tainted_fraction=0.4, node_affinity_fraction=0.4, cordoned_fraction=0.2,
+        extended_fraction=0.3,
+    )
+    names = ("pod_req", "pod_sel", "pod_sel_count", "node_avail", "node_labels", "pod_ntol", "node_taints",
+             "pod_aff", "pod_has_aff", "node_aff")
+    ref = jax_masks.feasibility_breakdown(np, *(a[k] for k in names))
+    got = masks.feasibility_breakdown(*(torch.from_numpy(a[k]) for k in names))
+    assert sorted(ref) == sorted(got)
+    for reason, m in ref.items():
+        np.testing.assert_array_equal(got[reason].numpy(), m, err_msg=reason)
+    block_names = ("pod_req", "pod_sel", "pod_sel_count", "pod_valid", "node_avail", "node_labels", "node_valid",
+                   "pod_ntol", "node_taints", "pod_aff", "pod_has_aff", "node_aff")
+    ref_block = jax_masks.feasibility_block(np, *(a[k] for k in block_names))
+    got_block = masks.feasibility_block(*(torch.from_numpy(a[k]) for k in block_names))
+    np.testing.assert_array_equal(got_block.numpy(), ref_block)
+
+
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+@pytest.mark.parametrize("salt", [None, 0, 5])
+def test_score_matches_numpy_reference(profile, salt):
+    a = _case(24, 40, seed=6, soft_taint_fraction=0.4, preferred_affinity_fraction=0.4)
+    w = PROFILES[profile].weights()
+    p, n = a["pod_req"].shape[0], a["node_avail"].shape[0]
+    ref = jax_score.score_block(
+        np, a["pod_req"], a["node_alloc"], a["node_avail"], w,
+        np.arange(p, dtype=np.uint32), np.arange(n, dtype=np.uint32),
+        pod_pref_w=a["pod_pref_w"], node_pref=a["node_pref"],
+        pod_ntol_soft=a["pod_ntol_soft"], node_taints_soft=a["node_taints_soft"], salt=salt,
+    )
+    t = lambda key: torch.from_numpy(a[key])  # noqa: E731
+    got = score.score_block(
+        t("pod_req"), t("node_alloc"), t("node_avail"), torch.from_numpy(w),
+        torch.arange(p, dtype=torch.int32), torch.arange(n),
+        pod_pref_w=t("pod_pref_w"), node_pref=t("node_pref"),
+        pod_ntol_soft=t("pod_ntol_soft"), node_taints_soft=t("node_taints_soft"), salt=salt,
+    )
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+
+
+def test_jitter_hash_wraps_like_uint32():
+    """Large ranks and node indices overflow uint32 in the reference hash;
+    the int64 emulation must wrap identically."""
+    ranks = np.array([0, 1, 65535, 2**31 - 1], dtype=np.uint32)
+    nodes = np.array([0, 3, 2**20 + 7, 2**31 - 2], dtype=np.uint32)
+    req = np.zeros((4, 2), np.int32)
+    alloc = np.full((4, 2), 1000, np.int32)
+    w = PROFILES["throughput"].weights()
+    ref = jax_score.score_block(np, req, alloc, alloc, w, ranks, nodes, salt=9)
+    got = score.score_block(
+        torch.from_numpy(req), torch.from_numpy(alloc), torch.from_numpy(alloc), torch.from_numpy(w),
+        torch.from_numpy(ranks.astype(np.int32)), torch.from_numpy(nodes.astype(np.int64)), salt=9,
+    )
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+
+
+def test_choose_block_rejects_other_devices():
+    """Only CPU tensors take the plain version; anything else launches the
+    kernel or raises — never a silent fallback."""
+    args = [x.to("meta") for x in _port_args(_case(8, 8, seed=0))]
+    with pytest.raises(ValueError, match="unsupported device"):
+        choose_block(*args, DEFAULT_PROFILE.weights())
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    from tpu_scheduler_torch.ops import choose as choose_mod
+
+    monkeypatch.setattr(choose_mod.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(choose_mod.os.path, "exists", lambda _path: False)
+    with pytest.raises(KernelError, match="nvcc not found"):
+        choose_mod._nvcc()

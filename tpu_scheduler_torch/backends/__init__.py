@@ -1,0 +1,1 @@
+"""backends layer of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,228 @@
+"""Conflict-free batched assignment — the scheduling cycle in eager torch.
+
+Port of ``tpu_scheduler/ops/assign.py::assign_cycle`` for unconstrained
+cycles.  All pending pods are assigned in a few auction rounds; each round:
+
+  1. choose:  blockwise over the active pods — feasibility + score vs the
+     current remaining capacity, masked argmax → choice (ops/choose.py; on
+     the card the hand-written kernel).
+  2. accept:  pods sit in (priority desc, FIFO) order; a stable sort by
+     chosen node groups each node's claimants in priority order, and a
+     segmented prefix sum of their requests — exact int64 clamped to
+     INT32_MAX, which equals the JAX package's saturating int32 scan —
+     accepts the longest prefix that fits.
+  3. commit:  accepted requests scatter-subtract from remaining capacity;
+     pods with no feasible node drop out (capacity only shrinks in a cycle).
+  4. compact: a cumsum partition packs the still-active pods to the front,
+     keeping their relative (priority) order, so the next round's choose
+     only touches ceil(n_active / block) blocks.
+
+The JAX package runs the rounds as ``lax.while_loop``s inside one jit
+program; here the same round body is a Python loop with one host read of
+``n_active`` per round.  The static size chain is kept: the pod arrays step
+down p, p/4, p/16, … (block-aligned, floored at 256) once the active count
+fits the next size, with the same stage handoff and terminal ``done`` latch,
+so every round sees the same rows in the same order and the results are bit
+identical.  The JAX package's two drivers ("monolithic" and "epochs") are
+pinned bit-identical by its own tests; both map to this one driver.
+
+Tensors travel as dicts keyed by the PackedCluster ``device_arrays`` names.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .choose import choose_block
+from .pack import INT32_MAX
+
+__all__ = ["assign_cycle", "split_device_arrays"]
+
+# Pod-side keys the choose step reads, in choose_block's argument order.
+_CHOOSE_KEYS = (
+    "pod_req",
+    "pod_sel",
+    "pod_sel_count",
+    "pod_ntol",
+    "pod_aff",
+    "pod_has_aff",
+    "pod_pref_w",
+    "pod_ntol_soft",
+    "active",
+    "ranks",
+)
+_NODE_KEYS = (
+    "node_alloc",
+    "node_valid",
+    "node_labels",
+    "node_taints",
+    "node_aff",
+    "node_pref",
+    "node_taints_soft",
+)
+
+# Shrink-chain floor: below this the accept phase is negligible.
+_MIN_EPOCH_SIZE = 256
+
+
+def split_device_arrays(arrays: dict) -> tuple[dict, dict]:
+    """Split a device-arrays dict into (node_side, pod_side)."""
+    nodes = {k: v for k, v in arrays.items() if k.startswith("node_")}
+    pods = {k: v for k, v in arrays.items() if k.startswith("pod_")}
+    return nodes, pods
+
+
+def _chain_size(target: int, block: int) -> int:
+    """One shrinking-chain size: a block multiple while above ``block``,
+    floored at _MIN_EPOCH_SIZE (the JAX package's rule)."""
+    if target > block:
+        target = ((target + block - 1) // block) * block
+    return max(_MIN_EPOCH_SIZE, target)
+
+
+def _size_chain(p: int, block: int) -> list[int]:
+    """p, p/4, p/16, …; a stage is appended only when it at least halves
+    the previous one."""
+    sizes = [p]
+    while True:
+        nxt = _chain_size(sizes[-1] // 4, block)
+        if nxt > sizes[-1] // 2:
+            return sizes
+        sizes.append(nxt)
+
+
+def _compact(ps: dict) -> dict:
+    """Stable active-first packing as a cumsum partition: each row's
+    destination is its rank within its class (actives first)."""
+    active = ps["active"]
+    n_act = torch.cumsum(active.to(torch.int64), 0)
+    n_inact = torch.cumsum((~active).to(torch.int64), 0)
+    dest = torch.where(active, n_act - 1, n_act[-1] + n_inact - 1)
+    src = torch.empty_like(dest)
+    src[dest] = torch.arange(dest.shape[0], device=dest.device)
+    return {k: v.index_select(0, src) for k, v in ps.items()}
+
+
+def _prepare_pods(pods: dict, block: int) -> tuple[torch.Tensor, dict]:
+    """Permute to priority order, pad to a block multiple, init the auction
+    bookkeeping, compact actives to the front.  The permutation comes BEFORE
+    the padding: rank positions feed the jitter hash and must equal the
+    unpadded order's (padding rows sit at ranks ≥ p_out, inactive)."""
+    p = pods["pod_req"].shape[0]
+    perm = torch.argsort(-pods["pod_prio"], stable=True)
+    ps = {k: v[perm] for k, v in pods.items() if k != "pod_prio"}
+    if block < p and p % block != 0:
+        extra = block - p % block
+        ps = {k: torch.cat([v, v.new_zeros((extra,) + tuple(v.shape[1:]))]) for k, v in ps.items()}
+        p += extra
+    device = ps["pod_req"].device
+    ps["ranks"] = torch.arange(p, dtype=torch.int32, device=device)
+    ps["assigned"] = torch.full((p,), -1, dtype=torch.int32, device=device)
+    ps["acc_round"] = torch.full((p,), -1, dtype=torch.int32, device=device)
+    ps["active"] = ps.pop("pod_valid")
+    return perm, _compact(ps)
+
+
+def _choose(avail, ps: dict, n_active: int, nodes: dict, weights, block: int, salt: int):
+    """Per-pod best feasible node vs current capacity, blockwise over the
+    compacted pods: only the first ceil(n_active / block) blocks run."""
+    p = ps["pod_req"].shape[0]
+    node_args = (avail,) + tuple(nodes[k] for k in _NODE_KEYS)
+    if block >= p:
+        choice, has, _ = choose_block(*(ps[k] for k in _CHOOSE_KEYS), *node_args, weights, salt)
+        return choice, has
+    choice = torch.zeros((p,), dtype=torch.int32, device=avail.device)
+    has = torch.zeros((p,), dtype=torch.bool, device=avail.device)
+    for lo in range(0, (n_active + block - 1) // block * block, block):
+        bc, bh, _ = choose_block(*(ps[k][lo : lo + block] for k in _CHOOSE_KEYS), *node_args, weights, salt)
+        choice[lo : lo + block] = bc
+        has[lo : lo + block] = bh
+    return choice, has
+
+
+def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, block: int):
+    """One auction round: choose, accept, commit, compact.  Returns
+    (avail, ps, n_active) — n_active read to the host."""
+    p = ps["pod_req"].shape[0]
+    n = avail.shape[0]
+    device = avail.device
+    choice, has = _choose(avail, ps, n_active, nodes, weights, block, salt=rounds)
+    cand = ps["active"] & has
+    ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
+    claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
+
+    # Group claimants per node; the stable sort keeps priority order within
+    # each node.  Exact int64 segmented prefix, clamped to INT32_MAX.
+    order = torch.argsort(ch, stable=True)
+    ch_s = ch[order]
+    claim_s = claim[order]
+    # Scan each resource column along its contiguous axis: a dim-0 scan of
+    # the narrow [P, R] matrix runs as a slow outer-dimension scan on CUDA.
+    cum = torch.cumsum(claim_s.T.contiguous(), 1).T
+    is_start = torch.ones((p,), dtype=torch.bool, device=device)
+    is_start[1:] = ch_s[1:] != ch_s[:-1]
+    start_idx = torch.cummax(torch.where(is_start, torch.arange(p, device=device), 0), 0).values
+    within = torch.clamp(cum - (cum - claim_s)[start_idx], max=INT32_MAX)
+    avail_ext = torch.cat([avail, avail.new_zeros((1, avail.shape[1]))]).to(torch.int64)
+    acc_s = (within <= avail_ext[ch_s]).all(-1) & (ch_s < n)
+    accepted = torch.empty_like(acc_s)
+    accepted[order] = acc_s
+
+    ps["assigned"] = torch.where(accepted, choice, ps["assigned"])
+    ps["acc_round"] = torch.where(accepted, rounds, ps["acc_round"])
+    dec = torch.zeros((n + 1, avail.shape[1]), dtype=torch.int64, device=device)
+    dec.index_add_(0, ch, torch.where(accepted[:, None], ps["pod_req"], 0).to(torch.int64))
+    avail = (avail.to(torch.int64) - dec[:n]).to(torch.int32)
+    ps["active"] = cand & ~accepted
+    ps = _compact(ps)
+    return avail, ps, int(ps["active"].sum())
+
+
+def assign_cycle(nodes: dict, pods: dict, weights, max_rounds: int = 32, block: int = 4096):
+    """Assign all pending pods to nodes in one cycle.
+
+    ``nodes``/``pods``: the device-arrays dicts split by prefix
+    (:func:`split_device_arrays`), torch tensors on one device; ``weights``:
+    the profile's float32 weight vector (host).  Returns (assigned [P] int32
+    — node index or −1, rounds int, remaining node_avail [N,R] int32,
+    acc_round [P] int32 — the round each pod was accepted in or −1,
+    rank_of [P] int32 — each pod's priority rank)."""
+    p_out = pods["pod_req"].shape[0]
+    perm, ps = _prepare_pods(pods, block)
+    p = ps["pod_req"].shape[0]
+    device = ps["pod_req"].device
+    sizes = _size_chain(p, block)
+
+    assigned_rank = torch.zeros((p,), dtype=torch.int32, device=device)
+    acc_round_rank = torch.zeros((p,), dtype=torch.int32, device=device)
+    avail = nodes["node_avail"]
+    n_active = int(ps["active"].sum())
+    rounds = 0
+    # Terminal-exit latch: a stage that stops on the round cap or a drained
+    # pool makes every later stage run zero rounds, so the stage-transition
+    # slice (which may drop still-active rows) is safe.
+    done = False
+    for i, size in enumerate(sizes):
+        if i > 0:
+            # Fold the rows about to be dropped, then slice to the stage size.
+            assigned_rank[ps["ranks"].to(torch.int64)] = ps["assigned"]
+            acc_round_rank[ps["ranks"].to(torch.int64)] = ps["acc_round"]
+            ps = {k: v[:size] for k, v in ps.items()}
+        next_size = sizes[i + 1] if i + 1 < len(sizes) else 0
+        while not done and rounds < max_rounds and n_active > 0 and (not next_size or n_active > next_size):
+            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, weights, block)
+            rounds += 1
+        done = done or rounds >= max_rounds or n_active <= 0
+
+    # Undo compaction (rank space), then the priority permutation, dropping
+    # block padding.
+    ranks = ps["ranks"].to(torch.int64)
+    assigned_rank[ranks] = ps["assigned"]
+    acc_round_rank[ranks] = ps["acc_round"]
+    out = torch.full((p_out,), -1, dtype=torch.int32, device=device)
+    out[perm] = assigned_rank[:p_out]
+    acc_round = torch.full((p_out,), -1, dtype=torch.int32, device=device)
+    acc_round[perm] = acc_round_rank[:p_out]
+    rank_of = torch.zeros((p_out,), dtype=torch.int32, device=device)
+    rank_of[perm] = torch.arange(p_out, dtype=torch.int32, device=device)
+    return out, rounds, avail, acc_round, rank_of
