@@ -9,6 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps torch from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

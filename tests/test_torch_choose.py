@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps torch from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -256,3 +260,172 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(choose_mod.os.path, "exists", lambda _path: False)
     with pytest.raises(KernelError, match="nvcc not found"):
         choose_mod._nvcc()
+
+
+# --- the constrained choose (kernel #2's plain version and operands) --------
+
+from tpu_scheduler.ops import constraints as jax_cons  # noqa: E402
+from tpu_scheduler.ops.pallas_choose import (  # noqa: E402
+    constrained_kernel_node_operands,
+    constrained_kernel_pod_operands,
+)
+from tpu_scheduler_torch.ops import choose as choose_mod  # noqa: E402
+from tpu_scheduler_torch.ops import constraints as port_cons  # noqa: E402
+from tpu_scheduler_torch.ops.choose import (  # noqa: E402
+    CONSTRAINT_POD_KEYS,
+    choose_block_constrained,
+    choose_block_constrained_plain,
+    constrained_node_operands,
+    constrained_pod_operands,
+)
+
+CONS_ALL = dict(
+    anti_affinity_fraction=0.25, spread_fraction=0.25, schedule_anyway_fraction=0.2, pod_affinity_fraction=0.2,
+    preferred_pod_affinity_fraction=0.25,
+)
+CONS_HARD = dict(anti_affinity_fraction=0.3, spread_fraction=0.3)
+
+
+def _cons_case(n_nodes, n_pending, seed, fractions, kill_pa=False, **extra):
+    """(device arrays, cons pod arrays, round state, meta, flags): a packed
+    constrained cluster whose round state is randomised from the seed;
+    ``kill_pa`` makes every positive-affinity term globally inactive."""
+    snap = synth_cluster(n_nodes=n_nodes, n_pending=n_pending, n_bound=n_nodes, seed=seed, **fractions, **extra)
+    packed = pack_snapshot(snap, pod_block=1, node_block=1)
+    cons = jax_cons.pack_constraints(
+        snap, snap.pending_pods(), packed.padded_pods, packed.node_names, packed.padded_nodes
+    )
+    rng = np.random.default_rng(seed)
+    meta = cons.meta_arrays()
+    state = {}
+    for k, v in cons.state_arrays().items():
+        if k.endswith(("_cnt", "counts")):
+            state[k] = rng.integers(0, 4, v.shape).astype(np.float32)
+        else:
+            state[k] = (rng.random(v.shape) < (0.0 if kill_pa and k.startswith("pa_") else 0.1)).astype(np.float32)
+    state["sp_counts"] *= meta["sp_uses_dom"]
+    flags = dict(soft_spread=cons.n_spread_soft > 0, soft_pa=cons.n_ppa_terms > 0, hard_pa=cons.n_pa_terms > 0)
+    return dict(packed.device_arrays()), cons.pod_arrays(), jax_cons.augment_round_state(np, state, meta), meta, flags
+
+
+def _assert_constrained_paths_equal(case, weights, salt):
+    a, cpods, state, meta, flags = case
+    masks = jax_cons.round_blocked_masks(np, state, meta, **flags)
+    masks_t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in masks.items()}
+    cons_pod = {k: torch.from_numpy(np.ascontiguousarray(cpods[k])) for k in CONSTRAINT_POD_KEYS}
+    args = _port_args(a)
+    pc, ph, pb = (x.numpy() for x in choose_block_constrained_plain(*args, cons_pod, masks_t, weights, salt))
+    before = choose_mod.LAUNCHES_CONSTRAINED
+    dc, dh, db = (x.numpy() for x in choose_block_constrained(*args, cons_pod, masks_t, weights, salt))
+    assert choose_mod.LAUNCHES_CONSTRAINED == before  # the CPU branch launches nothing
+    np.testing.assert_array_equal(pc, dc)
+    np.testing.assert_array_equal(ph, dh)
+    np.testing.assert_array_equal(pb.view(np.int32), db.view(np.int32))
+
+    p, n = a["pod_req"].shape[0], a["node_avail"].shape[0]
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    blk = {k: j[k] for k in POD_KEYS}
+    blk.update({k: jnp.asarray(v) for k, v in cpods.items()})
+    blk.update(active=j["pod_valid"], ranks=jnp.arange(p, dtype=jnp.uint32))
+    masks_j = {k: jnp.asarray(v) for k, v in masks.items()}
+    nodes = {k: v for k, v in j.items() if k.startswith("node_")}
+    jc, jh = _choose_block(j["node_avail"], nodes, jnp.asarray(weights), blk, round_masks=masks_j, salt=salt)
+    np.testing.assert_array_equal(ph, np.asarray(jh))
+    np.testing.assert_array_equal(pc, np.asarray(jc))
+
+    cons_node, pa_inactive = constrained_kernel_node_operands(blk, masks_j, n)
+    kc, kh, kb = choose_block_pallas(
+        *(j[k] for k in POD_KEYS), j["pod_valid"], jnp.arange(p, dtype=jnp.uint32),
+        build_node_info(j["node_avail"], j["node_alloc"], j["node_valid"]),
+        j["node_labels"].T, j["node_taints"].T, j["node_aff"].T, j["node_pref"].T, j["node_taints_soft"].T,
+        jnp.asarray(weights), salt=jnp.int32(salt), cons_pod=constrained_kernel_pod_operands(blk, pa_inactive),
+        cons_node=cons_node, pod_tile=8, node_tile=128, interpret=True, return_best=True,
+    )
+    kc, kh, kb = np.asarray(kc), np.asarray(kh), np.asarray(kb)
+    np.testing.assert_array_equal(ph, kh)
+    np.testing.assert_array_equal(pc[ph], kc[kh])
+    np.testing.assert_array_equal(pb[ph].view(np.int32), kb[kh].view(np.int32))
+    # Non-vacuous: some pods find a node, and the constraints change the outcome.
+    free_c, free_h, _ = (x.numpy() for x in choose_block_plain(*args, weights, salt))
+    assert ph.any()
+    assert (free_h != ph).any() or (free_c != pc).any()
+    return ph
+
+
+@pytest.mark.parametrize("salt", [0, 5])
+@pytest.mark.parametrize("seed", [0, 1, 4])
+def test_constrained_choose_all_families(seed, salt):
+    case = _cons_case(24, 40, seed, CONS_ALL, soft_taint_fraction=0.3, preferred_affinity_fraction=0.3)
+    assert all(case[4].values())
+    _assert_constrained_paths_equal(case, PROFILES["throughput"].weights(), salt)
+
+
+def test_constrained_choose_tile_remainders_extended():
+    case = _cons_case(19, 13, 7, CONS_ALL, extended_fraction=0.4)
+    _assert_constrained_paths_equal(case, DEFAULT_PROFILE.weights(), 3)
+
+
+def test_constrained_choose_hard_only():
+    """Soft widths zero: no soft-spread or preferred term, no hard
+    positive affinity."""
+    case = _cons_case(24, 40, 2, CONS_HARD)
+    assert not any(case[4].values())
+    _assert_constrained_paths_equal(case, PROFILES["throughput"].weights(), 1)
+
+
+def test_constrained_choose_bootstrap_gate():
+    """Every positive-affinity term is globally inactive: self-matching
+    declarers are waived, the others are blocked everywhere."""
+    case = _cons_case(24, 48, 3, CONS_ALL, kill_pa=True)
+    _, cpods, state, _, flags = case
+    assert flags["hard_pa"] and (state["pa_inactive"] == 1.0).all()
+    waived = (cpods["pod_pa_declares"] * cpods["pod_pa_matched"]).sum(1) > 0
+    assert waived.any()
+    has = _assert_constrained_paths_equal(case, DEFAULT_PROFILE.weights(), 0)
+    assert has[waived].any()
+
+
+@pytest.mark.parametrize("soft_spread,soft_pa,hard_pa", [(s, p, h) for s in (0, 1) for p in (0, 1) for h in (0, 1)])
+def test_constrained_operands_match_jax(soft_spread, soft_pa, hard_pa):
+    """The kernel's operand builders: the port's bands equal the JAX
+    package's with its zero-filled absent features dropped, and the banded
+    blocked sum is exactly constraints.blocked_block."""
+    a, cpods, state, meta, _ = _cons_case(24, 40, 6, CONS_ALL)
+    flags = dict(soft_spread=bool(soft_spread), soft_pa=bool(soft_pa), hard_pa=bool(hard_pa))
+    masks = jax_cons.round_blocked_masks(np, state, meta, **flags)
+    masks_t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in masks.items()}
+    cons_pod = {k: torch.from_numpy(np.ascontiguousarray(cpods[k])) for k in CONSTRAINT_POD_KEYS}
+    pod_ops = constrained_pod_operands(cons_pod, masks_t)
+    node_ops = constrained_node_operands(masks_t)
+    j_node, pa_inactive = constrained_kernel_node_operands(cpods, {k: jnp.asarray(v) for k, v in masks.items()},
+                                                          a["node_avail"].shape[0])
+    j_pod = constrained_kernel_pod_operands({k: jnp.asarray(v) for k, v in cpods.items()}, pa_inactive)
+    band_n = [j_node[0], j_node[1], j_node[2]] + ([j_node[3]] if hard_pa else [])
+    band_p = [j_pod[0], j_pod[1], j_pod[2]] + ([j_pod[3]] if hard_pa else [])
+    want = [
+        (np.concatenate(band_p, 1), np.concatenate(band_n, 0)),
+        (j_pod[4], j_node[4]) if soft_spread else None,
+        (j_pod[5], j_node[5]),
+        (j_pod[6], j_node[6]) if soft_pa else None,
+    ]
+    for po, no, w in zip(pod_ops, node_ops, want):
+        assert po.is_contiguous() and no.is_contiguous() and po.shape[1] == no.shape[0]
+        if w is None:
+            assert po.shape[1] == 0
+        else:
+            np.testing.assert_array_equal(po.numpy(), np.asarray(w[0]))
+            np.testing.assert_array_equal(no.numpy(), np.asarray(w[1]))
+    banded = (pod_ops[0] @ node_ops[0]) > 0
+    assert torch.equal(banded, port_cons.blocked_block(cons_pod, masks_t))
+
+
+def test_constrained_choose_rejects_other_devices():
+    a, cpods, state, meta, flags = _cons_case(8, 8, 0, CONS_ALL)
+    masks = port_cons.round_blocked_masks(
+        {k: torch.from_numpy(v).to("meta") for k, v in state.items()},
+        {k: torch.from_numpy(v).to("meta") for k, v in meta.items()}, **flags,
+    )
+    cons_pod = {k: torch.from_numpy(cpods[k]).to("meta") for k in CONSTRAINT_POD_KEYS}
+    args = [x.to("meta") for x in _port_args(a)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        choose_block_constrained(*args, cons_pod, masks, DEFAULT_PROFILE.weights())

@@ -1,8 +1,10 @@
 """CUDA (PyTorch) batched backend — the port of ``tpu_scheduler/backends/tpu.py``.
 
-Uploads the packed tensors once per cycle, runs the auction
-(ops/assign.py, with the hand-written choose kernel on the card) and brings
-the result home as ONE stacked [4, P] int32 tensor.  Runs on the card unless
+Uploads the packed tensors once per cycle — with the inter-pod constraint
+tensors when the cluster carries them — runs the auction (ops/assign.py,
+with the hand-written choose kernels on the card) and brings the result
+home as ONE stacked [4, P] int32 tensor.  Topology cycles are not ported
+yet and raise ``NotImplementedError``.  Runs on the card unless
 the caller asks for the CPU (``device="cpu"``, the plain torch versions —
 what the tests use).  There is no fallback: without CUDA the constructor
 raises, and a CUDA runtime failure during a cycle raises
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..convert import to_device
+from ..convert import constraints_to_device, to_device
 from ..errors import BackendUnavailable
 from ..models.profiles import SchedulingProfile
 from ..ops.assign import assign_cycle, split_device_arrays
@@ -48,14 +50,21 @@ class CudaBackend(SchedulingBackend):
         self.device = dev
 
     def assign(self, packed: PackedCluster, profile: SchedulingProfile):
-        if packed.constraints is not None or packed.topology is not None:
-            raise NotImplementedError(
-                "cuda backend: inter-pod constraint and topology cycles are not ported yet"
-            )
+        if packed.topology is not None:
+            raise NotImplementedError("cuda backend: topology cycles are not ported yet")
         try:
             nodes, pods = split_device_arrays(to_device(packed, self.device))
+            cons = packed.constraints
+            ckw = {}
+            if cons is not None:
+                cpods, cmeta, cstate = constraints_to_device(cons, self.device)
+                pods.update(cpods)
+                ckw = dict(
+                    cmeta=cmeta, cstate=cstate, soft_spread=cons.n_spread_soft > 0, soft_pa=cons.n_ppa_terms > 0,
+                    hard_pa=cons.n_pa_terms > 0,
+                )
             assigned, rounds, _avail, acc_round, rank_of = assign_cycle(
-                nodes, pods, profile.weights(), max_rounds=profile.max_rounds, block=profile.pod_block
+                nodes, pods, profile.weights(), max_rounds=profile.max_rounds, block=profile.pod_block, **ckw
             )
             # ONE device→host fetch for the whole result.
             combined = torch.stack([assigned, acc_round, rank_of, torch.full_like(assigned, rounds)]).cpu().numpy()

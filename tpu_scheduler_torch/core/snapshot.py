@@ -3,7 +3,7 @@
 Copy of the part of ``tpu_scheduler/core/snapshot.py`` that packing needs:
 every predicate is evaluated against one snapshot taken per scheduling
 cycle, and the snapshot is exactly what gets packed into device tensors
-(ops/pack.py).
+(ops/pack.py, ops/constraints.py).
 """
 
 from __future__ import annotations
@@ -23,12 +23,33 @@ class ClusterSnapshot:
 
     nodes: tuple[Node, ...]
     pods: tuple[Pod, ...]
+    # Built once by ``build``: all (pod, node) placements onto nodes of the
+    # snapshot, and the subset whose pod declares anti-affinity terms.
+    _placed: list = field(default_factory=list, compare=False, repr=False)
+    _placed_with_terms: list = field(default_factory=list, compare=False, repr=False)
     # Lazy pending-pod memo (the snapshot is immutable, so one scan suffices).
     _pending: list | None = field(default=None, compare=False, repr=False)
 
     @staticmethod
     def build(nodes: Iterable[Node], pods: Iterable[Pod]) -> "ClusterSnapshot":
-        return ClusterSnapshot(nodes=tuple(nodes), pods=tuple(pods))
+        snap = ClusterSnapshot(nodes=tuple(nodes), pods=tuple(pods))
+        by_name = {n.name: n for n in snap.nodes}
+        for p in snap.pods:
+            if p.spec is not None and p.spec.node_name is not None:
+                node = by_name.get(p.spec.node_name)
+                if node is not None:
+                    snap._placed.append((p, node))
+                    if p.spec.anti_affinity:
+                        snap._placed_with_terms.append((p, node))
+        return snap
+
+    def placed_pods(self) -> list:
+        """All (pod, node) placements onto nodes present in the snapshot."""
+        return self._placed
+
+    def placed_pods_with_terms(self) -> list:
+        """Placements whose pod declares anti-affinity terms."""
+        return self._placed_with_terms
 
     def pending_pods(self) -> list[Pod]:
         """Pods to schedule: phase Pending and not yet bound.  Memoized;

@@ -1,21 +1,31 @@
 """Conflict-free batched assignment — the scheduling cycle in eager torch.
 
 Port of ``tpu_scheduler/ops/assign.py::assign_cycle`` for unconstrained
-cycles.  All pending pods are assigned in a few auction rounds; each round:
+and constrained cycles (topology cycles are not ported yet).  All pending
+pods are assigned in a few auction rounds; each round:
 
   1. choose:  blockwise over the active pods — feasibility + score vs the
      current remaining capacity, masked argmax → choice (ops/choose.py; on
-     the card the hand-written kernel).
+     the card the hand-written kernels).  A constrained cycle first builds
+     the round's blocked/penalty node masks from the domain state
+     (ops/constraints.round_blocked_masks) and runs the constrained choose.
   2. accept:  pods sit in (priority desc, FIFO) order; a stable sort by
      chosen node groups each node's claimants in priority order, and a
      segmented prefix sum of their requests — exact int64 clamped to
      INT32_MAX, which equals the JAX package's saturating int32 scan —
-     accepts the longest prefix that fits.
+     accepts the longest prefix that fits.  A constrained cycle then drops
+     within-round conflicts (constraints.constraint_filter) and folds the
+     survivors into the domain state (constraints.constraint_commit).
   3. commit:  accepted requests scatter-subtract from remaining capacity;
-     pods with no feasible node drop out (capacity only shrinks in a cycle).
+     pods with no feasible node drop out (capacity only shrinks in a cycle
+     — except that a positive-affinity match placed this round can open
+     nodes, so blocked declarers stay while any such term progressed).
   4. compact: a cumsum partition packs the still-active pods to the front,
      keeping their relative (priority) order, so the next round's choose
      only touches ceil(n_active / block) blocks.
+
+A constrained cycle also stops after STALL_ROUNDS consecutive rounds that
+accept nobody: the filter can defer the same pods forever.
 
 The JAX package runs the rounds as ``lax.while_loop``s inside one jit
 program; here the same round body is a Python loop with one host read of
@@ -31,10 +41,13 @@ Tensors travel as dicts keyed by the PackedCluster ``device_arrays`` names.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from .choose import choose_block
-from .pack import INT32_MAX
+from .choose import CONSTRAINT_POD_KEYS, choose_block, choose_block_constrained
+from .constraints import augment_round_state, constraint_commit, constraint_filter, round_blocked_masks
+from .pack import INT32_MAX, STALL_ROUNDS
 
 __all__ = ["assign_cycle", "split_device_arrays"]
 
@@ -123,30 +136,55 @@ def _prepare_pods(pods: dict, block: int) -> tuple[torch.Tensor, dict]:
     return perm, _compact(ps)
 
 
-def _choose(avail, ps: dict, n_active: int, nodes: dict, weights, block: int, salt: int):
+@dataclass
+class _Constraints:
+    """A constrained cycle's engine state: meta and the round-carried
+    domain state (both node/domain-side — never pod-indexed, never sliced),
+    the feature flags, and the consecutive zero-acceptance round count."""
+
+    meta: dict
+    state: dict
+    soft_spread: bool
+    soft_pa: bool
+    hard_pa: bool
+    stall: int = 0
+
+
+def _choose(avail, ps: dict, n_active: int, nodes: dict, weights, block: int, salt: int, masks=None):
     """Per-pod best feasible node vs current capacity, blockwise over the
-    compacted pods: only the first ceil(n_active / block) blocks run."""
+    compacted pods: only the first ceil(n_active / block) blocks run.
+    ``masks`` (a constrained round's node masks) selects the constrained
+    choose."""
     p = ps["pod_req"].shape[0]
     node_args = (avail,) + tuple(nodes[k] for k in _NODE_KEYS)
+
+    def run(lo, hi):
+        pod_args = (ps[k][lo:hi] for k in _CHOOSE_KEYS)
+        if masks is None:
+            return choose_block(*pod_args, *node_args, weights, salt)[:2]
+        cons_pod = {k: ps[k][lo:hi] for k in CONSTRAINT_POD_KEYS}
+        return choose_block_constrained(*pod_args, *node_args, cons_pod, masks, weights, salt)[:2]
+
     if block >= p:
-        choice, has, _ = choose_block(*(ps[k] for k in _CHOOSE_KEYS), *node_args, weights, salt)
-        return choice, has
+        return run(0, p)
     choice = torch.zeros((p,), dtype=torch.int32, device=avail.device)
     has = torch.zeros((p,), dtype=torch.bool, device=avail.device)
     for lo in range(0, (n_active + block - 1) // block * block, block):
-        bc, bh, _ = choose_block(*(ps[k][lo : lo + block] for k in _CHOOSE_KEYS), *node_args, weights, salt)
-        choice[lo : lo + block] = bc
-        has[lo : lo + block] = bh
+        choice[lo : lo + block], has[lo : lo + block] = run(lo, lo + block)
     return choice, has
 
 
-def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, block: int):
-    """One auction round: choose, accept, commit, compact.  Returns
-    (avail, ps, n_active) — n_active read to the host."""
+def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, block: int, cons: _Constraints | None):
+    """One auction round: choose, accept, (constraint filter and commit),
+    commit capacity, compact.  Returns (avail, ps, n_active) — n_active read
+    to the host; ``cons`` is updated in place."""
     p = ps["pod_req"].shape[0]
     n = avail.shape[0]
     device = avail.device
-    choice, has = _choose(avail, ps, n_active, nodes, weights, block, salt=rounds)
+    masks = None
+    if cons is not None:
+        masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
+    choice, has = _choose(avail, ps, n_active, nodes, weights, block, rounds, masks)
     cand = ps["active"] & has
     ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
     claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
@@ -168,27 +206,70 @@ def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, bl
     accepted = torch.empty_like(acc_s)
     accepted[order] = acc_s
 
+    if cons is not None:
+        # Within-round conflicts are deferred (they stay active); the
+        # survivors fold into the domain state.
+        accepted = constraint_filter(accepted, choice, ps["ranks"], ps, cons.state, cons.meta, cons.hard_pa)
+        cons.state = constraint_commit(
+            accepted, choice, ps, cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa
+        )
+
     ps["assigned"] = torch.where(accepted, choice, ps["assigned"])
     ps["acc_round"] = torch.where(accepted, rounds, ps["acc_round"])
     dec = torch.zeros((n + 1, avail.shape[1]), dtype=torch.int64, device=device)
     dec.index_add_(0, ch, torch.where(accepted[:, None], ps["pod_req"], 0).to(torch.int64))
     avail = (avail.to(torch.int64) - dec[:n]).to(torch.int32)
-    ps["active"] = cand & ~accepted
+    active = cand & ~accepted
+    if cons is not None and cons.hard_pa:
+        # A pod placed this round can activate a declarer's positive-affinity
+        # term and open nodes for it: blocked-everywhere declarers stay
+        # active while any term gained a match this round.
+        new_match = (ps["pod_pa_matched"] * accepted[:, None].to(torch.float32)).sum(dim=0) > 0
+        pa_hope = (ps["pod_pa_declares"].sum(dim=1) > 0) & new_match.any()
+        active = active | (ps["active"] & ~has & pa_hope)
+    ps["active"] = active
     ps = _compact(ps)
-    return avail, ps, int(ps["active"].sum())
+    # One host read per round: the active count, and the accepted count
+    # for the stall rule.
+    n_active, n_accepted = torch.stack([ps["active"].sum(), accepted.sum()]).tolist()
+    if cons is not None:
+        cons.stall = 0 if n_accepted else cons.stall + 1
+    return avail, ps, n_active
 
 
-def assign_cycle(nodes: dict, pods: dict, weights, max_rounds: int = 32, block: int = 4096):
+def _stalled(cons: _Constraints | None) -> bool:
+    return cons is not None and cons.stall >= STALL_ROUNDS
+
+
+def assign_cycle(
+    nodes: dict,
+    pods: dict,
+    weights,
+    max_rounds: int = 32,
+    block: int = 4096,
+    cmeta: dict | None = None,
+    cstate: dict | None = None,
+    soft_spread: bool = False,
+    soft_pa: bool = False,
+    hard_pa: bool = True,
+):
     """Assign all pending pods to nodes in one cycle.
 
     ``nodes``/``pods``: the device-arrays dicts split by prefix
     (:func:`split_device_arrays`), torch tensors on one device; ``weights``:
-    the profile's float32 weight vector (host).  Returns (assigned [P] int32
-    — node index or −1, rounds int, remaining node_avail [N,R] int32,
+    the profile's float32 weight vector (host).  ``cmeta``/``cstate``
+    (ConstraintSet meta_arrays/state_arrays as tensors) switch on the
+    constraint path; ``pods`` must then also carry the ConstraintSet
+    pod_arrays, and the three flags say which optional features the cycle
+    has (the JAX package's assign_cycle contract).  Returns (assigned [P]
+    int32 — node index or −1, rounds int, remaining node_avail [N,R] int32,
     acc_round [P] int32 — the round each pod was accepted in or −1,
     rank_of [P] int32 — each pod's priority rank)."""
     p_out = pods["pod_req"].shape[0]
     perm, ps = _prepare_pods(pods, block)
+    cons = None
+    if cmeta is not None:
+        cons = _Constraints(cmeta, augment_round_state(cstate, cmeta), soft_spread, soft_pa, hard_pa)
     p = ps["pod_req"].shape[0]
     device = ps["pod_req"].device
     sizes = _size_chain(p, block)
@@ -198,9 +279,9 @@ def assign_cycle(nodes: dict, pods: dict, weights, max_rounds: int = 32, block: 
     avail = nodes["node_avail"]
     n_active = int(ps["active"].sum())
     rounds = 0
-    # Terminal-exit latch: a stage that stops on the round cap or a drained
-    # pool makes every later stage run zero rounds, so the stage-transition
-    # slice (which may drop still-active rows) is safe.
+    # Terminal-exit latch: a stage that stops on the round cap, a drained
+    # pool or a stall makes every later stage run zero rounds, so the
+    # stage-transition slice (which may drop still-active rows) is safe.
     done = False
     for i, size in enumerate(sizes):
         if i > 0:
@@ -209,10 +290,13 @@ def assign_cycle(nodes: dict, pods: dict, weights, max_rounds: int = 32, block: 
             acc_round_rank[ps["ranks"].to(torch.int64)] = ps["acc_round"]
             ps = {k: v[:size] for k, v in ps.items()}
         next_size = sizes[i + 1] if i + 1 < len(sizes) else 0
-        while not done and rounds < max_rounds and n_active > 0 and (not next_size or n_active > next_size):
-            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, weights, block)
+        while (
+            not done and rounds < max_rounds and n_active > 0 and not _stalled(cons)
+            and (not next_size or n_active > next_size)
+        ):
+            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, weights, block, cons)
             rounds += 1
-        done = done or rounds >= max_rounds or n_active <= 0
+        done = done or rounds >= max_rounds or n_active <= 0 or _stalled(cons)
 
     # Undo compaction (rank space), then the priority permutation, dropping
     # block padding.

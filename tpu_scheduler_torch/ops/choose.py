@@ -1,17 +1,27 @@
 """The auction's hot op — choose: feasibility + score + masked argmax for one
 block of pods against every node.
 
-``choose_block`` is the dispatching wrapper.  For tensors on the CPU it runs
-:func:`choose_block_plain`; for CUDA tensors it launches the hand-written
-kernel in ``csrc/choose.cu`` (which replaces the JAX package's Pallas kernel,
-``tpu_scheduler/ops/pallas_choose.py::choose_block_pallas``) or raises — it
-never falls back to the plain version on the card.
+Two dispatching wrappers, one per kernel of ``csrc/choose.cu``:
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` of the checkout (one subdirectory per source
-digest) and bound with ``ctypes``: a plain C launcher, no PyTorch headers,
-so the build takes seconds.  ``LAUNCHES`` counts kernel launches, so a run
-can show that its main path went through the kernel.
+* ``choose_block`` — the unconstrained choose (replaces the JAX package's
+  ``tpu_scheduler/ops/pallas_choose.py::choose_block_pallas`` with
+  ``_make_choose_kernel(False)``);
+* ``choose_block_constrained`` — the same plus the inter-pod constraint
+  terms of one auction round: nodes blocked by anti-affinity, hard spread
+  and positive affinity, and the soft-spread, hard-spread-level and
+  preferred inter-pod score terms (replaces ``_make_choose_kernel(True)``).
+
+For tensors on the CPU each runs its plain torch version
+(:func:`choose_block_plain`, :func:`choose_block_constrained_plain`); for
+CUDA tensors it launches its kernel or raises — it never falls back to the
+plain version on the card.
+
+Both kernels are built at first use, by one ``nvcc`` call for ``sm_90a``,
+into ``build/torch_kernels/`` of the checkout (one subdirectory per source
+digest) and bound with ``ctypes``: plain C launchers, no PyTorch headers,
+so the build takes seconds.  ``LAUNCHES`` and ``LAUNCHES_CONSTRAINED``
+count each kernel's launches, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -28,14 +38,40 @@ import time
 import numpy as np
 import torch
 
+from .constraints import blocked_block
 from .masks import feasibility_block
 from .score import score_block
 
-__all__ = ["choose_block", "choose_block_plain", "build_library", "KernelError", "LAUNCHES"]
+__all__ = [
+    "choose_block",
+    "choose_block_plain",
+    "choose_block_constrained",
+    "choose_block_constrained_plain",
+    "constrained_node_operands",
+    "constrained_pod_operands",
+    "CONSTRAINT_POD_KEYS",
+    "build_library",
+    "KernelError",
+    "LAUNCHES",
+    "LAUNCHES_CONSTRAINED",
+]
 
-# Kernel launches since the counter was last set to 0 (only choose_block's
-# CUDA branch adds to it, once per launch).
+# Kernel launches since the counter was last set to 0: each wrapper's CUDA
+# branch adds one to its own counter per launch, and nothing else does.
 LAUNCHES = 0
+LAUNCHES_CONSTRAINED = 0
+
+# The constraint pod bitmaps (ops/constraints.ConstraintSet.pod_arrays keys)
+# the constrained choose reads for one block.
+CONSTRAINT_POD_KEYS = (
+    "pod_aa_carries",
+    "pod_aa_matched",
+    "pod_sp_declares",
+    "pod_pa_declares",
+    "pod_pa_matched",
+    "pod_sps_declares",
+    "pod_ppa_w",
+)
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "choose.cu"
@@ -91,9 +127,37 @@ def _library() -> ctypes.CDLL:
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.tsched_choose_launch.argtypes = [ptr] * 18 + [i32] * 8 + [f32] * 5 + [u32] * 2 + [ptr] * 4
     lib.tsched_choose_launch.restype = ctypes.c_int
+    lib.tsched_choose_constrained_launch.argtypes = [ptr] * 26 + [i32] * 12 + [f32] * 6 + [u32] * 2 + [ptr] * 4
+    lib.tsched_choose_constrained_launch.restype = ctypes.c_int
     lib.tsched_error_string.argtypes = [ctypes.c_int]
     lib.tsched_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _plain(args, weights, salt, blocked=None, score_terms=None):
+    """feasibility (minus ``blocked``) + score (plus ``score_terms``) +
+    ``torch.argmax``, which returns the FIRST index among equal maxima
+    (jnp.argmax's rule) and 0 for an all ``-inf`` row."""
+    (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft) = args
+    if req.is_cuda:
+        # The count matmuls are exact only in full float32: TF32 keeps ten
+        # mantissa bits, and must never be trusted silently.
+        torch.backends.cuda.matmul.allow_tf32 = False
+    w = torch.as_tensor(np.asarray(weights, dtype=np.float32), device=req.device)
+    m = feasibility_block(req, sel, selc, active, avail, labels, valid, ntol, taints, aff, has_aff, node_aff)
+    if blocked is not None:
+        m = m & ~blocked
+    node_idx = torch.arange(avail.shape[0], device=req.device)
+    sc = score_block(
+        req, alloc, avail, w, ranks, node_idx,
+        pod_pref_w=pref_w, node_pref=node_pref, pod_ntol_soft=ntol_soft, node_taints_soft=taints_soft, salt=salt,
+        **(score_terms or {}),
+    )
+    sc = torch.where(m, sc, float("-inf"))
+    choice = torch.argmax(sc, dim=1)
+    best = sc.gather(1, choice[:, None])[:, 0]
+    return choice.to(torch.int32), m.any(dim=1), best
 
 
 def choose_block_plain(
@@ -102,25 +166,75 @@ def choose_block_plain(
     weights, salt: int = 0,
 ):
     """The plain torch version: masks.feasibility_block + score.score_block
-    + ``torch.argmax``, which returns the FIRST index among equal maxima
-    (jnp.argmax's rule) and 0 for an all ``-inf`` row.  Returns (choice [B]
-    int32, has [B] bool, best [B] float32 — the score at ``choice``, −inf
-    where nothing is feasible)."""
-    if req.is_cuda:
-        # The count matmuls are exact only in full float32: TF32 keeps ten
-        # mantissa bits, and must never be trusted silently.
-        torch.backends.cuda.matmul.allow_tf32 = False
-    w = torch.as_tensor(np.asarray(weights, dtype=np.float32), device=req.device)
-    m = feasibility_block(req, sel, selc, active, avail, labels, valid, ntol, taints, aff, has_aff, node_aff)
-    node_idx = torch.arange(avail.shape[0], device=req.device)
-    sc = score_block(
-        req, alloc, avail, w, ranks, node_idx,
-        pod_pref_w=pref_w, node_pref=node_pref, pod_ntol_soft=ntol_soft, node_taints_soft=taints_soft, salt=salt,
+    + argmax.  Returns (choice [B] int32, has [B] bool, best [B] float32 —
+    the score at ``choice``, −inf where nothing is feasible)."""
+    args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+            avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
+    return _plain(args, weights, salt)
+
+
+def choose_block_constrained_plain(
+    req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+    avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
+    cons_pod: dict, masks: dict, weights, salt: int = 0,
+):
+    """The plain torch version of the constrained choose: feasibility &
+    ~constraints.blocked_block, then score_block with the round's constraint
+    terms (each present iff its mask is), then argmax.  ``cons_pod``: the
+    block's CONSTRAINT_POD_KEYS bitmaps; ``masks``: the round's
+    constraints.round_blocked_masks."""
+    args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+            avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
+    soft_sp, soft_pa = "sp_penalty_node" in masks, "ppa_cnt_node" in masks
+    terms = dict(
+        pod_sps_declares=cons_pod["pod_sps_declares"] if soft_sp else None,
+        sp_penalty_node=masks.get("sp_penalty_node"),
+        pod_sp_declares=cons_pod["pod_sp_declares"],
+        sp_level_node=masks["sp_level_node"],
+        pod_ppa_w=cons_pod["pod_ppa_w"] if soft_pa else None,
+        ppa_cnt_node=masks.get("ppa_cnt_node"),
     )
-    sc = torch.where(m, sc, float("-inf"))
-    choice = torch.argmax(sc, dim=1)
-    best = sc.gather(1, choice[:, None])[:, 0]
-    return choice.to(torch.int32), m.any(dim=1), best
+    return _plain(args, weights, salt, blocked_block(cons_pod, masks), terms)
+
+
+def constrained_node_operands(masks: dict) -> tuple:
+    """The constrained kernel's four node-side operands, each [rows, N]
+    float32 and contiguous (the layout round_blocked_masks produces, so
+    threads striding over nodes read them coalesced): the blocked band
+    [aa_m_node; aa_c_node; sp_node; pa_unmatched_node], the soft-spread
+    penalty, the hard-spread level, the preferred inter-pod counts.  A
+    feature absent from the cycle has 0 rows (copied from the JAX package's
+    constrained_kernel_node_operands, which zero-fills them instead)."""
+    band = [masks["aa_m_node"], masks["aa_c_node"], masks["sp_node"]]
+    if "pa_unmatched_node" in masks:
+        band.append(masks["pa_unmatched_node"])
+    empty = masks["sp_level_node"].new_zeros((0, masks["sp_level_node"].shape[1]))
+    return (
+        torch.cat(band).contiguous(),
+        masks.get("sp_penalty_node", empty).contiguous(),
+        masks["sp_level_node"].contiguous(),
+        masks.get("ppa_cnt_node", empty).contiguous(),
+    )
+
+
+def constrained_pod_operands(cons_pod: dict, masks: dict) -> tuple:
+    """The four pod-side operands matching :func:`constrained_node_operands`,
+    each [B, cols] float32 and contiguous.  The positive-affinity bootstrap
+    gate ``declares · (1 − matched · pa_inactive)`` is applied here, pod
+    side, so the kernel's blocked sum sees the gated bitmap (copied from the
+    JAX package's constrained_kernel_pod_operands)."""
+    band = [cons_pod["pod_aa_carries"], cons_pod["pod_aa_matched"], cons_pod["pod_sp_declares"]]
+    if "pa_unmatched_node" in masks:
+        pa_inactive = masks["pa_inactive"]
+        band.append(cons_pod["pod_pa_declares"] * (1.0 - cons_pod["pod_pa_matched"] * pa_inactive[None, :]))
+    spd = cons_pod["pod_sp_declares"]
+    empty = spd.new_zeros((spd.shape[0], 0))
+    return (
+        torch.cat(band, dim=1).contiguous(),
+        cons_pod["pod_sps_declares"].contiguous() if "sp_penalty_node" in masks else empty,
+        spd.contiguous(),
+        cons_pod["pod_ppa_w"].contiguous() if "ppa_cnt_node" in masks else empty,
+    )
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
@@ -132,6 +246,53 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def _check_base(args) -> tuple:
+    """Device, type, shape and contiguity of the 18 base operands; returns
+    (device, B, N, R, (L, T, A, A2, Ts))."""
+    (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft) = args
+    device = req.device
+    b, r = req.shape
+    n = avail.shape[0]
+    L, T, A, A2, Ts = (sel.shape[1], ntol.shape[1], aff.shape[1], pref_w.shape[1], ntol_soft.shape[1])
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dtype, shape in (
+        ("req", req, i32, (b, r)), ("sel", sel, f32, (b, L)), ("selc", selc, f32, (b,)),
+        ("ntol", ntol, f32, (b, T)), ("aff", aff, f32, (b, A)), ("has_aff", has_aff, f32, (b,)),
+        ("pref_w", pref_w, f32, (b, A2)), ("ntol_soft", ntol_soft, f32, (b, Ts)),
+        ("active", active, torch.bool, (b,)), ("ranks", ranks, i32, (b,)),
+        ("avail", avail, i32, (n, r)), ("alloc", alloc, i32, (n, r)), ("valid", valid, torch.bool, (n,)),
+        ("labels", labels, f32, (n, L)), ("taints", taints, f32, (n, T)), ("node_aff", node_aff, f32, (n, A)),
+        ("node_pref", node_pref, f32, (n, A2)), ("taints_soft", taints_soft, f32, (n, Ts)),
+    ):
+        _check(name, t, dtype, shape, device)
+    if r < 2:
+        raise ValueError("choose_block: need at least the cpu and memory resource columns")
+    return device, b, n, r, (L, T, A, A2, Ts)
+
+
+def _launch(fn, name: str, args, extra_ptrs, extra_ints, extra_floats, weights, salt, device, b, n, r, widths):
+    """Allocate the outputs and launch one kernel on the current stream;
+    raises KernelError when the launch is refused."""
+    choice = torch.empty((b,), dtype=torch.int32, device=device)
+    has = torch.empty((b,), dtype=torch.bool, device=device)
+    best = torch.empty((b,), dtype=torch.float32, device=device)
+    if b == 0:
+        return choice, has, best
+    w = np.asarray(weights, dtype=np.float32)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in args), *(t.data_ptr() for t in extra_ptrs),
+            b, n, r, *widths, *extra_ints,
+            *(float(x) for x in w[:5]), *extra_floats, int(salt) & 0xFFFFFFFF, 0,
+            choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
+        )
+    if err != 0:
+        raise KernelError(f"{name} kernel launch failed: {_library().tsched_error_string(err).decode()} ({err})")
+    return choice, has, best
 
 
 def choose_block(
@@ -150,50 +311,50 @@ def choose_block(
     profile's float32 weight vector (host); ``salt``: the auction round.
     Returns (choice [B] int32, has [B] bool, best [B] float32)."""
     global LAUNCHES
-    device = req.device
-    if device.type == "cpu":
-        return choose_block_plain(
-            req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
-            avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft, weights, salt,
-        )
-    if device.type != "cuda":
-        raise ValueError(f"choose_block: unsupported device {device}")
-    b, r = req.shape
-    n = avail.shape[0]
-    widths = (sel.shape[1], ntol.shape[1], aff.shape[1], pref_w.shape[1], ntol_soft.shape[1])
-    L, T, A, A2, Ts = widths
-    f32, i32 = torch.float32, torch.int32
-    for name, t, dtype, shape in (
-        ("req", req, i32, (b, r)), ("sel", sel, f32, (b, L)), ("selc", selc, f32, (b,)),
-        ("ntol", ntol, f32, (b, T)), ("aff", aff, f32, (b, A)), ("has_aff", has_aff, f32, (b,)),
-        ("pref_w", pref_w, f32, (b, A2)), ("ntol_soft", ntol_soft, f32, (b, Ts)),
-        ("active", active, torch.bool, (b,)), ("ranks", ranks, i32, (b,)),
-        ("avail", avail, i32, (n, r)), ("alloc", alloc, i32, (n, r)), ("valid", valid, torch.bool, (n,)),
-        ("labels", labels, f32, (n, L)), ("taints", taints, f32, (n, T)), ("node_aff", node_aff, f32, (n, A)),
-        ("node_pref", node_pref, f32, (n, A2)), ("taints_soft", taints_soft, f32, (n, Ts)),
-    ):
-        _check(name, t, dtype, shape, device)
-    if r < 2:
-        raise ValueError("choose_block: need at least the cpu and memory resource columns")
-    choice = torch.empty((b,), dtype=i32, device=device)
-    has = torch.empty((b,), dtype=torch.bool, device=device)
-    best = torch.empty((b,), dtype=f32, device=device)
-    if b == 0:
-        return choice, has, best
-    lib = _library()
-    w = np.asarray(weights, dtype=np.float32)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tsched_choose_launch(
-            req.data_ptr(), sel.data_ptr(), selc.data_ptr(), ntol.data_ptr(), aff.data_ptr(),
-            has_aff.data_ptr(), pref_w.data_ptr(), ntol_soft.data_ptr(), active.data_ptr(), ranks.data_ptr(),
-            avail.data_ptr(), alloc.data_ptr(), valid.data_ptr(), labels.data_ptr(), taints.data_ptr(),
-            node_aff.data_ptr(), node_pref.data_ptr(), taints_soft.data_ptr(),
-            b, n, r, L, T, A, A2, Ts,
-            float(w[0]), float(w[1]), float(w[2]), float(w[3]), float(w[4]), int(salt) & 0xFFFFFFFF, 0,
-            choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
-        )
-    if err != 0:
-        raise KernelError(f"choose kernel launch failed: {lib.tsched_error_string(err).decode()} ({err})")
-    LAUNCHES += 1
-    return choice, has, best
+    args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+            avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
+    if req.device.type == "cpu":
+        return _plain(args, weights, salt)
+    if req.device.type != "cuda":
+        raise ValueError(f"choose_block: unsupported device {req.device}")
+    device, b, n, r, widths = _check_base(args)
+    out = _launch(_library().tsched_choose_launch, "choose", args, (), (), (), weights, salt, device, b, n, r, widths)
+    if b:
+        LAUNCHES += 1
+    return out
+
+
+def choose_block_constrained(
+    req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+    avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
+    cons_pod: dict, masks: dict, weights, salt: int = 0,
+):
+    """Best feasible node per pod of one block in a constrained round: the
+    operands of :func:`choose_block`, plus ``cons_pod`` (the block's
+    CONSTRAINT_POD_KEYS bitmaps, [B, ·] float32) and ``masks`` (the round's
+    constraints.round_blocked_masks, [·, N] float32).  Returns (choice,
+    has, best) as choose_block does."""
+    global LAUNCHES_CONSTRAINED
+    args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
+            avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
+    if req.device.type == "cpu":
+        return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt)
+    if req.device.type != "cuda":
+        raise ValueError(f"choose_block_constrained: unsupported device {req.device}")
+    device, b, n, r, widths = _check_base(args)
+    pod_ops = constrained_pod_operands(cons_pod, masks)
+    node_ops = constrained_node_operands(masks)
+    names = ("blocked", "soft_spread", "spread_level", "preferred")
+    for name, po, no in zip(names, pod_ops, node_ops):
+        _check(f"{name} (pod)", po, torch.float32, (b, po.shape[1]), device)
+        _check(f"{name} (node)", no, torch.float32, (po.shape[1], n), device)
+    # Pointer order: blk_pod, blk_node, sps_pod, sps_node, spd_pod, spl_node, ppaw_pod, ppa_node.
+    ptrs = [t for pair in zip(pod_ops, node_ops) for t in pair]
+    w_topo = float(np.asarray(weights, dtype=np.float32)[5])
+    out = _launch(
+        _library().tsched_choose_constrained_launch, "choose_constrained", args, ptrs,
+        tuple(int(po.shape[1]) for po in pod_ops), (w_topo,), weights, salt, device, b, n, r, widths,
+    )
+    if b:
+        LAUNCHES_CONSTRAINED += 1
+    return out

@@ -53,7 +53,7 @@ INT32_MAX = 2**31 - 1
 INT32_MIN = -(2**31)
 
 # Constraint-cycle auctions stop after this many consecutive zero-acceptance
-# rounds (constrained slice; shared by every backend of the JAX package).
+# rounds (ops/assign.py; the JAX package's value).
 STALL_ROUNDS = 3
 
 
@@ -104,9 +104,10 @@ class PackedCluster:
     soft_taint_vocab: dict[tuple[str, str, str], int]
     pref_vocab: dict[tuple, int]
 
-    # Inter-pod constraint and interconnect-topology tensors, attached per
-    # cycle by a controller.  The port's cycle does not take them yet:
-    # backends/cuda.py refuses a cluster that carries either.
+    # Inter-pod constraint tensors (ops/constraints.ConstraintSet) and
+    # interconnect-topology tensors, attached per cycle by the caller.  The
+    # port's cycle takes the constraints; backends/cuda.py refuses a cluster
+    # that carries topology (not ported yet).
     constraints: object | None = None
     topology: object | None = None
 

@@ -15,6 +15,12 @@ NumPy/XLA tree bit for bit:
   h                 = (h ^ (h >> 15)) & 0xFFFF
   score             = where(w₂ > 0, ⌊score / w₂⌋·w₂, score) + w₂·(h / 65536)
 
+then, in constrained cycles, after the jitter (each term skipped when absent):
+
+  score            −= w₅·(sps_declares @ sp_penalty_node)     soft spread
+  score            −= (2·w₂)·(sp_declares @ sp_level_node)    hard-spread steering
+  score            += ppa_w @ ppa_cnt_node                    preferred inter-pod
+
 torch has no uint32 ``add`` or ``>>``, so the hash runs in int64 and masks
 to 32 bits; ranks and node indices are below 2³¹, so no product overflows.
 """
@@ -52,13 +58,20 @@ def score_block(
     pod_ntol_soft: torch.Tensor | None = None,
     node_taints_soft: torch.Tensor | None = None,
     salt: int | None = None,
+    pod_sps_declares: torch.Tensor | None = None,
+    sp_penalty_node: torch.Tensor | None = None,
+    pod_sp_declares: torch.Tensor | None = None,
+    sp_level_node: torch.Tensor | None = None,
+    pod_ppa_w: torch.Tensor | None = None,
+    ppa_cnt_node: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """[B, N] float32 score of a block of pods against all nodes.
 
     ``weights`` is the profile's float32 weight vector on the tensors'
     device (models/profiles.py ``weights()`` order); ``pod_idx``/``node_idx``
     are the global indices the jitter hash reads (the jitter is skipped when
-    either is None)."""
+    either is None).  The constraint terms take the pod bitmaps [B, ·] and
+    the round's node masks [·, N] (ops/constraints.round_blocked_masks)."""
     f32 = torch.float32
     # Scoring reads cpu/mem only (columns 0-1).
     pod_req = pod_req[:, :2]
@@ -80,4 +93,10 @@ def score_block(
         jw = weights[2]
         safe_w = torch.where(jw > 0, jw, 1.0)
         score = torch.where(jw > 0, torch.floor(score / safe_w) * safe_w, score) + jw * (h.to(f32) / 65536.0)
+    if pod_sps_declares is not None and sp_penalty_node is not None:
+        score = score - weights[5] * (pod_sps_declares @ sp_penalty_node)
+    if pod_sp_declares is not None and sp_level_node is not None:
+        score = score - (2.0 * weights[2]) * (pod_sp_declares @ sp_level_node)
+    if pod_ppa_w is not None and ppa_cnt_node is not None:
+        score = score + pod_ppa_w @ ppa_cnt_node
     return score.to(f32)
