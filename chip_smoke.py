@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds both choose kernels (unconstrained and constrained) from
-tpu_scheduler_torch/csrc/ with one nvcc call and, for each main path:
+Builds every kernel from tpu_scheduler_torch/csrc/ (one nvcc call per
+source, started together: choose.cu holds the choose kernels, bisect.cu the
+bisection kernels) and, for each main path:
 
 * unconstrained — holds the kernel bit for bit against its plain torch
   version on the card, holds a mid-size cycle on the card against the same
@@ -15,7 +16,18 @@ tpu_scheduler_torch/csrc/ with one nvcc call and, for each main path:
   constrained cycle: the same cluster with anti-affinity, hard and soft
   topology spread, positive and preferred pod affinity and extended
   resources at 10 % each, packed with ``pack_constraints`` (bench.py's
-  constrained row at its on-chip shape).
+  constrained row at its on-chip shape);
+* sharded — the dp × tp cycle (``parallel/sharded.ShardedBackend``) on
+  virtual shards of the one card (``make_mesh([cuda:0] * k, tp)``): the
+  per-shard choose with ``node_offset`` (kernel #2b) held against its plain
+  version and, merged over the node slices, against the unsplit launch; the
+  mid and constrained-row cycles held against ``CudaBackend``; the flagship
+  on (2, 2) and the constrained flagship on (1, 2), timed, held against the
+  unsharded cycles;
+* bisection — the experiments ``tpu_scheduler_torch/experiments/
+  bench_kernel_parts.py`` (kernel #4, every variant) and
+  ``bench_wide_kernel.py`` (kernel #3) at their full shape, and each kernel
+  held bit for bit against its plain version.
 
 Each phase prints one JSON line; any failure exits non-zero.  The last
 line is the device summary.  Exits 1 without a result when CUDA is not
@@ -27,9 +39,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
 import tpu_scheduler_torch.ops.assign as assign_mod
+import tpu_scheduler_torch.ops.bisect as bisect_mod
 import tpu_scheduler_torch.ops.choose as choose_mod
 from tpu_scheduler_torch.backends.cuda import CudaBackend
 from tpu_scheduler_torch.convert import constraints_to_device, to_device
@@ -53,7 +66,11 @@ from tpu_scheduler_torch.ops.choose import (
     constrained_pod_operands,
 )
 from tpu_scheduler_torch.ops.constraints import augment_round_state, pack_constraints, round_blocked_masks
+from tpu_scheduler_torch.experiments import bench_kernel_parts, bench_wide_kernel, time_cuda
+from tpu_scheduler_torch.experiments import card as nvidia_smi
 from tpu_scheduler_torch.ops.pack import pack_snapshot
+from tpu_scheduler_torch.parallel.mesh import make_mesh
+from tpu_scheduler_torch.parallel.sharded import ShardedBackend
 from tpu_scheduler_torch.testing import synth_cluster
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
@@ -78,14 +95,6 @@ CONS_FRACTIONS = dict(
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def block_args(arrays: dict, lo: int, hi: int) -> list:
@@ -166,20 +175,6 @@ def tie_case(device) -> list:
     ]
 
 
-def time_cuda(fn, reps: int) -> float:
-    """Milliseconds per call, CUDA events around ``reps`` calls after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def choose_bound_ms(
     b: int, n: int, r: int, widths: list[int], cons_widths: list[int] | None = None, cons_node_nnz: int = 0
 ) -> tuple[float, str]:
@@ -229,22 +224,7 @@ def flagship_breakdown(backend, packed, profile) -> dict:
     kernel (torch.profiler over the cycle), the device's idle share of the
     cycle's wall time, and the host-clock split of upload / auction /
     result fetch / binding construction (``schedule`` minus ``assign``)."""
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        backend.schedule(packed, profile)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []  # device-side events only (kernels, copies): host ops also carry their kernels' time
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((evt.key, dev_us / 1e3, evt.count))
-    rows.sort(key=lambda r: -r[1])
+    wall_ms, rows = profiled(lambda: backend.schedule(packed, profile))
     busy_ms = sum(r[1] for r in rows)
     choose_ms = sum(r[1] for r in rows if "choose_kernel" in r[0])
     copy_ms = sum(r[1] for r in rows if "Memcpy" in r[0] or "memcpy" in r[0])
@@ -433,22 +413,7 @@ def constrained_breakdown(backend, packed, profile) -> dict:
     the host-clock split of upload / auction, with the constraint engine's
     mask build and filter + commit timed inside the auction by
     synchronising wrappers (a separate, instrumented cycle)."""
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        backend.schedule(packed, profile)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((evt.key, dev_us / 1e3, evt.count))
-    rows.sort(key=lambda r: -r[1])
+    wall_ms, rows = profiled(lambda: backend.schedule(packed, profile))
     busy_ms = sum(r[1] for r in rows)
     cons_choose_ms = sum(r[1] for r in rows if "choose_kernel<true>" in r[0])
     copy_ms = sum(r[1] for r in rows if "Memcpy" in r[0] or "memcpy" in r[0])
@@ -499,20 +464,287 @@ def constrained_breakdown(backend, packed, profile) -> dict:
     }
 
 
+def build_kernels() -> dict:
+    """Build every kernel library at once, one nvcc per source started
+    together; prints each library's ptxas resource lines.  Returns
+    {library: build seconds}."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {"choose": pool.submit(choose_mod.build_library), "bisect": pool.submit(bisect_mod.build_bisect_library)}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, (_, _, log) in built.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
+                print(f"# ptxas ({name}): {line.strip()}", flush=True)
+    return {name: seconds for name, (_, seconds, _) in built.items()}
+
+
+def profiled(fn) -> tuple[float, list]:
+    """(wall ms, [(name, device ms, count)] sorted by device time) of one
+    call of ``fn`` ending in a synchronise, under torch.profiler: device-side
+    events only (kernels, copies) — host aten rows also carry their
+    kernels' time."""
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((evt.key, dev_us / 1e3, evt.count))
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, rows
+
+
+def device_split(wall_ms: float, rows: list, kernel_tag: str) -> dict:
+    busy_ms = sum(r[1] for r in rows)
+    kernel_ms = sum(r[1] for r in rows if kernel_tag in r[0])
+    copy_ms = sum(r[1] for r in rows if "Memcpy" in r[0] or "memcpy" in r[0])
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else "not measured",
+        "kernel_ms": kernel_ms, "copy_ms": copy_ms, "other_device_ms": busy_ms - kernel_ms - copy_ms,
+        "top_device": [[k[:60], round(ms, 4), n] for k, ms, n in rows[:8]],
+    }
+
+
+def node_slice(args: list, lo: int, hi: int) -> list:
+    """choose_block's positional tensors with the node tensors (positions
+    10-17) cut to rows [lo, hi)."""
+    return args[:10] + [t[lo:hi] for t in args[10:]]
+
+
+def mask_slice(masks: dict, lo: int, hi: int) -> dict:
+    """A round's node masks cut to columns [lo, hi) (``pa_inactive`` is
+    per term and stays whole)."""
+    return {k: v if k == "pa_inactive" else v[:, lo:hi].contiguous() for k, v in masks.items()}
+
+
+def outputs_equal(k_out: tuple, p_out: tuple) -> tuple[bool, float]:
+    """(equal, max_abs_err) of two (choice, has, best) triples: has equal,
+    choice equal where has holds, best bit-equal as int32 everywhere (-inf
+    included).  The error is the largest |best| difference over the
+    feasible pods (inf when has differs)."""
+    (kc, kh, kb), (pc, ph, pb) = k_out, p_out
+    torch.cuda.synchronize()
+    if not torch.equal(kh, ph):
+        return False, float("inf")
+    equal = torch.equal(kc[kh], pc[kh]) and torch.equal(kb.view(torch.int32), pb.view(torch.int32))
+    return bool(equal), float((kb[kh] - pb[kh]).abs().max()) if bool(kh.any()) else 0.0
+
+
+def sharded_offsets(name: str, args: list, weights, salt: int, cons_pod=None, masks=None) -> dict:
+    """Kernel #2b on one block: for tp = 2 and 4, each node slice's launch
+    with its global base as ``node_offset`` is bit-equal to its plain
+    version, and the slices merged on (score desc, index asc) are
+    bit-equal to the unsplit launch (choice, has, best)."""
+
+    def launch(fn, a, off, lm):
+        if cons_pod is None:
+            return fn(*a, weights, salt, node_offset=off)
+        return fn(*a, cons_pod, lm, weights, salt, node_offset=off)
+
+    kernel = choose_block if cons_pod is None else choose_block_constrained
+    plain = choose_block_plain if cons_pod is None else choose_block_constrained_plain
+    n = int(args[10].shape[0])
+    whole = launch(kernel, args, 0, masks)
+    rec = {"phase": "sharded_offsets", "kernel": kernel.__name__, "case": name, "B": int(args[0].shape[0]), "N": n,
+           "salt": salt, "slices": {}, "max_abs_err": 0.0}
+    for tp in (2, 4):
+        step = -(-n // tp)
+        best = choice = None
+        slices_equal = True
+        for lo in range(0, n, step):
+            hi = min(n, lo + step)
+            sl, lm = node_slice(args, lo, hi), (mask_slice(masks, lo, hi) if masks is not None else None)
+            kc, kh, kb = launch(kernel, sl, lo, lm)
+            equal, err = outputs_equal((kc, kh, kb), launch(plain, sl, lo, lm))
+            slices_equal &= equal
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            kc = kc + lo
+            if best is None:
+                best, choice = kb, kc
+            else:
+                take = (kb > best) | ((kb == best) & (kc < choice))
+                best, choice = torch.where(take, kb, best), torch.where(take, kc, choice)
+        merged_equal, _ = outputs_equal((choice, torch.isfinite(best), best), whole)
+        rec["slices"][str(tp)] = {"slice_vs_plain_equal": bool(slices_equal), "merged_vs_unsplit_equal": merged_equal,
+                                  "max_offset": (tp - 1) * step}
+        if not (slices_equal and merged_equal):
+            emit(rec)
+            raise SystemExit(f"kernel #2b ({name}, tp={tp}): a slice or the merge disagrees")
+    rec["feasible_pods"] = int(whole[1].sum())
+    emit(rec)
+    return rec
+
+
+def timed_and_held(phase: str, kernel_fn, plain_fn, reps: int, plain_reps: int) -> tuple[float, float, float]:
+    """(kernel ms, plain ms, max_abs_err): both timed by ``time_cuda``, and
+    the last output of each held against the other by ``outputs_equal``;
+    exits on a mismatch."""
+    last = {}
+    ms = time_cuda(lambda: last.__setitem__("kernel", kernel_fn()), reps=reps)
+    plain_ms = time_cuda(lambda: last.__setitem__("plain", plain_fn()), reps=plain_reps)
+    equal, err = outputs_equal(last["kernel"], last["plain"])
+    if not equal:
+        raise SystemExit(f"{phase}: the kernel and its plain version disagree at the shard shape")
+    return ms, plain_ms, err
+
+
+def cuda_mesh(k: int, tp: int):
+    """A (k / tp, tp) mesh of virtual shards on card 0."""
+    return make_mesh([torch.device("cuda", 0)] * k, tp=tp)
+
+
+def sharded_cycles(phase: str, packed, profile, mesh, reps: int, reference) -> tuple[dict, list]:
+    """``reps + 1`` cycles of ``ShardedBackend(mesh).schedule`` (the first
+    a warm-up), each timed on the host clock ending in a synchronise; the
+    launch counts of the run; every result held against ``reference``
+    (assigned, rounds)."""
+    backend = ShardedBackend(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    choose_mod.LAUNCHES = choose_mod.LAUNCHES_CONSTRAINED = 0
+    times, results = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(backend.schedule(packed, profile))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, launches_c = choose_mod.LAUNCHES, choose_mod.LAUNCHES_CONSTRAINED
+    equal = all(np.array_equal(r.assigned, reference.assigned) and r.rounds == reference.rounds for r in results)
+    res = results[-1]
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    per_cycle = (launches + launches_c) / (reps + 1)
+    rec = {
+        "phase": phase, "mesh": [dp, tp], "pods": packed.num_pods, "nodes": packed.num_nodes,
+        "rounds": res.rounds, "bound": len(res.bindings), "unschedulable": len(res.unschedulable),
+        "equal_to_unsharded": bool(equal), "warmup_seconds": times[0], "seconds": times[1:],
+        "median_seconds": statistics.median(times[1:]) if reps else None,
+        "choose_launches": launches, "choose_constrained_launches": launches_c,
+        "launches_per_cycle": per_cycle, "expected_launches_per_cycle": dp * tp * res.rounds,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    if not equal or per_cycle != dp * tp * res.rounds:
+        emit(rec)
+        raise SystemExit(f"{phase}: the sharded cycle disagrees with the unsharded one, or launched "
+                         f"{per_cycle} kernels per cycle against dp·tp·rounds = {dp * tp * res.rounds}")
+    check_bindings(packed, res.assigned)
+    return rec, results
+
+
+def bisect_bound_ms(p: int, n: int, k: int, variant: int, node_nnz: int) -> tuple[float, str]:
+    """Least time for one bisection launch (kernel #4 variants 0-3, #3 as
+    variant 4): each input byte read once and the [P] int32 output written
+    once over HBM bandwidth; and the operations over the float32 peak
+    (integer ops at that rate too), per pair — v0: 2 fit compares, 1 and,
+    1 conversion, 1 argmax compare; v1: + compare, select, add; v2: + 4
+    integer ops, 2 conversions, 2 divisions, 8 for LR/BA, 2 adds; v3: + 6
+    for the hash, 1 conversion, 1 division, 1 add; the wide kernel: the v3
+    terms less the fit add, plus 3 for the mask and 1 select — and 2 ops per
+    pod for each NON-ZERO node entry of the count operand (``node_nnz``; a
+    zero adds nothing), none for v0."""
+    per_pair = {0: 5, 1: 8, 2: 26, 3: 35, 4: 38}[variant]
+    pod_bytes = 8 * 4 + k * 4 if variant == 4 else 2 * 4 + k * 4 + 4 + 4
+    nbytes = p * pod_bytes + n * (8 * 4 + k * 4) + p * 4
+    ops = p * n * per_pair + (2 * p * node_nnz if variant >= 1 else 0)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tie_parts_inputs(p: int, n: int, device) -> tuple:
+    """Kernel #4's inputs with capacities drawn from {0, 500, 1000} and the
+    first 5 nodes full: v0's score ties across most nodes, and the first
+    fitting node varies with the request."""
+    req, sel, selc, ranks, info, labels = bench_kernel_parts.make_inputs(p, n, seed=7)
+    g = torch.Generator().manual_seed(7)
+    info[0:4] = torch.randint(0, 3, (4, n), generator=g, dtype=torch.int32) * 500
+    info[0:2, :5] = 0
+    return tuple(t.to(device) for t in (req, sel, selc, ranks, info, labels))
+
+
+def bisect_phase(device) -> list[dict]:
+    """Kernels #3 and #4: the experiments' entry points at full size with
+    the launch counts set to 0 just before and read just after; then each
+    kernel against its plain version, bit for bit, on a remainder case (P,
+    N multiples of no tile), a tie-heavy case and the full size, with the
+    plain version's time and the bound."""
+    bisect_mod.LAUNCHES_PARTS = [0, 0, 0, 0]
+    bisect_mod.LAUNCHES_WIDE = 0
+    parts = bench_kernel_parts.measure(device, reps=10)
+    wide = bench_wide_kernel.measure(device, reps=10)
+    launches = list(bisect_mod.LAUNCHES_PARTS) + [bisect_mod.LAUNCHES_WIDE]
+    emit({"phase": "bisect_experiments", "parts": parts, "wide": wide, "launches": launches})
+    if min(launches) == 0:
+        raise SystemExit(f"bisection experiments: a kernel never launched ({launches})")
+
+    full_parts = bench_kernel_parts.make_inputs(device=device)
+    full_wide = bench_wide_kernel.make_inputs(device=device)
+    cases = {
+        "remainder_1003x2049": (bench_kernel_parts.make_inputs(1003, 2049, seed=3, device=device),
+                                bench_wide_kernel.make_inputs(1003, 2049, seed=3, device=device)),
+        "ties_v0_4099x3001": (tie_parts_inputs(4099, 3001, device), None),
+        "full": (full_parts, full_wide),
+    }
+    records = []
+    for variant in range(5):
+        name = NAMES_BISECT[variant]
+        equal, max_abs_err = {}, 0.0
+        for case, (pi, wi) in cases.items():
+            if variant == 4:
+                if wi is None:
+                    continue
+                k_out, p_out = bisect_mod.choose_wide(*wi), bisect_mod.choose_wide_plain(*wi)
+            else:
+                if case.startswith("ties") and variant not in (0, 2):
+                    continue
+                k_out = bisect_mod.choose_parts(*pi, variant=variant)
+                p_out = bisect_mod.choose_parts_plain(*pi, variant=variant)
+            torch.cuda.synchronize()
+            equal[case] = bool(torch.equal(k_out, p_out))
+            max_abs_err = max(max_abs_err, float((k_out - p_out).abs().max()))
+        if variant == 4:
+            p, n, k = full_wide[0].shape[0], full_wide[2].shape[1], full_wide[1].shape[1]
+            nnz = int((full_wide[3] != 0).sum())
+            kernel_ms = wide["ms"]
+            plain_ms = time_cuda(lambda: bisect_mod.choose_wide_plain(*full_wide), reps=2)
+        else:
+            p, n, k = full_parts[0].shape[0], full_parts[4].shape[1], full_parts[1].shape[1]
+            nnz = int((full_parts[5] != 0).sum())
+            kernel_ms = parts[variant]["ms"]
+            plain_ms = time_cuda(lambda: bisect_mod.choose_parts_plain(*full_parts, variant=variant), reps=2)  # noqa: B023
+        bound_ms, bound_by = bisect_bound_ms(p, n, k, variant, nnz)
+        rec = {"phase": "bisect_kernels", "kernel": name, "P": p, "N": n, "equal": equal, "max_abs_err": max_abs_err,
+               "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "gpair_per_s": p * n / kernel_ms / 1e6,
+               "launches": launches[variant]}
+        emit(rec)
+        records.append(rec)
+        if not all(equal.values()):
+            raise SystemExit(f"bisection kernel {name}: kernel and plain disagree on {equal}")
+    return records
+
+
+NAMES_BISECT = ("bisect_parts_v0", "bisect_parts_v1", "bisect_parts_v2", "bisect_parts_v3", "bisect_wide")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing measured", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     smi = nvidia_smi()
-    lib_path, build_s, build_log = choose_mod.build_library()
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"# ptxas: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    build_s = build_kernels()
     emit({
         "phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_seconds": build_s,
-        "library": str(lib_path.name),
+        "build_wall_seconds": time.perf_counter() - t0,
     })
 
     # Flagship cluster on the host (set-up, not timed as a cycle).
@@ -565,7 +797,23 @@ def main() -> int:
     bound_ms, bound_by = choose_bound_ms(8192, flagship.padded_nodes, flagship.node_avail.shape[1], widths)
     emit({"phase": "choose_timing", "B": 8192, "N": flagship.padded_nodes, "ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "nvidia_smi": smi})
-    del a_flag, flag_args
+
+    # Kernel #2b: the flagship block split into tp node slices.
+    offsets_rec = sharded_offsets("flagship_block", flag_args, w_thr, 1)
+    # ... and timed at the (2, 2) mesh's shard shape: half the pod rows
+    # against the second node column.
+    p_local, n_local = flagship.padded_pods // 2, flagship.padded_nodes // 2
+    shard_args = node_slice(block_args(a_flag, 0, p_local), n_local, 2 * n_local)
+    shard_ms, shard_plain_ms, shard_err = timed_and_held(
+        "choose_sharded_timing", lambda: choose_block(*shard_args, w_thr, 1, node_offset=n_local),
+        lambda: choose_block_plain(*shard_args, w_thr, 1, node_offset=n_local), reps=10, plain_reps=2,
+    )
+    shard_max_abs_err = max(offsets_rec["max_abs_err"], shard_err)
+    shard_bound_ms, shard_bound_by = choose_bound_ms(p_local, n_local, flagship.node_avail.shape[1], widths)
+    emit({"phase": "choose_sharded_timing", "B": p_local, "N": n_local, "node_offset": n_local, "ms": shard_ms,
+          "plain_ms": shard_plain_ms, "bound_ms": shard_bound_ms, "bound_by": shard_bound_by, "equal": True,
+          "max_abs_err": shard_err, "nvidia_smi": smi})
+    del a_flag, flag_args, shard_args
     torch.cuda.empty_cache()
 
     # Phase 3: a mid cluster with every unconstrained feature, card vs CPU.
@@ -595,6 +843,9 @@ def main() -> int:
     if not parity or mid_launches == 0:
         raise SystemExit("mid-cluster cycle: card and CPU disagree, or the kernel never ran")
     check_bindings(mid, r_gpu.assigned)
+    for k, tp in ((2, 2), (4, 2)):  # (1, 2) and (2, 2) meshes of virtual shards
+        rec, _ = sharded_cycles("sharded_cycle_parity", mid, mid_profile, cuda_mesh(k, tp), 0, r_gpu)
+        emit(rec)
 
     # Phase 4: the flagship cycle through the user's entry point.
     backend = CudaBackend()
@@ -621,6 +872,14 @@ def main() -> int:
           "invariants": "ok", "nvidia_smi": smi})
 
     emit(flagship_breakdown(backend, flagship, throughput))
+
+    # The sharded flagship: the user's entry point on a (2, 2) mesh.
+    mesh22 = cuda_mesh(4, 2)
+    rec, _ = sharded_cycles("sharded_flagship", flagship, throughput, mesh22, 3, res)
+    sharded_launches = rec["choose_launches"]
+    emit(dict(rec, bound_pods=20_000, unsharded_median_seconds=statistics.median(times[1:]), nvidia_smi=smi))
+    wall_ms, rows = profiled(lambda: ShardedBackend(mesh22).schedule(flagship, throughput))
+    emit(dict(device_split(wall_ms, rows, "choose_kernel"), phase="sharded_flagship_breakdown", mesh=[2, 2]))
     del flagship, snap, results, res
     torch.cuda.empty_cache()
 
@@ -671,6 +930,7 @@ def main() -> int:
     rec, _ = compare_constrained("flagship_block_round0", cflag_args, cflag_cons, masks, w_thr, salt=1)
     crecs.append(rec)
     cons_max_abs_err = max(r["max_abs_err"] for r in crecs)
+    coffsets_rec = sharded_offsets("flagship_block_round0", cflag_args, w_thr, 1, cflag_cons, masks)
 
     ckernel_ms = time_cuda(lambda: choose_block_constrained(*cflag_args, cflag_cons, masks, w_thr, 1), reps=10)
     cplain_ms = time_cuda(lambda: choose_block_constrained_plain(*cflag_args, cflag_cons, masks, w_thr, 1), reps=3)
@@ -684,7 +944,30 @@ def main() -> int:
           "plain_ms": cplain_ms, "bound_ms": cbound_ms, "bound_by": cbound_by, "cons_widths": cons_widths,
           "cons_node_nnz": nnz, "ppa_partial_sum_bound": ppa_partial_sum_bound(cflag_cons, masks),
           "nvidia_smi": smi})
-    del arrays, masks, cflag_args, cflag_cons
+    del cflag_args, cflag_cons
+    # Kernel #2b constrained, timed at the (1, 2) mesh's shard shape: every
+    # pod row against the second node column, round-0 masks.
+    cn_local = cflag.padded_nodes // 2
+    cshard_args = node_slice(block_args(arrays, 0, cflag.padded_pods), cn_local, 2 * cn_local)
+    cshard_cons, cshard_masks = block_cons(arrays, 0, cflag.padded_pods), mask_slice(masks, cn_local, 2 * cn_local)
+    cshard_ms, cshard_plain_ms, cshard_err = timed_and_held(
+        "choose_constrained_sharded_timing",
+        lambda: choose_block_constrained(*cshard_args, cshard_cons, cshard_masks, w_thr, 1, node_offset=cn_local),
+        lambda: choose_block_constrained_plain(
+            *cshard_args, cshard_cons, cshard_masks, w_thr, 1, node_offset=cn_local),
+        reps=3, plain_reps=1,
+    )
+    cshard_max_abs_err = max(coffsets_rec["max_abs_err"], cshard_err)
+    cshard_nnz = sum(int((t != 0).sum()) for t in constrained_node_operands(cshard_masks))
+    cshard_bound_ms, cshard_bound_by = choose_bound_ms(
+        cflag.padded_pods, cn_local, cflag.node_avail.shape[1], cwidths,
+        [int(t.shape[1]) for t in constrained_pod_operands(cshard_cons, cshard_masks)], cshard_nnz,
+    )
+    emit({"phase": "choose_constrained_sharded_timing", "B": cflag.padded_pods, "N": cn_local,
+          "node_offset": cn_local, "ms": cshard_ms, "plain_ms": cshard_plain_ms, "bound_ms": cshard_bound_ms,
+          "bound_by": cshard_bound_by, "cons_node_nnz": cshard_nnz, "equal": True, "max_abs_err": cshard_err,
+          "nvidia_smi": smi})
+    del arrays, masks, cshard_args, cshard_cons, cshard_masks
     torch.cuda.empty_cache()
 
     # bench.py's constrained row at its CPU shape, card vs CPU.  The JAX
@@ -714,6 +997,13 @@ def main() -> int:
         raise SystemExit("mid constrained cycle: card, CPU and the JAX record disagree, or the kernel never ran")
     check_bindings(cmid, r_gpu.assigned)
     check_anti_affinity(cmid, r_gpu.assigned)
+    for k, tp in ((2, 2), (4, 2)):
+        rec, results = sharded_cycles("sharded_cycle_parity", cmid, throughput, cuda_mesh(k, tp), 0, r_gpu)
+        rec["matches_jax_record"] = (results[-1].rounds, len(results[-1].bindings)) == (18, 24_445)
+        emit(rec)
+        if not rec["matches_jax_record"]:
+            raise SystemExit("sharded constrained row: not the JAX record's 18 rounds and 24,445 bound")
+        check_anti_affinity(cmid, results[-1].assigned)
 
     # The flagship constrained cycle through the user's entry point.
     torch.cuda.reset_peak_memory_stats()
@@ -745,6 +1035,23 @@ def main() -> int:
           "invariants": "ok", "nvidia_smi": smi})
     emit(constrained_breakdown(backend, cflag, throughput))
 
+    # The sharded constrained flagship on a (1, 2) mesh: one warm-up, two
+    # timed cycles, each equal to the unsharded cycle.
+    mesh12 = cuda_mesh(2, 2)
+    rec, sresults = sharded_cycles("sharded_constrained_flagship", cflag, throughput, mesh12, 2, res)
+    sharded_claunches = rec["choose_constrained_launches"]
+    if (sresults[-1].rounds, len(sresults[-1].bindings)) != (55, 97_637):
+        raise SystemExit("sharded constrained flagship: not 55 rounds and 97,637 bound")
+    check_anti_affinity(cflag, sresults[-1].assigned)
+    emit(dict(rec, unsharded_median_seconds=statistics.median(times[1:]), nvidia_smi=smi))
+    wall_ms, rows = profiled(lambda: ShardedBackend(mesh12).schedule(cflag, throughput))
+    emit(dict(device_split(wall_ms, rows, "choose_kernel<true>"), phase="sharded_constrained_breakdown", mesh=[1, 2]))
+    del cflag, csnap, results, sresults, res
+    torch.cuda.empty_cache()
+
+    # ---- the bisection kernels (experiments) -------------------------------
+    brecs = bisect_phase(device)
+
     emit({"kernels": [
         {
             "name": "choose", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
@@ -757,6 +1064,29 @@ def main() -> int:
             "max_abs_err": cons_max_abs_err, "ms": ckernel_ms, "plain_ms": cplain_ms, "bound_ms": cbound_ms,
             "bound_by": cbound_by, "library_ms": None,
         },
+        {
+            "name": "choose_sharded", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
+            "replaces": "tpu_scheduler/parallel/sharded.py:264", "launches": sharded_launches,
+            "max_abs_err": shard_max_abs_err,
+            "ms": shard_ms, "plain_ms": shard_plain_ms, "bound_ms": shard_bound_ms, "bound_by": shard_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "choose_constrained_sharded", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
+            "replaces": "tpu_scheduler/parallel/sharded.py:264", "launches": sharded_claunches,
+            "max_abs_err": cshard_max_abs_err,
+            "ms": cshard_ms, "plain_ms": cshard_plain_ms, "bound_ms": cshard_bound_ms,
+            "bound_by": cshard_bound_by, "library_ms": None,
+        },
+    ] + [
+        {
+            "name": r["kernel"], "route": "cuda", "source": "tpu_scheduler_torch/csrc/bisect.cu",
+            "replaces": "scripts/bench_wide_kernel.py:88" if r["kernel"] == "bisect_wide"
+            else "scripts/bench_kernel_parts.py:78",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        }
+        for r in brecs
     ]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,8 +76,13 @@ class CudaBackend(SchedulingBackend):
 
 
 def make_backend(name: str, **kw) -> SchedulingBackend:
-    """The port's backend factory (the JAX package's factory knows no
-    "cuda")."""
+    """The port's backend factory (the JAX package's factory knows neither
+    name): "cuda" (``CudaBackend(device=...)``) or "cuda-sharded"
+    (``parallel.sharded.ShardedBackend(mesh=..., tp=...)``)."""
     if name == "cuda":
         return CudaBackend(**kw)
-    raise ValueError(f"unknown backend {name!r} (expected 'cuda')")
+    if name == "cuda-sharded":
+        from ..parallel.sharded import ShardedBackend
+
+        return ShardedBackend(**kw)
+    raise ValueError(f"unknown backend {name!r} (expected 'cuda' or 'cuda-sharded')")

@@ -23,6 +23,12 @@
 //           operand is 0/1, so the sum is exact in any order
 //   score   after the jitter, in this order: − w5·(sps_pod·sps_node),
 //           − (2·w2)·(spd_pod·spl_node), + ppaw_pod·ppa_node
+// Both instances also serve kernel #2b, the per-shard choose of the sharded
+// cycle (tpu_scheduler/parallel/sharded.py:261-270, choose_block_pallas with
+// node_offset and return_best): node_offset is the global index of node 0
+// of a tp shard's node slice, and the jitter hash reads n + node_offset
+// (uint32), so every shard scores as the unsharded launch does; choice stays
+// local to the slice and best is the cross-shard merge operand.
 // Node-side constraint operands are [W, N] (as round_blocked_masks makes
 // them): threads striding over n read them coalesced.  A feature absent
 // from the cycle has width 0 and its loop never runs (no term is added).

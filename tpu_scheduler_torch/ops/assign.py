@@ -49,7 +49,7 @@ from .choose import CONSTRAINT_POD_KEYS, choose_block, choose_block_constrained
 from .constraints import augment_round_state, constraint_commit, constraint_filter, round_blocked_masks
 from .pack import INT32_MAX, STALL_ROUNDS
 
-__all__ = ["assign_cycle", "split_device_arrays"]
+__all__ = ["accept_claims", "assign_cycle", "commit_claims", "split_device_arrays"]
 
 # Pod-side keys the choose step reads, in choose_block's argument order.
 _CHOOSE_KEYS = (
@@ -174,23 +174,17 @@ def _choose(avail, ps: dict, n_active: int, nodes: dict, weights, block: int, sa
     return choice, has
 
 
-def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, block: int, cons: _Constraints | None):
-    """One auction round: choose, accept, (constraint filter and commit),
-    commit capacity, compact.  Returns (avail, ps, n_active) — n_active read
-    to the host; ``cons`` is updated in place."""
-    p = ps["pod_req"].shape[0]
+def accept_claims(ch: torch.Tensor, claim: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """The accept step: [P] bool, the claims that fit.  ``ch`` [P] int64 is
+    each pod's claimed node row in priority order (``avail.shape[0]`` for a
+    non-claimant), ``claim`` [P, R] int64 its request (0 for a
+    non-claimant).  A stable sort by node groups each node's claimants in
+    priority order; a pod is accepted when the exact int64 prefix of its
+    node's claims up to and including its own, clamped to INT32_MAX (the JAX
+    package's saturating int32 scan), fits the node's remaining capacity."""
+    p = ch.shape[0]
     n = avail.shape[0]
-    device = avail.device
-    masks = None
-    if cons is not None:
-        masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
-    choice, has = _choose(avail, ps, n_active, nodes, weights, block, rounds, masks)
-    cand = ps["active"] & has
-    ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
-    claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
-
-    # Group claimants per node; the stable sort keeps priority order within
-    # each node.  Exact int64 segmented prefix, clamped to INT32_MAX.
+    device = ch.device
     order = torch.argsort(ch, stable=True)
     ch_s = ch[order]
     claim_s = claim[order]
@@ -205,6 +199,32 @@ def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, bl
     acc_s = (within <= avail_ext[ch_s]).all(-1) & (ch_s < n)
     accepted = torch.empty_like(acc_s)
     accepted[order] = acc_s
+    return accepted
+
+
+def commit_claims(avail: torch.Tensor, ch: torch.Tensor, claim: torch.Tensor, accepted: torch.Tensor) -> torch.Tensor:
+    """The commit step: the accepted claims scatter-subtracted from ``avail``
+    [n, R] int32 (``ch``/``claim`` as for :func:`accept_claims`).  Returns a
+    new tensor; ``avail`` is left as it was."""
+    n = avail.shape[0]
+    dec = torch.zeros((n + 1, avail.shape[1]), dtype=torch.int64, device=avail.device)
+    dec.index_add_(0, ch, torch.where(accepted[:, None], claim, 0))
+    return (avail.to(torch.int64) - dec[:n]).to(torch.int32)
+
+
+def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, block: int, cons: _Constraints | None):
+    """One auction round: choose, accept, (constraint filter and commit),
+    commit capacity, compact.  Returns (avail, ps, n_active) — n_active read
+    to the host; ``cons`` is updated in place."""
+    n = avail.shape[0]
+    masks = None
+    if cons is not None:
+        masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
+    choice, has = _choose(avail, ps, n_active, nodes, weights, block, rounds, masks)
+    cand = ps["active"] & has
+    ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
+    claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
+    accepted = accept_claims(ch, claim, avail)
 
     if cons is not None:
         # Within-round conflicts are deferred (they stay active); the
@@ -216,9 +236,7 @@ def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, bl
 
     ps["assigned"] = torch.where(accepted, choice, ps["assigned"])
     ps["acc_round"] = torch.where(accepted, rounds, ps["acc_round"])
-    dec = torch.zeros((n + 1, avail.shape[1]), dtype=torch.int64, device=device)
-    dec.index_add_(0, ch, torch.where(accepted[:, None], ps["pod_req"], 0).to(torch.int64))
-    avail = (avail.to(torch.int64) - dec[:n]).to(torch.int32)
+    avail = commit_claims(avail, ch, claim, accepted)
     active = cand & ~accepted
     if cons is not None and cons.hard_pa:
         # A pod placed this round can activate a declarer's positive-affinity

@@ -22,6 +22,14 @@ digest) and bound with ``ctypes``: plain C launchers, no PyTorch headers,
 so the build takes seconds.  ``LAUNCHES`` and ``LAUNCHES_CONSTRAINED``
 count each kernel's launches, so a run can show that its main path went
 through the kernels.
+
+``node_offset`` shifts the jitter hash's node indices when the node tensors
+are one tp shard of a mesh (parallel/sharded.py: the per-shard choose that
+replaces ``choose_block_pallas(..., node_offset=, return_best=True)``); the
+returned ``choice`` stays local to the slice and ``best`` is the score the
+cross-shard merge compares.  The JAX kernel carries the offset as a float32
+(``pallas_choose.py:451``, read back at ``:303``), exact only below 2^24, so
+larger offsets are refused.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ __all__ = [
     "KernelError",
     "LAUNCHES",
     "LAUNCHES_CONSTRAINED",
+    "MAX_NODE_OFFSET",
 ]
 
 # Kernel launches since the counter was last set to 0: each wrapper's CUDA
@@ -77,10 +86,12 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "choose.cu"
 _BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 _LIB_NAME = "libtpu_scheduler_torch_kernels.so"
+# Offsets at or above this are not exact in the JAX kernel's float32 slot.
+MAX_NODE_OFFSET = 1 << 24
 
 
 class KernelError(RuntimeError):
-    """The choose kernel could not be built, loaded or launched."""
+    """A kernel could not be built, loaded or launched."""
 
 
 def _nvcc() -> str:
@@ -90,23 +101,24 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise KernelError("nvcc not found: the choose kernel is built from csrc/choose.cu at first use")
+    raise KernelError("nvcc not found: the kernels are built from csrc/*.cu at first use")
 
 
-def build_library() -> tuple[pathlib.Path, float, str]:
-    """Build (or find built) the kernel library for this source.  Returns
+def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> tuple[pathlib.Path, float, str]:
+    """Build (or find built) the kernel library of one CUDA source (default:
+    csrc/choose.cu) into build/torch_kernels/<source digest>/.  Returns
     (path, build seconds — 0.0 when already built, compiler output)."""
-    src = _SOURCE.read_bytes()
+    src = source.read_bytes()
     out_dir = _BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
-    lib = out_dir / _LIB_NAME
+    lib = out_dir / lib_name
     if lib.exists():
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
+    tmp = out_dir / f".{lib_name}.{os.getpid()}"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-fmad=false",  # no FMA contraction: results must round like the unfused reference tree
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SOURCE),
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source),
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -134,10 +146,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _plain(args, weights, salt, blocked=None, score_terms=None):
+def _check_offset(node_offset: int) -> int:
+    node_offset = int(node_offset)
+    if not 0 <= node_offset < MAX_NODE_OFFSET:
+        raise ValueError(f"node_offset {node_offset} outside [0, 2^24): the reference kernel carries it as a float32")
+    return node_offset
+
+
+def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None):
     """feasibility (minus ``blocked``) + score (plus ``score_terms``) +
     ``torch.argmax``, which returns the FIRST index among equal maxima
-    (jnp.argmax's rule) and 0 for an all ``-inf`` row."""
+    (jnp.argmax's rule) and 0 for an all ``-inf`` row.  The jitter hash
+    reads node indices ``node_offset + [0, N)``."""
     (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
      avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft) = args
     if req.is_cuda:
@@ -148,7 +168,7 @@ def _plain(args, weights, salt, blocked=None, score_terms=None):
     m = feasibility_block(req, sel, selc, active, avail, labels, valid, ntol, taints, aff, has_aff, node_aff)
     if blocked is not None:
         m = m & ~blocked
-    node_idx = torch.arange(avail.shape[0], device=req.device)
+    node_idx = torch.arange(avail.shape[0], device=req.device) + _check_offset(node_offset)
     sc = score_block(
         req, alloc, avail, w, ranks, node_idx,
         pod_pref_w=pref_w, node_pref=node_pref, pod_ntol_soft=ntol_soft, node_taints_soft=taints_soft, salt=salt,
@@ -163,20 +183,20 @@ def _plain(args, weights, salt, blocked=None, score_terms=None):
 def choose_block_plain(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    weights, salt: int = 0,
+    weights, salt: int = 0, node_offset: int = 0,
 ):
     """The plain torch version: masks.feasibility_block + score.score_block
     + argmax.  Returns (choice [B] int32, has [B] bool, best [B] float32 —
     the score at ``choice``, −inf where nothing is feasible)."""
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
-    return _plain(args, weights, salt)
+    return _plain(args, weights, salt, node_offset)
 
 
 def choose_block_constrained_plain(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    cons_pod: dict, masks: dict, weights, salt: int = 0,
+    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0,
 ):
     """The plain torch version of the constrained choose: feasibility &
     ~constraints.blocked_block, then score_block with the round's constraint
@@ -194,7 +214,7 @@ def choose_block_constrained_plain(
         pod_ppa_w=cons_pod["pod_ppa_w"] if soft_pa else None,
         ppa_cnt_node=masks.get("ppa_cnt_node"),
     )
-    return _plain(args, weights, salt, blocked_block(cons_pod, masks), terms)
+    return _plain(args, weights, salt, node_offset, blocked_block(cons_pod, masks), terms)
 
 
 def constrained_node_operands(masks: dict) -> tuple:
@@ -273,9 +293,12 @@ def _check_base(args) -> tuple:
     return device, b, n, r, (L, T, A, A2, Ts)
 
 
-def _launch(fn, name: str, args, extra_ptrs, extra_ints, extra_floats, weights, salt, device, b, n, r, widths):
+def _launch(
+    fn, name: str, args, extra_ptrs, extra_ints, extra_floats, weights, salt, node_offset, device, b, n, r, widths
+):
     """Allocate the outputs and launch one kernel on the current stream;
-    raises KernelError when the launch is refused."""
+    raises KernelError when the launch is refused.  ``node_offset`` (checked
+    to lie in [0, 2^24)) travels as a c_uint32."""
     choice = torch.empty((b,), dtype=torch.int32, device=device)
     has = torch.empty((b,), dtype=torch.bool, device=device)
     best = torch.empty((b,), dtype=torch.float32, device=device)
@@ -287,7 +310,7 @@ def _launch(fn, name: str, args, extra_ptrs, extra_ints, extra_floats, weights, 
         err = fn(
             *(t.data_ptr() for t in args), *(t.data_ptr() for t in extra_ptrs),
             b, n, r, *widths, *extra_ints,
-            *(float(x) for x in w[:5]), *extra_floats, int(salt) & 0xFFFFFFFF, 0,
+            *(float(x) for x in w[:5]), *extra_floats, int(salt) & 0xFFFFFFFF, node_offset,
             choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
         )
     if err != 0:
@@ -298,7 +321,7 @@ def _launch(fn, name: str, args, extra_ptrs, extra_ints, extra_floats, weights, 
 def choose_block(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    weights, salt: int = 0,
+    weights, salt: int = 0, node_offset: int = 0,
 ):
     """Best feasible node per pod of one block.
 
@@ -308,17 +331,22 @@ def choose_block(
     input).  Node side, in the packed [N, ·] layout: avail / alloc [N,R]
     int32, valid [N] bool, labels [N,L] / taints [N,T] / node_aff [N,A] /
     node_pref [N,A2] / taints_soft [N,Ts] float32.  ``weights``: the
-    profile's float32 weight vector (host); ``salt``: the auction round.
-    Returns (choice [B] int32, has [B] bool, best [B] float32)."""
+    profile's float32 weight vector (host); ``salt``: the auction round;
+    ``node_offset``: the global index of node row 0 (a tp shard's base).
+    Returns (choice [B] int32, local to the slice; has [B] bool; best [B]
+    float32)."""
     global LAUNCHES
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
     if req.device.type == "cpu":
-        return _plain(args, weights, salt)
+        return _plain(args, weights, salt, node_offset)
     if req.device.type != "cuda":
         raise ValueError(f"choose_block: unsupported device {req.device}")
     device, b, n, r, widths = _check_base(args)
-    out = _launch(_library().tsched_choose_launch, "choose", args, (), (), (), weights, salt, device, b, n, r, widths)
+    out = _launch(
+        _library().tsched_choose_launch, "choose", args, (), (), (), weights, salt, _check_offset(node_offset),
+        device, b, n, r, widths,
+    )
     if b:
         LAUNCHES += 1
     return out
@@ -327,7 +355,7 @@ def choose_block(
 def choose_block_constrained(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    cons_pod: dict, masks: dict, weights, salt: int = 0,
+    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0,
 ):
     """Best feasible node per pod of one block in a constrained round: the
     operands of :func:`choose_block`, plus ``cons_pod`` (the block's
@@ -338,7 +366,7 @@ def choose_block_constrained(
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
     if req.device.type == "cpu":
-        return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt)
+        return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset)
     if req.device.type != "cuda":
         raise ValueError(f"choose_block_constrained: unsupported device {req.device}")
     device, b, n, r, widths = _check_base(args)
@@ -353,7 +381,8 @@ def choose_block_constrained(
     w_topo = float(np.asarray(weights, dtype=np.float32)[5])
     out = _launch(
         _library().tsched_choose_constrained_launch, "choose_constrained", args, ptrs,
-        tuple(int(po.shape[1]) for po in pod_ops), (w_topo,), weights, salt, device, b, n, r, widths,
+        tuple(int(po.shape[1]) for po in pod_ops), (w_topo,), weights, salt, _check_offset(node_offset),
+        device, b, n, r, widths,
     )
     if b:
         LAUNCHES_CONSTRAINED += 1
