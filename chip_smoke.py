@@ -16,7 +16,11 @@ bisection kernels) and, for each main path:
   constrained cycle: the same cluster with anti-affinity, hard and soft
   topology spread, positive and preferred pod affinity and extended
   resources at 10 % each, packed with ``pack_constraints`` (bench.py's
-  constrained row at its on-chip shape);
+  constrained row at its on-chip shape).  The kernel is held where its
+  per-tile live-column lists could go wrong (tiles without an active pod,
+  lists at the full width, −0.0 preferred products, a dense mid-cycle
+  state) and timed at the shapes the cycles launch, the late sharded round
+  included, with each shape's live-column histogram;
 * sharded — the dp × tp cycle (``parallel/sharded.ShardedBackend``) on
   virtual shards of the one card (``make_mesh([cuda:0] * k, tp)``): the
   per-shard choose with ``node_offset`` (kernel #2b) held against its plain
@@ -52,6 +56,7 @@ from torch.profiler import profile as torch_profile
 import tpu_scheduler_torch.ops.assign as assign_mod
 import tpu_scheduler_torch.ops.bisect as bisect_mod
 import tpu_scheduler_torch.ops.choose as choose_mod
+import tpu_scheduler_torch.parallel.sharded as sharded_mod
 from tpu_scheduler_torch.backends.cuda import CudaBackend
 from tpu_scheduler_torch.convert import constraints_to_device, to_device
 from tpu_scheduler_torch.models.profiles import PROFILES
@@ -64,6 +69,7 @@ from tpu_scheduler_torch.ops.choose import (
     choose_block_plain,
     constrained_node_operands,
     constrained_pod_operands,
+    tile_live_mask,
 )
 from tpu_scheduler_torch.ops.constraints import augment_round_state, pack_constraints, round_blocked_masks
 from tpu_scheduler_torch.experiments import bench_kernel_parts, bench_wide_kernel, time_cuda
@@ -176,29 +182,58 @@ def tie_case(device) -> list:
 
 
 def choose_bound_ms(
-    b: int, n: int, r: int, widths: list[int], cons_widths: list[int] | None = None, cons_node_nnz: int = 0
+    b: int, n: int, r: int, widths: list[int], cons_widths: list[int] | None = None, cons_products: int = 0,
+    active: int | None = None,
 ) -> tuple[float, str]:
-    """Least time for one choose launch: each input byte read once, each
-    output written once, over HBM bandwidth; and the operations it does
-    over the float32 peak (integer ops counted at that rate too).  Per
-    (pod, node) pair: r fit compares, 2 ops per dot-product term, and 45
-    scalar ops (3 predicate compares + 2 masks, 4 integer ops and 2
-    conversions for used_after, 2 divisions, 8 for LR/BA, 3 to combine,
-    2 + 2 for the soft terms, 6 for the hash, 3 to quantize, 3 for the
-    jitter term, 1 conversion, 1 argmax compare, 3 selects).
+    """Least time for one choose launch: the bytes it must move over HBM
+    bandwidth, and the operations it does over the float32 peak (integer
+    ops counted at that rate too).  An inactive pod's outputs are fixed, so
+    only the ``active`` pods of the ``b`` (all of them when None) need their
+    rows read (req, features, selc, has_aff, rank and, constrained, the
+    constraint rows) and their pair work; every pod's active flag is read
+    and every output written; each node row is read once.  Per (active pod,
+    node) pair: r fit compares, 2 ops per dot-product term, and 45 scalar ops (3
+    predicate compares + 2 masks, 4 integer ops and 2 conversions for
+    used_after, 2 divisions, 8 for LR/BA, 3 to combine, 2 + 2 for the soft
+    terms, 6 for the hash, 3 to quantize, 3 for the jitter term, 1
+    conversion, 1 argmax compare, 3 selects).
 
     The constrained kernel adds its four [B, W]·[W, N] operand pairs
     (``cons_widths``) to the bytes, 8 scalar ops per pair (blocked compare
     and mask, 2 for the soft-spread term, 3 for the level term, 1 for the
-    preferred term, 1 select), and 2 ops per pod for each NON-ZERO entry of
-    the node-side operands (``cons_node_nnz``): a product with a zero node
-    value adds nothing, so this run's data needs only those."""
+    preferred term, 1 select), and 2 ops for each product whose two factors
+    are both non-zero (``cons_products``, :func:`constrained_products`):
+    every other product is ±0 and adds nothing, so this run's data needs
+    only those."""
+    a = b if active is None else active
     w = sum(widths)
     wc = sum(cons_widths or [])
-    nbytes = b * (4 * r + 4 * w + 4 + 4 + 1 + 4) + n * (8 * r + 1 + 4 * w) + b * (4 + 1 + 4) + 4 * wc * (b + n)
-    ops = b * n * (r + 2 * w + 45) + (b * n * 8 + 2 * b * cons_node_nnz if cons_widths else 0)
+    nbytes = a * (4 * r + 4 * w + 12 + 4 * wc) + b * (1 + 4 + 1 + 4) + n * (8 * r + 1 + 4 * w + 4 * wc)
+    ops = a * n * (r + 2 * w + 45) + (a * n * 8 + 2 * cons_products if cons_widths else 0)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def constrained_products(pod_ops, node_ops, active: torch.Tensor) -> int:
+    """Σ over the four constrained operand pairs and their columns k of
+    (active pods with pod[p, k] ≠ 0) · (nodes with node[k, n] ≠ 0): the
+    products with both factors non-zero."""
+    return sum(
+        int((((po != 0) & active[:, None]).sum(0) * (no != 0).sum(1)).sum()) for po, no in zip(pod_ops, node_ops)
+    )
+
+
+def live_histogram(pod_ops, active: torch.Tensor) -> dict:
+    """What the constrained kernel walks: per 8-pod tile with an active pod,
+    its live-list length (``tile_live_mask``) summed over the four operands
+    — mean, p99 and max — beside the full width."""
+    per_tile = sum(tile_live_mask(po, active).sum(dim=1) for po in pod_ops)
+    tiles = per_tile.shape[0]
+    has_active = tile_live_mask(active[:, None], active)[:, 0]  # the tiles with an active pod
+    x = per_tile[has_active].double().cpu()
+    return {"tiles": tiles, "active_tiles": int(x.shape[0]), "mean": float(x.mean()) if len(x) else 0.0,
+            "p99": float(torch.quantile(x, 0.99)) if len(x) else 0.0, "max": int(x.max()) if len(x) else 0,
+            "full_width": sum(int(po.shape[1]) for po in pod_ops)}
 
 
 def check_bindings(packed, assigned: np.ndarray) -> None:
@@ -290,10 +325,10 @@ def constrained_round(packed, device, seed: int | None = None, kill_pa: bool = F
     return arrays, masks
 
 
-def compare_constrained(name: str, args: list, cons_pod: dict, masks: dict, weights, salt: int = 0) -> tuple:
+def compare_constrained(name: str, args: list, cons_pod: dict, masks: dict, weights, salt: int = 0, **extra) -> tuple:
     """Constrained kernel vs its plain version on the same CUDA tensors:
     has and choice equal everywhere, best equal bit for bit where has
-    holds."""
+    holds.  ``extra`` joins the printed record."""
     kc, kh, kb = choose_block_constrained(*args, cons_pod, masks, weights, salt)
     pc, ph, pb = choose_block_constrained_plain(*args, cons_pod, masks, weights, salt)
     torch.cuda.synchronize()
@@ -307,7 +342,7 @@ def compare_constrained(name: str, args: list, cons_pod: dict, masks: dict, weig
         "R": int(args[0].shape[1]), "widths": [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)],
         "cons_widths": cons_widths, "salt": salt, "feasible_pods": int(kh.sum()),
         "changed_by_constraints": int(((fh != ph) | (fh & (fc != pc))).sum()),
-        "equal": bool(equal), "max_abs_err": err,
+        "equal": bool(equal), "max_abs_err": err, **extra,
     }
     emit(rec)
     if not equal:
@@ -319,12 +354,13 @@ def block_cons(arrays: dict, lo: int, hi: int) -> dict:
     return {k: arrays[k][lo:hi].contiguous() for k in CONSTRAINT_POD_KEYS}
 
 
-def budget_widths_case(device, seed: int = 11) -> tuple:
-    """Every constraint width at its budget (256 anti-affinity, spread, soft
-    spread, positive and preferred terms: a 1024-wide blocked band and a
-    ~58 KB pod tile, over the 48 KB default) with R = 3, random operands."""
+def budget_widths_case(device, seed: int = 11, k: int = 256) -> tuple:
+    """Every constraint width at its budget (by default 256 anti-affinity,
+    spread, soft spread, positive and preferred terms: a 1024-wide blocked
+    band and a ~58 KB pod tile plus 7 KB of live lists, over the 48 KB
+    default) with R = 3, random operands; ``k`` terms per family."""
     rng = np.random.default_rng(seed)
-    b, n, k = 300, 777, 256
+    b, n = 300, 777
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     bits = lambda shape, p: t((rng.random(shape) < p).astype(np.float32))  # noqa: E731
     ints = lambda shape, lo, hi: t(rng.integers(lo, hi, shape).astype(np.float32))  # noqa: E731
@@ -349,6 +385,127 @@ def budget_widths_case(device, seed: int = 11) -> tuple:
         "sp_penalty_node": ints((k, n), 0, 6), "ppa_cnt_node": ints((k, n), 0, 20),
     }
     return args, cons_pod, masks
+
+
+def mixed_activity_case(device, seed: int = 12) -> tuple:
+    """budget_widths_case at 64 terms per family where every third 8-pod
+    tile has no active pod and the next has one active pod whose constraint
+    columns are disjoint from every column its inactive neighbours carry
+    (it carries, per family, the first column none of them does)."""
+    args, cons_pod, masks = budget_widths_case(device, seed, k=64)
+    b = int(args[0].shape[0])
+    active = args[8].clone()
+    for t in range(-(-b // 8)):
+        lo, hi = 8 * t, min(b, 8 * t + 8)
+        if t % 3 == 0:
+            active[lo:hi] = False
+        elif t % 3 == 1 and hi - lo > 1:
+            keep = lo + t % (hi - lo)
+            active[lo:hi] = False
+            active[keep] = True
+            others = [i for i in range(lo, hi) if i != keep]
+            for key, v in cons_pod.items():
+                free = (v[others] == 0).all(dim=0)
+                v[keep] *= free
+                v[keep, int(torch.nonzero(free)[0])] = -7.0 if key == "pod_ppa_w" else 1.0
+    args[8] = active
+    return args, cons_pod, masks
+
+
+def dense_union_case(device, seed: int = 13) -> tuple:
+    """Every pod carries several terms of every family (24 per family, pod
+    densities 0.4–0.5) and tile 0's pods share every column out among them,
+    so the live lists reach the full width; the node band is sparse enough
+    that pods stay feasible."""
+    args, cons_pod, masks = budget_widths_case(device, seed, k=24)
+    rng = np.random.default_rng(seed)
+    b, n, k = int(args[0].shape[0]), int(args[10].shape[0]), 24
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    bits = lambda shape, p: t((rng.random(shape) < p).astype(np.float32))  # noqa: E731
+    cover = t(np.arange(k)[None, :] % 8 == np.arange(8)[:, None])  # pod i of tile 0: the columns ≡ i mod 8
+    for key in cons_pod:
+        v = bits((b, k), 0.4) if key != "pod_ppa_w" else t(
+            (rng.integers(-100, 101, (b, k)) * (rng.random((b, k)) < 0.5)).astype(np.float32))
+        if key == "pod_pa_matched":
+            v[:8] = 0.0  # keep tile 0's positive-affinity columns ungated
+        elif key == "pod_ppa_w":
+            v[:8] = torch.where(cover & (v[:8] == 0), 9.0, v[:8])
+        else:
+            v[:8] = torch.maximum(v[:8], cover.float())
+        cons_pod[key] = v
+    args[8][:8] = True
+    for key in ("aa_m_node", "aa_c_node", "sp_node"):
+        masks[key] = bits((k, n), 0.005)
+    masks["pa_unmatched_node"] = bits((k, n), 0.01)
+    return args, cons_pod, masks
+
+
+def negative_ppa_case(device, seed: int = 14) -> tuple:
+    """Preferred weights negative wherever present, against counts that are
+    zero on ~90 % of (term, node) cells: many preferred products are −0.0."""
+    args, cons_pod, masks = budget_widths_case(device, seed, k=64)
+    rng = np.random.default_rng(seed)
+    b, n, k = int(args[0].shape[0]), int(args[10].shape[0]), 64
+    cons_pod["pod_ppa_w"] = torch.from_numpy(
+        (-rng.integers(1, 101, (b, k)) * (rng.random((b, k)) < 0.1)).astype(np.float32)).to(device)
+    masks["ppa_cnt_node"] = torch.from_numpy(
+        (rng.integers(1, 20, (k, n)) * (rng.random((k, n)) < 0.1)).astype(np.float32)).to(device)
+    return args, cons_pod, masks
+
+
+def constrained_timing(phase: str, args: list, cons_pod: dict, masks: dict, weights, node_offset: int,
+                       reps: int, plain_reps: int, smi: str, salt: int = 1, **extra) -> dict:
+    """Kernel #2 at one launch shape: kernel and plain timed and their last
+    outputs held bit for bit (``timed_and_held``), the bound from this run's
+    inputs (active pods, products with both factors non-zero) and the
+    live-column histogram of the tiles."""
+    ms, plain_ms, err = timed_and_held(
+        phase, lambda: choose_block_constrained(*args, cons_pod, masks, weights, salt, node_offset=node_offset),
+        lambda: choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset=node_offset),
+        reps=reps, plain_reps=plain_reps,
+    )
+    pod_ops, node_ops = constrained_pod_operands(cons_pod, masks), constrained_node_operands(masks)
+    active = args[8]
+    b, n, n_active = int(args[0].shape[0]), int(args[10].shape[0]), int(active.sum())
+    cons_widths = [int(t.shape[1]) for t in pod_ops]
+    products = constrained_products(pod_ops, node_ops, active)
+    bound_ms, bound_by = choose_bound_ms(
+        b, n, int(args[0].shape[1]), [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)], cons_widths, products,
+        n_active,
+    )
+    rec = {"phase": phase, "B": b, "N": n, "active_pods": n_active, "node_offset": node_offset, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "cons_widths": cons_widths,
+           "cons_products": products, "live_columns": live_histogram(pod_ops, active), "equal": True,
+           "max_abs_err": err, **extra, "nvidia_smi": smi}
+    emit(rec)
+    return rec
+
+
+def late_round_launch(packed, profile, mesh, share: float = 0.03) -> dict:
+    """One ``ShardedBackend(mesh).schedule`` of a constrained cycle with
+    kernel #2b's launches on the shard at ``node_offset`` > 0 recorded: the
+    operands (cloned), weights, salt and round of the first round whose
+    active pods are at most ``share`` of the rows — else of the last round —
+    and that shard's active count in every round."""
+    orig, counts, kept = sharded_mod.choose_block_constrained, [], {}
+
+    def record(*args, node_offset=0):
+        if node_offset > 0:
+            counts.append(int(args[8].sum()))
+            if not kept.get("late"):
+                kept.update(
+                    args=[a.clone() for a in args[:18]], cons_pod={k: v.clone() for k, v in args[18].items()},
+                    masks={k: v.clone() for k, v in args[19].items()}, weights=args[20], salt=args[21],
+                    node_offset=node_offset, round=len(counts) - 1, late=counts[-1] <= share * args[8].shape[0],
+                )
+        return orig(*args, node_offset=node_offset)
+
+    sharded_mod.choose_block_constrained = record
+    try:
+        ShardedBackend(mesh).schedule(packed, profile)
+    finally:
+        sharded_mod.choose_block_constrained = orig
+    return dict(kept, active_by_round=counts)
 
 
 def ppa_partial_sum_bound(cons_pod: dict, masks: dict) -> float:
@@ -593,7 +750,7 @@ def timed_and_held(phase: str, kernel_fn, plain_fn, reps: int, plain_reps: int) 
     plain_ms = time_cuda(lambda: last.__setitem__("plain", plain_fn()), reps=plain_reps)
     equal, err = outputs_equal(last["kernel"], last["plain"])
     if not equal:
-        raise SystemExit(f"{phase}: the kernel and its plain version disagree at the shard shape")
+        raise SystemExit(f"{phase}: the kernel and its plain version disagree at the timed shape")
     return ms, plain_ms, err
 
 
@@ -794,7 +951,8 @@ def main() -> int:
     kernel_ms = time_cuda(lambda: choose_block(*flag_args, w_thr, 1), reps=20)
     plain_ms = time_cuda(lambda: choose_block_plain(*flag_args, w_thr, 1), reps=3)
     widths = [int(flag_args[i].shape[1]) for i in (1, 3, 4, 6, 7)]
-    bound_ms, bound_by = choose_bound_ms(8192, flagship.padded_nodes, flagship.node_avail.shape[1], widths)
+    bound_ms, bound_by = choose_bound_ms(8192, flagship.padded_nodes, flagship.node_avail.shape[1], widths,
+                                         active=int(flag_args[8].sum()))
     emit({"phase": "choose_timing", "B": 8192, "N": flagship.padded_nodes, "ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "nvidia_smi": smi})
 
@@ -809,7 +967,8 @@ def main() -> int:
         lambda: choose_block_plain(*shard_args, w_thr, 1, node_offset=n_local), reps=10, plain_reps=2,
     )
     shard_max_abs_err = max(offsets_rec["max_abs_err"], shard_err)
-    shard_bound_ms, shard_bound_by = choose_bound_ms(p_local, n_local, flagship.node_avail.shape[1], widths)
+    shard_bound_ms, shard_bound_by = choose_bound_ms(p_local, n_local, flagship.node_avail.shape[1], widths,
+                                                     active=int(shard_args[8].sum()))
     emit({"phase": "choose_sharded_timing", "B": p_local, "N": n_local, "node_offset": n_local, "ms": shard_ms,
           "plain_ms": shard_plain_ms, "bound_ms": shard_bound_ms, "bound_by": shard_bound_by, "equal": True,
           "max_abs_err": shard_err, "nvidia_smi": smi})
@@ -924,49 +1083,43 @@ def main() -> int:
     crecs.append(compare_constrained("bootstrap_gate", block_args(arrays, 0, b_small),
                                      block_cons(arrays, 0, b_small), masks, w_default)[0])
     crecs.append(compare_constrained("budget_widths_256", *budget_widths_case(device), w_thr, salt=9)[0])
-    del arrays, masks
+    # Where the live-column lists could go wrong: tiles with no active pod,
+    # and single active pods whose columns their neighbours do not carry;
+    # lists at the full width; preferred products that are −0.0.
+    mixed = mixed_activity_case(device)
+    crecs.append(compare_constrained("mixed_activity", *mixed, w_thr, salt=4)[0])
+    dense = dense_union_case(device)
+    dense_hist = live_histogram(constrained_pod_operands(dense[1], dense[2]), dense[0][8])
+    crecs.append(compare_constrained("dense_union", *dense, w_thr, salt=6, live_columns=dense_hist)[0])
+    if dense_hist["max"] != dense_hist["full_width"]:
+        raise SystemExit(f"dense_union: no tile's live lists reach the full width ({dense_hist})")
+    crecs.append(compare_constrained("negative_ppa_zero_counts", *negative_ppa_case(device), w_default, salt=8)[0])
+    offsets_recs = [sharded_offsets("mixed_activity", mixed[0], w_thr, 4, mixed[1], mixed[2])]
+    del mixed, dense
+    # A mid-cycle state of the flagship (randomised domain marks and counts):
+    # the node operands are dense.
+    arrays, masks = constrained_round(cflag, device, seed=21)
+    mid_args, mid_cons = block_args(arrays, 0, 8192), block_cons(arrays, 0, 8192)
+    crecs.append(compare_constrained("flagship_block_mid_cycle", mid_args, mid_cons, masks, w_thr, salt=17)[0])
+    offsets_recs.append(sharded_offsets("flagship_block_mid_cycle", mid_args, w_thr, 17, mid_cons, masks))
+    del arrays, masks, mid_args, mid_cons
     arrays, masks = constrained_round(cflag, device)
     cflag_args, cflag_cons = block_args(arrays, 0, 8192), block_cons(arrays, 0, 8192)
     rec, _ = compare_constrained("flagship_block_round0", cflag_args, cflag_cons, masks, w_thr, salt=1)
     crecs.append(rec)
     cons_max_abs_err = max(r["max_abs_err"] for r in crecs)
-    coffsets_rec = sharded_offsets("flagship_block_round0", cflag_args, w_thr, 1, cflag_cons, masks)
+    offsets_recs.append(sharded_offsets("flagship_block_round0", cflag_args, w_thr, 1, cflag_cons, masks))
 
-    ckernel_ms = time_cuda(lambda: choose_block_constrained(*cflag_args, cflag_cons, masks, w_thr, 1), reps=10)
-    cplain_ms = time_cuda(lambda: choose_block_constrained_plain(*cflag_args, cflag_cons, masks, w_thr, 1), reps=3)
-    cons_widths = [int(t.shape[1]) for t in constrained_pod_operands(cflag_cons, masks)]
-    nnz = sum(int((t != 0).sum()) for t in constrained_node_operands(masks))
-    cwidths = [int(cflag_args[i].shape[1]) for i in (1, 3, 4, 6, 7)]
-    cbound_ms, cbound_by = choose_bound_ms(
-        8192, cflag.padded_nodes, cflag.node_avail.shape[1], cwidths, cons_widths, nnz
-    )
-    emit({"phase": "choose_constrained_timing", "B": 8192, "N": cflag.padded_nodes, "ms": ckernel_ms,
-          "plain_ms": cplain_ms, "bound_ms": cbound_ms, "bound_by": cbound_by, "cons_widths": cons_widths,
-          "cons_node_nnz": nnz, "ppa_partial_sum_bound": ppa_partial_sum_bound(cflag_cons, masks),
-          "nvidia_smi": smi})
+    ctiming = constrained_timing("choose_constrained_timing", cflag_args, cflag_cons, masks, w_thr, 0, reps=20,
+                                 plain_reps=3, smi=smi, ppa_partial_sum_bound=ppa_partial_sum_bound(cflag_cons, masks))
     del cflag_args, cflag_cons
     # Kernel #2b constrained, timed at the (1, 2) mesh's shard shape: every
     # pod row against the second node column, round-0 masks.
     cn_local = cflag.padded_nodes // 2
     cshard_args = node_slice(block_args(arrays, 0, cflag.padded_pods), cn_local, 2 * cn_local)
     cshard_cons, cshard_masks = block_cons(arrays, 0, cflag.padded_pods), mask_slice(masks, cn_local, 2 * cn_local)
-    cshard_ms, cshard_plain_ms, cshard_err = timed_and_held(
-        "choose_constrained_sharded_timing",
-        lambda: choose_block_constrained(*cshard_args, cshard_cons, cshard_masks, w_thr, 1, node_offset=cn_local),
-        lambda: choose_block_constrained_plain(
-            *cshard_args, cshard_cons, cshard_masks, w_thr, 1, node_offset=cn_local),
-        reps=3, plain_reps=1,
-    )
-    cshard_max_abs_err = max(coffsets_rec["max_abs_err"], cshard_err)
-    cshard_nnz = sum(int((t != 0).sum()) for t in constrained_node_operands(cshard_masks))
-    cshard_bound_ms, cshard_bound_by = choose_bound_ms(
-        cflag.padded_pods, cn_local, cflag.node_avail.shape[1], cwidths,
-        [int(t.shape[1]) for t in constrained_pod_operands(cshard_cons, cshard_masks)], cshard_nnz,
-    )
-    emit({"phase": "choose_constrained_sharded_timing", "B": cflag.padded_pods, "N": cn_local,
-          "node_offset": cn_local, "ms": cshard_ms, "plain_ms": cshard_plain_ms, "bound_ms": cshard_bound_ms,
-          "bound_by": cshard_bound_by, "cons_node_nnz": cshard_nnz, "equal": True, "max_abs_err": cshard_err,
-          "nvidia_smi": smi})
+    cshard = constrained_timing("choose_constrained_sharded_timing", cshard_args, cshard_cons, cshard_masks, w_thr,
+                                cn_local, reps=5, plain_reps=1, smi=smi)
     del arrays, masks, cshard_args, cshard_cons, cshard_masks
     torch.cuda.empty_cache()
 
@@ -1046,6 +1199,15 @@ def main() -> int:
     emit(dict(rec, unsharded_median_seconds=statistics.median(times[1:]), nvidia_smi=smi))
     wall_ms, rows = profiled(lambda: ShardedBackend(mesh12).schedule(cflag, throughput))
     emit(dict(device_split(wall_ms, rows, "choose_kernel<true>"), phase="sharded_constrained_breakdown", mesh=[1, 2]))
+    # Kernel #2b at a late round of that cycle, which launches over every
+    # row: the second shard's operands at the first round with <= 3 % of
+    # the rows active, recorded from one more cycle.
+    late = late_round_launch(cflag, throughput, mesh12)
+    tail = constrained_timing("choose_constrained_tail_timing", late["args"], late["cons_pod"], late["masks"],
+                              late["weights"], late["node_offset"], reps=10, plain_reps=1, smi=smi, salt=late["salt"],
+                              round=late["round"], active_by_round=late["active_by_round"])
+    cshard_max_abs_err = max([r["max_abs_err"] for r in offsets_recs] + [cshard["max_abs_err"], tail["max_abs_err"]])
+    del late
     del cflag, csnap, results, sresults, res
     torch.cuda.empty_cache()
 
@@ -1061,8 +1223,8 @@ def main() -> int:
         {
             "name": "choose_constrained", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/pallas_choose.py:172", "launches": claunches,
-            "max_abs_err": cons_max_abs_err, "ms": ckernel_ms, "plain_ms": cplain_ms, "bound_ms": cbound_ms,
-            "bound_by": cbound_by, "library_ms": None,
+            "max_abs_err": cons_max_abs_err, "ms": ctiming["ms"], "plain_ms": ctiming["plain_ms"],
+            "bound_ms": ctiming["bound_ms"], "bound_by": ctiming["bound_by"], "library_ms": None,
         },
         {
             "name": "choose_sharded", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
@@ -1075,8 +1237,8 @@ def main() -> int:
             "name": "choose_constrained_sharded", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/parallel/sharded.py:264", "launches": sharded_claunches,
             "max_abs_err": cshard_max_abs_err,
-            "ms": cshard_ms, "plain_ms": cshard_plain_ms, "bound_ms": cshard_bound_ms,
-            "bound_by": cshard_bound_by, "library_ms": None,
+            "ms": cshard["ms"], "plain_ms": cshard["plain_ms"], "bound_ms": cshard["bound_ms"],
+            "bound_by": cshard["bound_by"], "library_ms": None,
         },
     ] + [
         {

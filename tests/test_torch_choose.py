@@ -429,3 +429,129 @@ def test_constrained_choose_rejects_other_devices():
     args = [x.to("meta") for x in _port_args(a)]
     with pytest.raises(ValueError, match="unsupported device"):
         choose_block_constrained(*args, cons_pod, masks, DEFAULT_PROFILE.weights())
+
+
+# --- the live-column rule of the constrained kernel ---------------------------
+
+from tpu_scheduler_torch.ops.choose import tile_live_columns  # noqa: E402
+
+
+def _kernel_sums(pod_rows, node, cols):
+    """Σ_{k in cols} pod_rows[:, k] · node[k] as the kernel forms it: a +0.0
+    start, then one rounded multiply and one rounded add per column."""
+    c = torch.zeros((pod_rows.shape[0], node.shape[1]), dtype=torch.float32)
+    for k in cols.tolist():
+        c = c + pod_rows[:, k, None] * node[k]
+    return c
+
+
+def _live_case(seed, inactive_share=0.3):
+    """(port args with ~``inactive_share`` of the pods inactive, cons_pod,
+    masks) on an every-family _cons_case cluster."""
+    a, cpods, state, meta, flags = _cons_case(24, 40, seed, CONS_ALL, soft_taint_fraction=0.3)
+    masks = jax_cons.round_blocked_masks(np, state, meta, **flags)
+    masks_t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in masks.items()}
+    cons_pod = {k: torch.from_numpy(np.ascontiguousarray(cpods[k])) for k in CONSTRAINT_POD_KEYS}
+    args = _port_args(a)
+    rng = np.random.default_rng(seed + 100)
+    args[8] = args[8] & torch.from_numpy(rng.random(args[8].shape[0]) >= inactive_share)
+    return args, cons_pod, masks_t
+
+
+@pytest.mark.parametrize("seed", [0, 1, 4])
+def test_live_columns_sum_equals_full_width(seed):
+    """Per 8-pod tile and operand pair, the sums over the tile's live
+    columns equal the full-width sums bit for bit for every active pod (and
+    equal the plain version's matmul in value)."""
+    args, cons_pod, masks = _live_case(seed)
+    active = args[8]
+    pod_ops, node_ops = constrained_pod_operands(cons_pod, masks), constrained_node_operands(masks)
+    assert all(po.shape[1] > 0 for po in pod_ops)
+    tiles = -(-active.shape[0] // 8)
+    walked = 0
+    for po, no in zip(pod_ops, node_ops):
+        lists = tile_live_columns(po, active)
+        assert len(lists) == tiles
+        for t, cols in enumerate(lists):
+            rows = slice(8 * t, 8 * t + 8)
+            act = active[rows]
+            want = ((po[rows] != 0) & act[:, None]).any(dim=0).nonzero()[:, 0]
+            assert torch.equal(cols, want)  # ascending, from active pods only
+            live = _kernel_sums(po[rows], no, cols)
+            full = _kernel_sums(po[rows], no, torch.arange(po.shape[1]))
+            assert torch.equal(live[act].view(torch.int32), full[act].view(torch.int32))
+            assert torch.equal(full[act], (po[rows] @ no)[act])
+            walked += len(cols)
+    assert 0 < walked < sum(po.shape[1] for po in pod_ops) * tiles
+
+
+@pytest.mark.parametrize("seed", [0, 1, 4])
+def test_inactive_pod_bitmaps_change_nothing(seed):
+    """Randomising the constraint bitmaps of inactive pods leaves the active
+    pods' (choice, has, best) bit for bit, and the inactive pods keep
+    (0, False, −inf): so the kernel may build its lists from active pods."""
+    args, cons_pod, masks = _live_case(seed, inactive_share=0.4)
+    w = PROFILES["throughput"].weights()
+    before = choose_block_constrained_plain(*args, cons_pod, masks, w, 3)
+    inactive = ~args[8]
+    assert inactive.any() and args[8].any()
+    rng = np.random.default_rng(seed)
+    noisy = {}
+    for key, v in cons_pod.items():
+        if key == "pod_ppa_w":
+            noise = rng.integers(-100, 101, v.shape) * (rng.random(v.shape) < 0.5)
+        else:
+            noise = rng.random(v.shape) < 0.5
+        noisy[key] = torch.where(inactive[:, None], torch.from_numpy(noise.astype(np.float32)), v)
+    assert any(not torch.equal(noisy[k], cons_pod[k]) for k in cons_pod)
+    after = choose_block_constrained_plain(*args, noisy, masks, w, 3)
+    act = args[8]
+    assert before[1][act].any()
+    assert torch.equal(before[0][act], after[0][act]) and torch.equal(before[1][act], after[1][act])
+    assert torch.equal(before[2][act].view(torch.int32), after[2][act].view(torch.int32))
+    for choice, has, best in (before, after):
+        assert (choice[inactive] == 0).all() and not has[inactive].any() and torch.isneginf(best[inactive]).all()
+
+
+def test_negative_preferred_weight_against_zero_count():
+    """A negative preferred weight against a zero count is a −0.0 product;
+    summing it or skipping its column gives the same sums and the same
+    best bits."""
+    args, cons_pod, masks = _live_case(0, inactive_share=0.0)
+    cons_pod = dict(cons_pod, pod_ppa_w=cons_pod["pod_ppa_w"].clone())
+    masks = dict(masks, ppa_cnt_node=masks["ppa_cnt_node"].clone())
+    assert masks["ppa_cnt_node"].shape[0] >= 2
+    cons_pod["pod_ppa_w"][:, 0] = -37.0
+    masks["ppa_cnt_node"][0] = 0.0
+    product = cons_pod["pod_ppa_w"][:, 0, None] * masks["ppa_cnt_node"][0]
+    assert torch.signbit(product).all() and (product == 0).all()
+    pod_w, cnt = cons_pod["pod_ppa_w"], masks["ppa_cnt_node"]
+    summed = _kernel_sums(pod_w, cnt, torch.arange(cnt.shape[0]))
+    skipped = _kernel_sums(pod_w, cnt, torch.arange(1, cnt.shape[0]))
+    assert torch.equal(summed.view(torch.int32), skipped.view(torch.int32))
+    w = PROFILES["throughput"].weights()
+    with_col = choose_block_constrained_plain(*args, cons_pod, masks, w, 2)
+    without = choose_block_constrained_plain(
+        *args, dict(cons_pod, pod_ppa_w=pod_w[:, 1:].contiguous()), dict(masks, ppa_cnt_node=cnt[1:].contiguous()),
+        w, 2,
+    )
+    assert with_col[1].any()
+    assert torch.equal(with_col[0], without[0]) and torch.equal(with_col[1], without[1])
+    assert torch.equal(with_col[2].view(torch.int32), without[2].view(torch.int32))
+
+
+@pytest.mark.parametrize("width", [1, 31, 32, 33, 440])
+def test_tile_whose_pods_use_every_column_lists_full_width(width):
+    """Pods sharing every column out among them give a full-width list; a
+    column only an inactive pod uses drops out; a remainder tile is padded
+    with inactive pods."""
+    b = 11
+    cols = torch.arange(width)
+    pod = ((cols[None, :] % 8) == (torch.arange(b)[:, None] % 8)).float() * 3.0
+    lists = tile_live_columns(pod, torch.ones(b, dtype=torch.bool))
+    assert len(lists) == 2 and torch.equal(lists[0], cols)
+    assert torch.equal(lists[1], cols[cols % 8 < 3])  # pods 8..10 use the columns ≡ 0, 1, 2 mod 8
+    active = torch.ones(b, dtype=torch.bool)
+    active[5] = False
+    assert torch.equal(tile_live_columns(pod, active)[0], cols[cols % 8 != 5])
+    assert [len(c) for c in tile_live_columns(pod, torch.zeros(b, dtype=torch.bool))] == [0, 0]

@@ -32,11 +32,33 @@
 // Node-side constraint operands are [W, N] (as round_blocked_masks makes
 // them): threads striding over n read them coalesced.  A feature absent
 // from the cycle has width 0 and its loop never runs (no term is added).
-// What bounds it: operations, as for the plain kernel, with ~2·440 more
-// flops per pair at the flagship constrained widths (Wb=224, Ss=S=104,
-// Tp=8); the pod rows of all nine operands stay in shared memory
-// (8 pods × ~483 words ≈ 15.5 KB), and the blocked sum skips node columns
-// that are 0, which most of the band is.
+//
+// What bounded the constrained instance, and what the live lists do about
+// it: walking every row of the four node operands (440 at the flagship
+// widths Wb=224, Ss=S=104, Tp=8) per node visited cost one dependent L2
+// load and a data-dependent branch each, ~18 GB of L2 traffic per flagship
+// launch, eight times kernel #1's whole time.  The pod side is what is
+// sparse: an 8-pod tile's active pods use ~12 of the 440 columns (p99 18).
+// So after staging, one warp per operand builds the tile's ascending list
+// of LIVE columns — those where some ACTIVE pod of the tile has a non-zero
+// pod value — in shared memory (__ballot_sync, the write position from
+// __popc of the lower lanes), and the node walk loops over those lists
+// only: one coalesced load of node[k·N + n] per live k, reused for the 8
+// pods, with a loop bound that is the same for every thread of the block
+// and no per-element branch.  The pod rows of all nine operands and the
+// lists stay in shared memory (8 pods × ~483 words + 440 list words ≈
+// 17 KB at the flagship).  A tile whose active pods use every column walks
+// full-width lists, as the earlier kernel did, less the branch.  What
+// bounds the constrained instance now is what bounds the plain one (below):
+// operations per pair, plus 2 flops per pod for each live column of the
+// node visited (~12 · 16 per node at the flagship, against ~1,000 ops of
+// base work for the tile's 8 pairs).
+//
+// Every instance reads the tile's 8 active flags first and returns at once
+// from a tile with no active pod (the padding and the tail rounds of the
+// sharded cycle, which launches over all rows): it writes (0, false, −inf)
+// and reads nothing more.  In a tile with an active pod, only the active
+// pods' rows are read; the others are staged as zeros (never feasible).
 //
 // What bounds it on the H100: operations.  Each (pod, node) pair costs about
 // 2·(L+T+A+A2+Ts) flops of small dot products plus ~45 scalar ops (fit,
@@ -74,13 +96,26 @@
 //   reduction step prefers the greater score, then the lower index — so the
 //   result is the lowest index among equal maxima, as jnp.argmax gives.
 // * Padding: pods past B in the last tile are staged as inactive (never
-//   feasible) and never written; nodes past N are never visited, and invalid
+//   feasible, zero rows) and never written; nodes past N are never visited, and invalid
 //   nodes are skipped, so neither can win.
 // * Exact sums in the constrained terms: every product is an integer and
 //   every partial sum stays below 2^24 in the workloads this serves (0/1
 //   bitmaps against domain counts; |w| ≤ 100 preferred weights), so any
 //   summation order gives the same float; 2·w2 is one float product formed
 //   first, as the reference tree does.
+// * Live columns are exact: a column outside a tile's list has a zero pod
+//   value for every active pod, so its products are ±0 and any subset of
+//   columns that holds every non-zero product gives the same float.  The
+//   lists are built from ACTIVE pods only (an inactive pod's row is staged
+//   as zeros): its `ok` bit is 0 from the start, so its sums are never
+//   read, and it still gets (0, false, −inf).
+// * The sign of zero: a negative preferred weight against a zero count is
+//   −0.0; every sum starts at +0.0 and +0.0 + −0.0 = +0.0, so summing or
+//   skipping such a product (no per-element branch now) gives equal bits.
+// * Feature presence is keyed on the operand WIDTHS (Ss > 0, Tp > 0; the
+//   level term always), never on a tile's live count: the plain version
+//   adds a term iff the feature is in the cycle, and skipping a +0.0 term
+//   could turn a −0.0 score into another bit pattern.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,23 +133,49 @@ static __device__ __forceinline__ bool better(float s, int i, float bs, int bi) 
   return s > bs || (s == bs && i < bi);
 }
 
-// Stage the tile's rows [p0, p0 + np) of a [B, width] operand into the
-// shared pod rows (row stride `stride`, column offset `off`); padding pods
-// get zeros.
+// Stage the tile's rows of a [B, width] operand into the shared pod rows
+// (row stride `stride`, column offset `off`): an active pod's row is read,
+// an inactive or padding pod gets zeros without a read.
 static __device__ __forceinline__ void stage(float* feat, int stride, int off, const float* __restrict__ src,
-                                             int width, int p0, int np) {
+                                             int width, int p0, const int* s_active) {
   for (int i = threadIdx.x; i < PODS * width; i += THREADS) {
     const int p = i / width, k = i % width;
-    feat[p * stride + off + k] = p < np ? src[(size_t)(p0 + p) * width + k] : 0.0f;
+    feat[p * stride + off + k] = s_active[p] ? src[(size_t)(p0 + p) * width + k] : 0.0f;
   }
 }
 
-// c[p] += Σ_k feat[p][off + k] · node[k·N + n] for a [K, N] node operand.
-static __device__ __forceinline__ void dot_kn(float* c, const float* feat, int stride, int off,
-                                              const float* __restrict__ node, int K, int N, int n) {
-  for (int k = 0; k < K; ++k) {
+// The tile's live columns of one pod operand (columns [off, off + width) of
+// the shared pod rows): the ascending k where some active pod has a
+// non-zero value (inactive pods' rows are staged as zeros), written to
+// list[0, *len).  Run by one whole warp: the trip count is the same for all
+// 32 lanes, so the ballot sees every lane.
+static __device__ __forceinline__ void build_live(int* list, int* len, const float* feat, int stride, int off,
+                                                  int width) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t below = (1u << lane) - 1u;
+  int count = 0;
+  for (int base = 0; base < width; base += 32) {
+    const int k = base + lane;
+    bool live = false;
+    if (k < width) {
+#pragma unroll
+      for (int p = 0; p < PODS; ++p) live |= feat[p * stride + off + k] != 0.0f;
+    }
+    const uint32_t mask = __ballot_sync(0xffffffffu, live);
+    if (live) list[count + __popc(mask & below)] = k;
+    count += __popc(mask);
+  }
+  if (lane == 0) *len = count;
+}
+
+// c[p] += Σ_{k in live} feat[p][off + k] · node[k·N + n] for a [K, N] node
+// operand, over the tile's live columns only.
+static __device__ __forceinline__ void dot_live(float* c, const float* feat, int stride, int off,
+                                                const float* __restrict__ node, const int* live, int nlive, int N,
+                                                int n) {
+  for (int i = 0; i < nlive; ++i) {
+    const int k = live[i];
     const float v = node[(size_t)k * N + n];
-    if (v == 0.0f) continue;  // adds exact zeros only
 #pragma unroll
     for (int p = 0; p < PODS; ++p) c[p] = __fadd_rn(c[p], __fmul_rn(feat[p * stride + off + k], v));
   }
@@ -142,39 +203,69 @@ __global__ void __launch_bounds__(THREADS) choose_kernel(
   const int o_blk = W, o_sps = W + Wb, o_spd = W + Wb + Ss, o_ppa = W + Wb + Ss + S;
   float* feat = smem;                                            // [PODS][WT]
   int32_t* sreq = reinterpret_cast<int32_t*>(smem + PODS * WT);  // [PODS][R]
+  int* live = sreq + PODS * R;  // constrained: live columns, [Wb | Ss | S | Tp]
   __shared__ float s_selc[PODS], s_hasaff[PODS];
   __shared__ uint32_t s_rank[PODS];
   __shared__ int s_active[PODS];
+  __shared__ int s_nlive[4];
   __shared__ float red_score[WARPS][PODS];
   __shared__ int red_idx[WARPS][PODS];
 
   const int p0 = blockIdx.x * PODS;
   const int np = min(PODS, B - p0);
 
-  stage(feat, WT, 0, sel, L, p0, np);
-  stage(feat, WT, L, ntol, T, p0, np);
-  stage(feat, WT, L + T, aff, A, p0, np);
-  stage(feat, WT, L + T + A, pref_w, A2, p0, np);
-  stage(feat, WT, L + T + A + A2, ntol_soft, Ts, p0, np);
+  if (threadIdx.x < PODS)  // padding pods are inactive: never feasible
+    s_active[threadIdx.x] = threadIdx.x < np ? (int)active[p0 + threadIdx.x] : 0;
+  __syncthreads();
+
+  // A tile with no active pod has nothing to search and reads nothing more
+  // (s_active is shared, so every thread of the block takes the same branch).
+  bool any_active = false;
+#pragma unroll
+  for (int p = 0; p < PODS; ++p) any_active |= s_active[p] != 0;
+  if (!any_active) {
+    if (threadIdx.x < np) {
+      choice[p0 + threadIdx.x] = 0;
+      has[p0 + threadIdx.x] = false;
+      best[p0 + threadIdx.x] = -INFINITY;
+    }
+    return;
+  }
+
+  stage(feat, WT, 0, sel, L, p0, s_active);
+  stage(feat, WT, L, ntol, T, p0, s_active);
+  stage(feat, WT, L + T, aff, A, p0, s_active);
+  stage(feat, WT, L + T + A, pref_w, A2, p0, s_active);
+  stage(feat, WT, L + T + A + A2, ntol_soft, Ts, p0, s_active);
   if constexpr (CONSTRAINED) {
-    stage(feat, WT, o_blk, blk_pod, Wb, p0, np);
-    stage(feat, WT, o_sps, sps_pod, Ss, p0, np);
-    stage(feat, WT, o_spd, spd_pod, S, p0, np);
-    stage(feat, WT, o_ppa, ppaw_pod, Tp, p0, np);
+    stage(feat, WT, o_blk, blk_pod, Wb, p0, s_active);
+    stage(feat, WT, o_sps, sps_pod, Ss, p0, s_active);
+    stage(feat, WT, o_spd, spd_pod, S, p0, s_active);
+    stage(feat, WT, o_ppa, ppaw_pod, Tp, p0, s_active);
   }
   for (int i = threadIdx.x; i < PODS * R; i += THREADS) {
     const int p = i / R, r = i % R;
-    sreq[i] = p < np ? req[(size_t)(p0 + p) * R + r] : 0;
+    sreq[i] = s_active[p] ? req[(size_t)(p0 + p) * R + r] : 0;
   }
   if (threadIdx.x < PODS) {
     const int p = threadIdx.x;
-    const bool in = p < np;
+    const bool in = s_active[p] != 0;
     s_selc[p] = in ? selc[p0 + p] : 0.0f;
     s_hasaff[p] = in ? has_aff[p0 + p] : 0.0f;
     s_rank[p] = in ? (uint32_t)ranks[p0 + p] : 0u;
-    s_active[p] = in ? (int)active[p0 + p] : 0;  // padding pods are inactive: never feasible
   }
   __syncthreads();
+
+  if constexpr (CONSTRAINED) {  // one warp per operand builds its live list
+    const int warp = threadIdx.x >> 5;
+    if (warp == 0) build_live(live, &s_nlive[0], feat, WT, o_blk, Wb);
+    else if (warp == 1) build_live(live + Wb, &s_nlive[1], feat, WT, o_sps, Ss);
+    else if (warp == 2) build_live(live + Wb + Ss, &s_nlive[2], feat, WT, o_spd, S);
+    else if (warp == 3) build_live(live + Wb + Ss + S, &s_nlive[3], feat, WT, o_ppa, Tp);
+    __syncthreads();
+  }
+  const int n_blk = CONSTRAINED ? s_nlive[0] : 0, n_sps = CONSTRAINED ? s_nlive[1] : 0;
+  const int n_spd = CONSTRAINED ? s_nlive[2] : 0, n_ppa = CONSTRAINED ? s_nlive[3] : 0;
 
   float bscore[PODS];
   int bidx[PODS];
@@ -230,14 +321,14 @@ __global__ void __launch_bounds__(THREADS) choose_kernel(
       float c_blk[PODS];
 #pragma unroll
       for (int p = 0; p < PODS; ++p) c_blk[p] = c_sps[p] = c_spl[p] = c_ppa[p] = 0.0f;
-      dot_kn(c_blk, feat, WT, o_blk, blk_node, Wb, N, n);
+      dot_live(c_blk, feat, WT, o_blk, blk_node, live, n_blk, N, n);
 #pragma unroll
       for (int p = 0; p < PODS; ++p)
         if (c_blk[p] > 0.0f) ok &= ~(1u << p);
       if (ok == 0u) continue;
-      dot_kn(c_sps, feat, WT, o_sps, sps_node, Ss, N, n);
-      dot_kn(c_spl, feat, WT, o_spd, spl_node, S, N, n);
-      dot_kn(c_ppa, feat, WT, o_ppa, ppa_node, Tp, N, n);
+      dot_live(c_sps, feat, WT, o_sps, sps_node, live + Wb, n_sps, N, n);
+      dot_live(c_spl, feat, WT, o_spd, spl_node, live + Wb + Ss, n_spd, N, n);
+      dot_live(c_ppa, feat, WT, o_ppa, ppa_node, live + Wb + Ss + S, n_ppa, N, n);
     }
 
     float c_pref[PODS], c_soft[PODS];
@@ -280,7 +371,7 @@ __global__ void __launch_bounds__(THREADS) choose_kernel(
       h = (h ^ (h >> 15)) & 0xFFFFu;
       const float q = w_jit > 0.0f ? __fmul_rn(floorf(__fdiv_rn(s, w_jit)), w_jit) : s;
       s = __fadd_rn(q, __fmul_rn(w_jit, __fdiv_rn(__uint2float_rn(h), 65536.0f)));
-      if constexpr (CONSTRAINED) {  // after the jitter, in the reference tree's order
+      if constexpr (CONSTRAINED) {  // after the jitter, in the reference tree's order; keyed on widths
         if (Ss > 0) s = __fsub_rn(s, __fmul_rn(w_topo, c_sps[p]));
         s = __fsub_rn(s, __fmul_rn(__fmul_rn(2.0f, w_jit), c_spl[p]));
         if (Tp > 0) s = __fadd_rn(s, c_ppa[p]);
@@ -330,12 +421,14 @@ __global__ void __launch_bounds__(THREADS) choose_kernel(
   }
 }
 
-// Shared-memory bytes one block needs for the pod tile of row width `wt`;
-// raises the kernel's dynamic limit when it exceeds the 48 KB default.
-// Returns 0, TSCHED_ERR_SMEM when the device cannot grant it, or a CUDA error.
+// Shared-memory bytes one block needs for the pod tile of row width `wt`
+// and `nlive` live-column slots (the constrained operands' summed width, 0
+// for the unconstrained instance); raises the kernel's dynamic limit when
+// it exceeds the 48 KB default.  Returns 0, TSCHED_ERR_SMEM when the device
+// cannot grant it, or a CUDA error.
 template <bool CONSTRAINED>
-static int prepare_smem(int R, int wt, size_t* smem) {
-  *smem = sizeof(float) * (size_t)PODS * ((size_t)wt + (size_t)R);
+static int prepare_smem(int R, int wt, int nlive, size_t* smem) {
+  *smem = sizeof(float) * (size_t)PODS * ((size_t)wt + (size_t)R) + sizeof(int) * (size_t)nlive;
   if (*smem <= 48 * 1024) return 0;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -365,7 +458,7 @@ int tsched_choose_launch(const void* req, const void* sel, const void* selc, con
   if (B <= 0) return 0;
   if (R < 2) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  const int err = prepare_smem<false>(R, L + T + A + A2 + Ts, &smem);
+  const int err = prepare_smem<false>(R, L + T + A + A2 + Ts, 0, &smem);
   if (err != 0) return err;
   const int grid = (B + PODS - 1) / PODS;
   choose_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
@@ -395,7 +488,7 @@ int tsched_choose_constrained_launch(
   if (B <= 0) return 0;
   if (R < 2 || Wb < 0 || Ss < 0 || S < 0 || Tp < 0) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  const int err = prepare_smem<true>(R, L + T + A + A2 + Ts + Wb + Ss + S + Tp, &smem);
+  const int err = prepare_smem<true>(R, L + T + A + A2 + Ts + Wb + Ss + S + Tp, Wb + Ss + S + Tp, &smem);
   if (err != 0) return err;
   const int grid = (B + PODS - 1) / PODS;
   choose_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(

@@ -57,6 +57,8 @@ __all__ = [
     "choose_block_constrained_plain",
     "constrained_node_operands",
     "constrained_pod_operands",
+    "tile_live_columns",
+    "tile_live_mask",
     "CONSTRAINT_POD_KEYS",
     "build_library",
     "KernelError",
@@ -257,6 +259,27 @@ def constrained_pod_operands(cons_pod: dict, masks: dict) -> tuple:
     )
 
 
+def tile_live_mask(pod_operand: torch.Tensor, active: torch.Tensor, pods: int = 8) -> torch.Tensor:
+    """[tiles, W] bool: column k is live in a ``pods``-pod tile of one
+    [B, W] constrained pod operand when some ACTIVE pod of the tile has a
+    non-zero value there (the constrained kernel's rule; the last tile is
+    padded with inactive pods).  ``.sum(1)`` is each tile's list length."""
+    b, w = pod_operand.shape
+    tiles = -(-b // pods)
+    nz = torch.zeros((tiles * pods, w), dtype=torch.bool, device=pod_operand.device)
+    nz[:b] = (pod_operand != 0) & active[:, None]
+    return nz.view(tiles, pods, w).any(dim=1)
+
+
+def tile_live_columns(pod_operand: torch.Tensor, active: torch.Tensor, pods: int = 8) -> list[torch.Tensor]:
+    """Each tile's ascending live columns (:func:`tile_live_mask`), one int64
+    tensor per tile.  The kernel's node walk visits only these columns; the
+    sums over them equal the full-width sums for every active pod, since
+    every other product is ±0."""
+    live = tile_live_mask(pod_operand, active, pods)
+    return list(torch.split(live.nonzero()[:, 1], live.sum(dim=1).tolist()))
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -361,7 +384,10 @@ def choose_block_constrained(
     operands of :func:`choose_block`, plus ``cons_pod`` (the block's
     CONSTRAINT_POD_KEYS bitmaps, [B, ·] float32) and ``masks`` (the round's
     constraints.round_blocked_masks, [·, N] float32).  Returns (choice,
-    has, best) as choose_block does."""
+    has, best) as choose_block does.  On the card each 8-pod tile sums the
+    constraint terms over its live columns only (:func:`tile_live_columns`)
+    and a tile with no active pod returns at once; both give the plain
+    version's bits."""
     global LAUNCHES_CONSTRAINED
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
