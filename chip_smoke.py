@@ -7,7 +7,10 @@ source, started together: choose.cu holds the choose kernels, bisect.cu the
 bisection kernels) and, for each main path:
 
 * unconstrained — holds the kernel bit for bit against its plain torch
-  version on the card, holds a mid-size cycle on the card against the same
+  version on the card (word boundaries at vocabulary widths 31, 32 and 33,
+  wide vocabularies, ties, a jitter that is not a power of two, the
+  flagship block), times it beside the per-cycle cost of checking the
+  bitmaps and packing the node words, holds a mid-size cycle on the card against the same
   cycle on the CPU, then runs the flagship unconstrained cycle (100k
   pending pods × 10k nodes × 20k bound, seed 0, ``throughput`` profile,
   pod_block 8192, max_rounds 64) through ``CudaBackend.schedule`` and checks
@@ -63,16 +66,20 @@ from tpu_scheduler_torch.models.profiles import PROFILES
 from tpu_scheduler_torch.ops.assign import assign_cycle, split_device_arrays
 from tpu_scheduler_torch.ops.choose import (
     CONSTRAINT_POD_KEYS,
+    NODE_WORD_KEYS,
+    POD_BITMAP_KEYS,
+    check_pod_bitmaps,
     choose_block,
     choose_block_constrained,
     choose_block_constrained_plain,
     choose_block_plain,
     constrained_node_operands,
     constrained_pod_operands,
+    pack_node_words,
     tile_live_mask,
 )
 from tpu_scheduler_torch.ops.constraints import augment_round_state, pack_constraints, round_blocked_masks
-from tpu_scheduler_torch.experiments import bench_kernel_parts, bench_wide_kernel, time_cuda
+from tpu_scheduler_torch.experiments import bench_kernel_parts, bench_wide_kernel, ptxas_resources, time_cuda
 from tpu_scheduler_torch.experiments import card as nvidia_smi
 from tpu_scheduler_torch.ops.pack import pack_snapshot
 from tpu_scheduler_torch.parallel.mesh import make_mesh
@@ -125,7 +132,8 @@ def compare(name: str, args: list, weights, salt: int = 0) -> tuple[dict, tuple]
     rec = {
         "phase": "kernel_vs_plain", "case": name, "B": int(args[0].shape[0]), "N": int(args[10].shape[0]),
         "R": int(args[0].shape[1]), "widths": [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)], "salt": salt,
-        "feasible_pods": int(kh.sum()), "equal": bool(equal), "max_abs_err": err,
+        "jitter": float(np.asarray(weights, dtype=np.float32)[2]), "feasible_pods": int(ph.sum()),
+        "equal": bool(equal), "max_abs_err": err,
     }
     emit(rec)
     if not equal:
@@ -164,11 +172,44 @@ def random_wide_case(device, seed: int = 5) -> list:
     ]
 
 
-def tie_case(device) -> list:
+def word_boundary_case(device, width: int, seed: int = 6) -> list:
+    """All five vocabularies ``width`` wide (31, 32, 33: one word, one full
+    word, a second word with one column), R = 2, random 0/1 bitmaps dense
+    enough that the last columns decide predicates: the last column is set
+    for a third of the pods and half of the nodes."""
+    rng = np.random.default_rng(seed + width)
+    b, n = 77, 1031
+    bits = lambda shape, p: (rng.random(shape) < p).astype(np.float32)  # noqa: E731
+    sel = bits((b, width), 0.04)
+    sel[::3, -1] = 1.0
+    labels = bits((n, width), 0.7)
+    labels[:, -1] = bits((n,), 0.5)
+    ntol, taints = bits((b, width), 0.1), bits((n, width), 0.02)
+    ntol[1::4, -1] = 1.0
+    taints[::7, -1] = 1.0
+    aff, node_aff = bits((b, width), 0.1), bits((n, width), 0.3)
+    aff[2::5, :] = 0.0
+    aff[2::5, -1] = 1.0
+    pref_w = (rng.integers(1, 101, size=(b, width)) * bits((b, width), 0.2)).astype(np.float32)
+    pref_w[::2, -1] = 77.0
+    ntol_soft, taints_soft = bits((b, width), 0.5), bits((n, width), 0.3)
+    alloc = rng.integers(2000, 64000, size=(n, 2), dtype=np.int32)
+    avail = (alloc - rng.integers(0, 1500, size=(n, 2))).astype(np.int32)
+    req = rng.integers(0, 1000, size=(b, 2), dtype=np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return [
+        t(req), t(sel), t(sel.sum(1).astype(np.float32)), t(ntol), t(aff), t((rng.random(b) < 0.6).astype(np.float32)),
+        t(pref_w), t(ntol_soft), t(rng.random(b) < 0.9), torch.arange(b, dtype=torch.int32, device=device),
+        t(avail), t(alloc), t(rng.random(n) < 0.95), t(labels), t(taints), t(node_aff), t(bits((n, width), 0.5)),
+        t(taints_soft),
+    ]
+
+
+def tie_case(device, b: int = 13) -> list:
     """Every node identical except two with equal, larger free capacity at
     indices 261 and 300 (different threads and warps): with zero jitter
     every pod must pick 261."""
-    b, n = 13, 700
+    n = 700
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
     req = torch.tensor([[100, 131072]] * b, dtype=torch.int32, device=device)
     alloc = torch.tensor([[8000, 16777216]] * n, dtype=torch.int32, device=device)
@@ -458,9 +499,12 @@ def constrained_timing(phase: str, args: list, cons_pod: dict, masks: dict, weig
     """Kernel #2 at one launch shape: kernel and plain timed and their last
     outputs held bit for bit (``timed_and_held``), the bound from this run's
     inputs (active pods, products with both factors non-zero) and the
-    live-column histogram of the tiles."""
+    live-column histogram of the tiles.  The kernel gets the node words
+    built once, as the cycles pass them."""
+    words = pack_node_words(*args[13:18])
     ms, plain_ms, err = timed_and_held(
-        phase, lambda: choose_block_constrained(*args, cons_pod, masks, weights, salt, node_offset=node_offset),
+        phase, lambda: choose_block_constrained(
+            *args, cons_pod, masks, weights, salt, node_offset=node_offset, node_words=words),
         lambda: choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset=node_offset),
         reps=reps, plain_reps=plain_reps,
     )
@@ -489,7 +533,7 @@ def late_round_launch(packed, profile, mesh, share: float = 0.03) -> dict:
     and that shard's active count in every round."""
     orig, counts, kept = sharded_mod.choose_block_constrained, [], {}
 
-    def record(*args, node_offset=0):
+    def record(*args, node_offset=0, node_words=None):
         if node_offset > 0:
             counts.append(int(args[8].sum()))
             if not kept.get("late"):
@@ -498,7 +542,7 @@ def late_round_launch(packed, profile, mesh, share: float = 0.03) -> dict:
                     masks={k: v.clone() for k, v in args[19].items()}, weights=args[20], salt=args[21],
                     node_offset=node_offset, round=len(counts) - 1, late=counts[-1] <= share * args[8].shape[0],
                 )
-        return orig(*args, node_offset=node_offset)
+        return orig(*args, node_offset=node_offset, node_words=node_words)
 
     sharded_mod.choose_block_constrained = record
     try:
@@ -572,7 +616,7 @@ def constrained_breakdown(backend, packed, profile) -> dict:
     synchronising wrappers (a separate, instrumented cycle)."""
     wall_ms, rows = profiled(lambda: backend.schedule(packed, profile))
     busy_ms = sum(r[1] for r in rows)
-    cons_choose_ms = sum(r[1] for r in rows if "choose_kernel<true>" in r[0])
+    cons_choose_ms = sum(r[1] for r in rows if "choose_kernel<true," in r[0])
     copy_ms = sum(r[1] for r in rows if "Memcpy" in r[0] or "memcpy" in r[0])
 
     spent = {"masks": 0.0, "filter_commit": 0.0}
@@ -621,18 +665,20 @@ def constrained_breakdown(backend, packed, profile) -> dict:
     }
 
 
-def build_kernels() -> dict:
+def build_kernels() -> tuple[dict, dict]:
     """Build every kernel library at once, one nvcc per source started
     together; prints each library's ptxas resource lines.  Returns
-    {library: build seconds}."""
+    ({library: build seconds}, ptxas_resources of every kernel)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
         futures = {"choose": pool.submit(choose_mod.build_library), "bisect": pool.submit(bisect_mod.build_bisect_library)}
         built = {name: f.result() for name, f in futures.items()}
+    resources = {}
     for name, (_, _, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
                 print(f"# ptxas ({name}): {line.strip()}", flush=True)
-    return {name: seconds for name, (_, seconds, _) in built.items()}
+        resources.update(ptxas_resources(log))
+    return {name: seconds for name, (_, seconds, _) in built.items()}, resources
 
 
 def profiled(fn) -> tuple[float, list]:
@@ -897,11 +943,11 @@ def main() -> int:
     device = torch.device("cuda")
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    build_s = build_kernels()
+    build_s, resources = build_kernels()
     emit({
         "phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda, "kernel_build_seconds": build_s,
-        "build_wall_seconds": time.perf_counter() - t0,
+        "build_wall_seconds": time.perf_counter() - t0, "ptxas": resources,
     })
 
     # Flagship cluster on the host (set-up, not timed as a cycle).
@@ -937,24 +983,39 @@ def main() -> int:
     recs.append(rec2)
     if bool(kh.any()) or bool(kh2.any()):
         raise SystemExit("infeasible or inactive pods reported a feasible node")
-    rec, (kc, kh, _) = compare("exact_two_node_tie", tie_case(device), PROFILES["default"].with_(spread_jitter=0.0).weights())
-    recs.append(rec)
-    if not bool(kh.all()) or not bool((kc == 261).all()):
-        raise SystemExit("tie did not resolve to the lower node index")
+    no_jitter = PROFILES["default"].with_(spread_jitter=0.0).weights()
+    for b in (13, 45):  # two tiles and six, the last with a remainder
+        rec, (kc, kh, _) = compare("exact_two_node_tie" if b == 13 else f"exact_two_node_tie_{b}", tie_case(device, b),
+                                   no_jitter)
+        recs.append(rec)
+        if not bool(kh.all()) or not bool((kc == 261).all()):
+            raise SystemExit("tie did not resolve to the lower node index")
     recs.append(compare("salt_7_throughput", block_args(a_small, 0, small.padded_pods), w_thr, salt=7)[0])
+    # A jitter that is not a power of two: the quantization divides.
+    w_div = PROFILES["throughput"].with_(spread_jitter=0.3).weights()
+    recs.append(compare("jitter_0.3_division", block_args(a_small, 0, small.padded_pods), w_div, salt=5)[0])
     recs.append(compare("wide_vocab_R5", random_wide_case(device), w_thr, salt=3)[0])
+    for width in (31, 32, 33):  # the word boundaries
+        recs.append(compare(f"word_boundary_{width}", word_boundary_case(device, width), w_thr, salt=width)[0])
     a_flag = to_device(flagship, device)
     flag_args = block_args(a_flag, 0, 8192)
     recs.append(compare("flagship_block", flag_args, w_thr, salt=1)[0])
+    recs.append(compare("flagship_block_jitter_0.3", flag_args, w_div, salt=1)[0])
     max_abs_err = max(r["max_abs_err"] for r in recs)
 
-    kernel_ms = time_cuda(lambda: choose_block(*flag_args, w_thr, 1), reps=20)
+    # What assign_cycle adds once per cycle for the kernels: the pod
+    # bitmaps checked to be 0/1, the node bitmaps checked and packed.
+    flag_words = pack_node_words(*flag_args[13:18])
+    check_ms = time_cuda(lambda: check_pod_bitmaps(*(a_flag[k] for k in POD_BITMAP_KEYS)), reps=10)
+    words_ms = time_cuda(lambda: pack_node_words(*(a_flag[k] for k in NODE_WORD_KEYS)), reps=10)
+    kernel_ms = time_cuda(lambda: choose_block(*flag_args, w_thr, 1, node_words=flag_words), reps=20)
     plain_ms = time_cuda(lambda: choose_block_plain(*flag_args, w_thr, 1), reps=3)
     widths = [int(flag_args[i].shape[1]) for i in (1, 3, 4, 6, 7)]
     bound_ms, bound_by = choose_bound_ms(8192, flagship.padded_nodes, flagship.node_avail.shape[1], widths,
                                          active=int(flag_args[8].sum()))
     emit({"phase": "choose_timing", "B": 8192, "N": flagship.padded_nodes, "ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by, "nvidia_smi": smi})
+          "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms,
+          "check_pod_bitmaps_ms_per_cycle": check_ms, "pack_node_words_ms_per_cycle": words_ms, "nvidia_smi": smi})
 
     # Kernel #2b: the flagship block split into tp node slices.
     offsets_rec = sharded_offsets("flagship_block", flag_args, w_thr, 1)
@@ -962,15 +1023,18 @@ def main() -> int:
     # against the second node column.
     p_local, n_local = flagship.padded_pods // 2, flagship.padded_nodes // 2
     shard_args = node_slice(block_args(a_flag, 0, p_local), n_local, 2 * n_local)
+    shard_words = pack_node_words(*shard_args[13:18])
     shard_ms, shard_plain_ms, shard_err = timed_and_held(
-        "choose_sharded_timing", lambda: choose_block(*shard_args, w_thr, 1, node_offset=n_local),
+        "choose_sharded_timing",
+        lambda: choose_block(*shard_args, w_thr, 1, node_offset=n_local, node_words=shard_words),
         lambda: choose_block_plain(*shard_args, w_thr, 1, node_offset=n_local), reps=10, plain_reps=2,
     )
     shard_max_abs_err = max(offsets_rec["max_abs_err"], shard_err)
     shard_bound_ms, shard_bound_by = choose_bound_ms(p_local, n_local, flagship.node_avail.shape[1], widths,
                                                      active=int(shard_args[8].sum()))
     emit({"phase": "choose_sharded_timing", "B": p_local, "N": n_local, "node_offset": n_local, "ms": shard_ms,
-          "plain_ms": shard_plain_ms, "bound_ms": shard_bound_ms, "bound_by": shard_bound_by, "equal": True,
+          "plain_ms": shard_plain_ms, "bound_ms": shard_bound_ms,
+          "bound_by": shard_bound_by, "share_of_bound": shard_bound_ms / shard_ms, "equal": True,
           "max_abs_err": shard_err, "nvidia_smi": smi})
     del a_flag, flag_args, shard_args
     torch.cuda.empty_cache()
@@ -1198,7 +1262,7 @@ def main() -> int:
     check_anti_affinity(cflag, sresults[-1].assigned)
     emit(dict(rec, unsharded_median_seconds=statistics.median(times[1:]), nvidia_smi=smi))
     wall_ms, rows = profiled(lambda: ShardedBackend(mesh12).schedule(cflag, throughput))
-    emit(dict(device_split(wall_ms, rows, "choose_kernel<true>"), phase="sharded_constrained_breakdown", mesh=[1, 2]))
+    emit(dict(device_split(wall_ms, rows, "choose_kernel<true,"), phase="sharded_constrained_breakdown", mesh=[1, 2]))
     # Kernel #2b at a late round of that cycle, which launches over every
     # row: the second shard's operands at the first round with <= 3 % of
     # the rows active, recorded from one more cycle.

@@ -128,3 +128,21 @@ def test_assign_every_profile(profile):
     oracle; tests/test_torch_backend.py holds the port to the oracle there.)"""
     packed = pack_snapshot(synth_cluster(n_nodes=24, n_pending=200, n_bound=48, seed=5))
     _both(packed, PROFILES[profile].weights(), max_rounds=64, block=64)
+
+
+@pytest.mark.parametrize("value", [2.0, 0.5, -1.0])
+@pytest.mark.parametrize("key", [
+    "pod_sel", "pod_ntol", "pod_aff", "pod_ntol_soft",
+    "node_labels", "node_taints", "node_aff", "node_pref", "node_taints_soft",
+])
+def test_assign_rejects_non_binary_bitmap(key, value):
+    """The choose kernels count bits, so assign_cycle checks every bitmap
+    operand once per cycle, before any round, and raises ValueError naming
+    the one that is not 0/1 — on the CPU as on the card."""
+    packed = pack_snapshot(synth_cluster(n_nodes=6, n_pending=20, n_bound=6, seed=1, soft_taint_fraction=0.5,
+                                         preferred_affinity_fraction=0.5))
+    arrays = {k: np.array(v) for k, v in packed.device_arrays().items()}
+    arrays[key][0, -1] = value
+    nodes, pods = split_device_arrays({k: torch.from_numpy(v) for k, v in arrays.items()})
+    with pytest.raises(ValueError, match=f"^{key}: holds {value!r}"):
+        assign_cycle(nodes, pods, DEFAULT_PROFILE.weights())

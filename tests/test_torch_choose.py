@@ -7,6 +7,8 @@ extended resources and vocabulary widths beyond the Pallas band limit.
 The port's masks and score are also held against the JAX package's
 xp-generic functions evaluated with NumPy."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -555,3 +557,250 @@ def test_tile_whose_pods_use_every_column_lists_full_width(width):
     active[5] = False
     assert torch.equal(tile_live_columns(pod, active)[0], cols[cols % 8 != 5])
     assert [len(c) for c in tile_live_columns(pod, torch.zeros(b, dtype=torch.bool))] == [0, 0]
+
+
+# --- bitmaps as words (the kernels' operands) and the exact reciprocal ----------
+
+from tpu_scheduler_torch.ops.choose import (  # noqa: E402
+    NODE_WORD_KEYS,
+    POD_BITMAP_KEYS,
+    bitmap_words,
+    pack_node_words,
+    pow2_reciprocal,
+)
+
+
+def _packbits_words(bits: np.ndarray) -> np.ndarray:
+    """[N, W] 0/1 → [ceil(W/32), N] uint32 with np.packbits: little bit
+    order puts column 8·b + k at bit k of byte b, and four bytes read as a
+    little-endian uint32 put it at bit 8·b + k of the word, so bit k of
+    word j is column 32·j + k."""
+    n, w = bits.shape
+    nw = -(-w // 32)
+    padded = np.zeros((n, nw * 32), np.uint8)
+    padded[:, :w] = bits != 0
+    return np.packbits(padded, axis=1, bitorder="little").view("<u4").reshape(n, nw).T
+
+
+@pytest.mark.parametrize("width", [0, 1, 8, 31, 32, 33, 264, 300])
+def test_pack_node_words_matches_packbits(width):
+    rng = np.random.default_rng(width)
+    n = 37
+    maps = [(rng.random((n, width)) < p).astype(np.float32) for p in (0.5, 0.1, 0.9, 0.3, 0.0)]
+    if width:
+        maps[0][:, -1] = 1.0  # the last column (bit 31 of a full word at width 32)
+        maps[1][:, 0] = -0.0  # −0.0 is a 0
+    words = pack_node_words(*(torch.from_numpy(m) for m in maps))
+    assert len(words) == len(NODE_WORD_KEYS)
+    for m, got in zip(maps, words):
+        assert got.dtype == torch.int32 and got.is_contiguous() and tuple(got.shape) == (-(-width // 32), n)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), _packbits_words(m))
+    assert torch.equal(bitmap_words(torch.from_numpy(maps[2])), words[2])
+
+
+def _bitmap_case():
+    a = _case(8, 16, seed=0, soft_taint_fraction=0.4, preferred_affinity_fraction=0.4)
+    assert all(a[k].shape[1] > 0 for k in POD_BITMAP_KEYS + NODE_WORD_KEYS)
+    return a
+
+
+@pytest.mark.parametrize("value", [2.0, 0.5, -1.0])
+@pytest.mark.parametrize("key", POD_BITMAP_KEYS + NODE_WORD_KEYS)
+def test_choose_block_rejects_non_binary_bitmap(key, value):
+    """A bitmap operand that is not 0/1 raises ValueError naming it, on the
+    CPU as on the card: the kernels count bits, which equals the plain
+    version's float sums only for 0/1 operands."""
+    a = _bitmap_case()
+    a[key] = a[key].copy()
+    a[key][1, -1] = value
+    with pytest.raises(ValueError, match=f"^{key}: holds {value!r}"):
+        choose_block(*_port_args(a), DEFAULT_PROFILE.weights())
+    a_cons = _cons_case(24, 40, 0, CONS_ALL)
+    a_cons[0][key] = a_cons[0][key].copy()
+    a_cons[0][key][2, 0] = value
+    masks = port_cons.round_blocked_masks(
+        {k: torch.from_numpy(v) for k, v in a_cons[2].items()}, {k: torch.from_numpy(v) for k, v in a_cons[3].items()},
+        **a_cons[4],
+    )
+    cons_pod = {k: torch.from_numpy(np.ascontiguousarray(a_cons[1][k])) for k in CONSTRAINT_POD_KEYS}
+    with pytest.raises(ValueError, match=f"^{key}: holds {value!r}"):
+        choose_block_constrained(*_port_args(a_cons[0]), cons_pod, masks, DEFAULT_PROFILE.weights())
+
+
+@pytest.mark.parametrize("case", ["skips_pod_check", "wrong_shape", "wrong_dtype", "wrong_count"])
+def test_prebuilt_node_words_are_taken_as_given(case):
+    """A caller that passes node_words has checked the bitmaps once per
+    cycle: the wrapper does not read the pod bitmaps again (a 2.0 there
+    goes unchecked), but it holds the words to the node bitmaps' shapes
+    and to int32, on the CPU as on the card."""
+    a = _bitmap_case()
+    words = list(pack_node_words(*_port_args(a)[13:18]))
+    w = PROFILES["throughput"].weights()
+    if case == "skips_pod_check":
+        a["pod_sel"] = a["pod_sel"].copy()
+        a["pod_sel"][1, -1] = 2.0
+        with pytest.raises(ValueError, match="^pod_sel: holds 2.0"):
+            choose_block(*_port_args(a), w, 3)
+        choose_block(*_port_args(a), w, 3, node_words=words)
+        return
+    if case == "wrong_shape":
+        words[1] = torch.zeros((words[1].shape[0] + 1, words[1].shape[1]), dtype=torch.int32)
+        match = "^node_taints words: shape"
+    elif case == "wrong_dtype":
+        words[0] = words[0].to(torch.int64)
+        match = "^node_labels words: dtype"
+    else:
+        words = words[:4]
+        match = "^node_words: 4 tensors"
+    with pytest.raises(ValueError, match=match):
+        choose_block(*_port_args(a), w, 3, node_words=words)
+
+
+@pytest.mark.parametrize("k", range(-10, 11))
+def test_division_by_power_of_two_is_multiplication_by_reciprocal(k):
+    """x / 2^k and x · 2^−k round the same real number, so they are equal
+    bit for bit on random float32, subnormal inputs and results, ±0, ±inf
+    and values near the overflow and underflow limits."""
+    rng = np.random.default_rng(k + 10)
+    w = np.float32(2.0**k)
+    inv = np.float32(1.0) / w
+    assert float(inv) * float(w) == 1.0
+    x = np.concatenate([
+        rng.standard_normal(4000).astype(np.float32) * np.float32(100.0),
+        (rng.random(2000) * 2**32).astype(np.uint32).view(np.float32),  # every exponent, NaNs dropped below
+        np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 1.1754942e-38, 3.4028235e38, -3.4028235e38], np.float32),
+        (rng.integers(1, 1 << 23, 500).astype(np.uint32)).view(np.float32),  # subnormals
+    ])
+    x = x[~np.isnan(x)]
+    with np.errstate(over="ignore", under="ignore"):
+        np.testing.assert_array_equal((x / w).view(np.int32), (x * inv).view(np.int32))
+    assert pow2_reciprocal(w) == float(inv)
+
+
+@pytest.mark.parametrize("w,exact", [(32.0, True), (0.5, True), (0.3, False), (3.0, False), (0.0, False)])
+def test_pow2_reciprocal_rule(w, exact):
+    """The launcher's rule: the flagship's 32.0 and the default 0.5 take the
+    multiplication; 0.3, 3.0 and 0 (no jitter) keep the division."""
+    inv = pow2_reciprocal(w)
+    assert (inv is not None) == exact
+    if exact:
+        assert inv == 1.0 / w
+
+
+def _word_counts(pod_bits: np.ndarray, node_bits: np.ndarray) -> np.ndarray:
+    """[B, N] popcount of (pod words & node words) summed over words."""
+    pw, nw = _packbits_words(pod_bits), _packbits_words(node_bits)
+    return np.bitwise_count(pw.T[:, None, :] & nw.T[None, :, :]).astype(np.int64).sum(-1)
+
+
+def _word_model(a, weights, salt):
+    """The redesigned kernel's arithmetic in NumPy: the hard predicates and
+    the soft count from popcounts of packed words, c_pref as the ascending
+    float32 sum of pref_w over the set bits of nz(pref_w) & node_pref from
+    +0.0, h / 65536 built in the mantissa, the quantization by the exact
+    reciprocal when the jitter is a power of two.  Returns (choice, has,
+    best) over every pod and node."""
+    f32 = np.float32
+    w = np.asarray(weights, f32)
+    b, n = a["pod_req"].shape[0], a["node_avail"].shape[0]
+    selc = a["pod_sel_count"]
+    need = np.where((selc >= 0) & (np.floor(selc) == selc), selc, -1).astype(np.int64)
+    feasible = (
+        (a["pod_req"][:, None, :] <= a["node_avail"][None, :, :]).all(-1)
+        & (_word_counts(a["pod_sel"], a["node_labels"]) == need[:, None])
+        & (_word_counts(a["pod_ntol"], a["node_taints"]) == 0)
+        & ((_word_counts(a["pod_aff"], a["node_aff"]) > 0) | (a["pod_has_aff"] == 0)[:, None])
+        & a["node_valid"][None, :] & a["pod_valid"][:, None]
+    )
+    c_pref = np.zeros((b, n), f32)
+    pref_w, node_pref = a["pod_pref_w"], a["node_pref"]
+    for k in range(pref_w.shape[1]):
+        hit = (pref_w[:, k] != 0)[:, None] & (node_pref[:, k] != 0)[None, :]
+        c_pref = np.where(hit, c_pref + pref_w[:, k, None], c_pref)
+    soft = _word_counts(a["pod_ntol_soft"], a["node_taints_soft"]).astype(f32)
+    alloc, avail, req = a["node_alloc"][:, :2], a["node_avail"][:, :2], a["pod_req"][:, :2]
+    with np.errstate(over="ignore"):
+        used = (alloc - avail)[None, :, :] + req[:, None, :]
+    safe = (alloc > 0)[None]
+    frac = np.where(safe, used.astype(f32) / np.where(safe, alloc.astype(f32)[None], f32(1)), f32(1))
+    lr = ((f32(1) - frac[..., 0]) + (f32(1) - frac[..., 1])) * f32(50)
+    ba = (f32(1) - np.abs(frac[..., 0] - frac[..., 1])) * f32(100)
+    s = (w[0] * lr + w[1] * ba + w[3] * c_pref) - w[4] * soft
+    h = (np.arange(b, dtype=np.uint64)[:, None] * 2654435761 + np.arange(n, dtype=np.uint64)[None, :] * 2246822519
+         + salt * 3266489917) & 0xFFFFFFFF
+    h = ((h ^ (h >> 15)) & 0xFFFF).astype(np.uint32)
+    unit16 = (np.uint32(0x3F800000) | (h << np.uint32(7))).view(f32) - f32(1)
+    np.testing.assert_array_equal(unit16, h.astype(f32) / f32(65536))
+    if w[2] > 0:
+        inv = pow2_reciprocal(w[2])
+        s = np.floor(s * f32(inv) if inv is not None else s / w[2]) * w[2]
+    s = (s + w[2] * unit16).astype(f32)
+    masked = np.where(feasible, s, f32(-np.inf))
+    choice = masked.argmax(1).astype(np.int32)
+    return choice, feasible.any(1), masked[np.arange(b), choice]
+
+
+@pytest.mark.parametrize("seed", [0, 3, 5])
+def test_popcounts_equal_jax_dot_products(seed):
+    """The hard and soft counts as popcounts of packed words equal, as
+    float32, the dot products the JAX package's choose forms from the
+    same inputs (jnp, float32 on the CPU)."""
+    a = _case(
+        32, 48, seed, selector_fraction=0.7, tainted_fraction=0.5, node_affinity_fraction=0.5,
+        soft_taint_fraction=0.5, preferred_affinity_fraction=0.5,
+    )
+    for pod_key, node_key in (("pod_sel", "node_labels"), ("pod_ntol", "node_taints"), ("pod_aff", "node_aff"),
+                              ("pod_ntol_soft", "node_taints_soft")):
+        dot = np.asarray(jnp.asarray(a[pod_key]) @ jnp.asarray(a[node_key]).T)
+        counts = _word_counts(a[pod_key], a[node_key])
+        assert counts.any(), pod_key
+        np.testing.assert_array_equal(counts.astype(np.float32).view(np.int32), dot.view(np.int32), err_msg=pod_key)
+
+
+def _numpy_reference(a, weights, salt):
+    """The JAX package's masks and score evaluated with NumPy (the oracle's
+    arithmetic), then the first-max argmax: (choice, has, best)."""
+    b, n = a["pod_req"].shape[0], a["node_avail"].shape[0]
+    names = ("pod_req", "pod_sel", "pod_sel_count", "pod_valid", "node_avail", "node_labels", "node_valid",
+             "pod_ntol", "node_taints", "pod_aff", "pod_has_aff", "node_aff")
+    m = jax_masks.feasibility_block(np, *(a[k] for k in names))
+    s = jax_score.score_block(
+        np, a["pod_req"], a["node_alloc"], a["node_avail"], weights, np.arange(b, dtype=np.uint32),
+        np.arange(n, dtype=np.uint32), pod_pref_w=a["pod_pref_w"], node_pref=a["node_pref"],
+        pod_ntol_soft=a["pod_ntol_soft"], node_taints_soft=a["node_taints_soft"], salt=salt,
+    )
+    s = np.where(m, s, np.float32(-np.inf)).astype(np.float32)
+    choice = s.argmax(1).astype(np.int32)
+    return choice, m.any(1), s[np.arange(b), choice]
+
+
+@pytest.mark.parametrize("jitter", [32.0, 0.5, 0.3, 0.0])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_word_model_matches_jax(seed, jitter):
+    """The redesigned kernel's arithmetic (_word_model) equals the JAX
+    package's choose bit for bit: its masks and score evaluated with NumPy
+    at every jitter (0.3 keeps the division, 0 skips the quantization), and
+    the Pallas kernel in interpret mode (choice, has, best) and the jnp tree
+    (choice, has) where the jitter is a power of two or 0.  At 0.3 XLA's
+    CPU jit contracts ⌊s/w⌋·w + w·u into a multiply-add, which rounds once
+    (ROADMAP Queue 3); with a power of two the product is exact and the
+    contraction changes nothing."""
+    a = _case(24, 40, seed, soft_taint_fraction=0.4, preferred_affinity_fraction=0.4, tainted_fraction=0.3,
+              node_affinity_fraction=0.3)
+    weights = dataclasses.replace(PROFILES["throughput"], spread_jitter=jitter).weights()
+    salt = 3 + seed
+    mc, mh, mb = _word_model(a, weights, salt)
+    assert mh.any()
+    rc, rh, rb = _numpy_reference(a, weights, salt)
+    np.testing.assert_array_equal(mh, rh)
+    np.testing.assert_array_equal(mc, rc)
+    np.testing.assert_array_equal(mb.view(np.int32), rb.view(np.int32))
+    if jitter == 0.3:
+        return
+    kc, kh, kb = _pallas_path(a, weights, salt)
+    np.testing.assert_array_equal(mh, kh)
+    np.testing.assert_array_equal(mc[mh], kc[kh])
+    np.testing.assert_array_equal(mb[mh].view(np.int32), kb[kh].view(np.int32))
+    jc, jh = _jnp_path(a, weights, salt)
+    np.testing.assert_array_equal(mh, jh)
+    np.testing.assert_array_equal(mc, jc)

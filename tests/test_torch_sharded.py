@@ -341,3 +341,14 @@ def test_constraint_operands_pad_the_node_axis():
     for k in ("aa_node_m", "aa_node_c", "pa_node_m", "ppa_node_cnt"):
         assert ops[k].shape[1] == n + 3 and not ops[k][:, n:].any()
         np.testing.assert_array_equal(ops[k][:, :n], cons.state_arrays()[k])
+
+
+@pytest.mark.parametrize("key", ["pod_aff", "node_labels"])
+def test_sharded_cycle_rejects_non_binary_bitmap(key):
+    """The sharded cycle checks each shard's bitmaps once, where it uploads
+    them and builds the node words: a value other than 0/1 raises."""
+    snap = synth_cluster(n_nodes=10, n_pending=40, n_bound=10, seed=3, node_affinity_fraction=0.5)
+    a = {k: np.array(v) for k, v in pack_snapshot(snap, pod_block=1, node_block=1).device_arrays().items()}
+    a[key][-1, 0] = 3.0
+    with pytest.raises(ValueError, match=f"^{key}: holds 3.0"):
+        sharded_assign_cycle(make_mesh(CPU8, tp=2), a, DEFAULT_PROFILE.weights())

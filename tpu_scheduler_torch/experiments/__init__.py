@@ -5,15 +5,19 @@ nothing when imported:
 
     python -m tpu_scheduler_torch.experiments.bench_kernel_parts
     python -m tpu_scheduler_torch.experiments.bench_wide_kernel
+
+and ``bench_choose_builds``, which times kernel #1 from several builds of
+``csrc/choose.cu`` in one call.
 """
 
 from __future__ import annotations
 
+import re
 import subprocess
 
 import torch
 
-__all__ = ["card", "time_cuda"]
+__all__ = ["card", "ptxas_resources", "time_cuda"]
 
 
 def card() -> str:
@@ -37,3 +41,24 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_resources(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from ``nvcc
+    -Xptxas -v`` output; a kernel templated on bools is named as
+    ``choose_kernel<false,true>``, any other by its mangled name."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            m = re.match(r"_Z\d+([A-Za-z_]\w*?)I((?:Lb\dE)+)E", entry)
+            if m:
+                flags = ",".join(("false", "true")[int(b)] for b in re.findall(r"Lb(\d)E", m[2]))
+                entry = f"{m[1]}<{flags}>"
+            out[entry] = {}
+        elif entry and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[entry].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out

@@ -45,7 +45,15 @@ from dataclasses import dataclass
 
 import torch
 
-from .choose import CONSTRAINT_POD_KEYS, choose_block, choose_block_constrained
+from .choose import (
+    CONSTRAINT_POD_KEYS,
+    NODE_WORD_KEYS,
+    POD_BITMAP_KEYS,
+    check_pod_bitmaps,
+    choose_block,
+    choose_block_constrained,
+    pack_node_words,
+)
 from .constraints import augment_round_state, constraint_commit, constraint_filter, round_blocked_masks
 from .pack import INT32_MAX, STALL_ROUNDS
 
@@ -150,9 +158,10 @@ class _Constraints:
     stall: int = 0
 
 
-def _choose(avail, ps: dict, n_active: int, nodes: dict, weights, block: int, salt: int, masks=None):
+def _choose(avail, ps: dict, n_active: int, nodes: dict, words: tuple, weights, block: int, salt: int, masks=None):
     """Per-pod best feasible node vs current capacity, blockwise over the
     compacted pods: only the first ceil(n_active / block) blocks run.
+    ``words``: the cycle's node bitmap words (choose.pack_node_words);
     ``masks`` (a constrained round's node masks) selects the constrained
     choose."""
     p = ps["pod_req"].shape[0]
@@ -161,9 +170,11 @@ def _choose(avail, ps: dict, n_active: int, nodes: dict, weights, block: int, sa
     def run(lo, hi):
         pod_args = (ps[k][lo:hi] for k in _CHOOSE_KEYS)
         if masks is None:
-            return choose_block(*pod_args, *node_args, weights, salt)[:2]
+            return choose_block(*pod_args, *node_args, weights, salt, node_words=words)[:2]
         cons_pod = {k: ps[k][lo:hi] for k in CONSTRAINT_POD_KEYS}
-        return choose_block_constrained(*pod_args, *node_args, cons_pod, masks, weights, salt)[:2]
+        return choose_block_constrained(
+            *pod_args, *node_args, cons_pod, masks, weights, salt, node_words=words
+        )[:2]
 
     if block >= p:
         return run(0, p)
@@ -212,7 +223,10 @@ def commit_claims(avail: torch.Tensor, ch: torch.Tensor, claim: torch.Tensor, ac
     return (avail.to(torch.int64) - dec[:n]).to(torch.int32)
 
 
-def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, block: int, cons: _Constraints | None):
+def _round(
+    avail, ps: dict, n_active: int, rounds: int, nodes: dict, words: tuple, weights, block: int,
+    cons: _Constraints | None,
+):
     """One auction round: choose, accept, (constraint filter and commit),
     commit capacity, compact.  Returns (avail, ps, n_active) — n_active read
     to the host; ``cons`` is updated in place."""
@@ -220,7 +234,7 @@ def _round(avail, ps: dict, n_active: int, rounds: int, nodes: dict, weights, bl
     masks = None
     if cons is not None:
         masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
-    choice, has = _choose(avail, ps, n_active, nodes, weights, block, rounds, masks)
+    choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks)
     cand = ps["active"] & has
     ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
     claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
@@ -282,8 +296,12 @@ def assign_cycle(
     has (the JAX package's assign_cycle contract).  Returns (assigned [P]
     int32 — node index or −1, rounds int, remaining node_avail [N,R] int32,
     acc_round [P] int32 — the round each pod was accepted in or −1,
-    rank_of [P] int32 — each pod's priority rank)."""
+    rank_of [P] int32 — each pod's priority rank).  Every bitmap operand
+    must be 0/1 (ValueError otherwise, before any round): the choose
+    kernels read the node bitmaps as words, built here once per cycle."""
     p_out = pods["pod_req"].shape[0]
+    check_pod_bitmaps(*(pods[k] for k in POD_BITMAP_KEYS))
+    words = pack_node_words(*(nodes[k] for k in NODE_WORD_KEYS))
     perm, ps = _prepare_pods(pods, block)
     cons = None
     if cmeta is not None:
@@ -312,7 +330,7 @@ def assign_cycle(
             not done and rounds < max_rounds and n_active > 0 and not _stalled(cons)
             and (not next_size or n_active > next_size)
         ):
-            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, weights, block, cons)
+            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, words, weights, block, cons)
             rounds += 1
         done = done or rounds >= max_rounds or n_active <= 0 or _stalled(cons)
 

@@ -16,6 +16,18 @@ For tensors on the CPU each runs its plain torch version
 CUDA tensors it launches its kernel or raises — it never falls back to the
 plain version on the card.
 
+The kernels read the node bitmaps as words: :func:`pack_node_words` turns
+each [N, W] 0/1 bitmap into [ceil(W/32), N] int32 words (bit k of word j is
+column 32·j + k), once per cycle in ``ops/assign.assign_cycle`` and once per
+shard in ``parallel/sharded.py``, which pass them to every launch as
+``node_words``; a direct caller may leave it out and the wrapper builds
+them.  Either way every bitmap operand — node side here, pod side
+(``pod_sel``, ``pod_ntol``, ``pod_aff``, ``pod_ntol_soft``) by
+:func:`check_pod_bitmaps` — must hold only 0.0 and 1.0, as
+``ops/pack.pack_snapshot`` makes them: the kernels count bits, which equals
+the plain version's float dot products only then.  Anything else raises
+``ValueError`` naming the operand, on the CPU too.
+
 Both kernels are built at first use, by one ``nvcc`` call for ``sm_90a``,
 into ``build/torch_kernels/`` of the checkout (one subdirectory per source
 digest) and bound with ``ctypes``: plain C launchers, no PyTorch headers,
@@ -60,8 +72,16 @@ __all__ = [
     "tile_live_columns",
     "tile_live_mask",
     "CONSTRAINT_POD_KEYS",
+    "bind_library",
     "build_library",
+    "bitmap_words",
+    "check_bitmaps",
+    "check_pod_bitmaps",
+    "pack_node_words",
+    "pow2_reciprocal",
     "KernelError",
+    "NODE_WORD_KEYS",
+    "POD_BITMAP_KEYS",
     "LAUNCHES",
     "LAUNCHES_CONSTRAINED",
     "MAX_NODE_OFFSET",
@@ -83,6 +103,11 @@ CONSTRAINT_POD_KEYS = (
     "pod_sps_declares",
     "pod_ppa_w",
 )
+
+# The node bitmaps the kernels read as words, in pack_node_words' order, and
+# the pod bitmaps check_pod_bitmaps holds to 0/1 (device_arrays names).
+NODE_WORD_KEYS = ("node_labels", "node_taints", "node_aff", "node_pref", "node_taints_soft")
+POD_BITMAP_KEYS = ("pod_sel", "pod_ntol", "pod_aff", "pod_ntol_soft")
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "choose.cu"
@@ -131,21 +156,27 @@ def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> 
     return lib, seconds, proc.stdout + proc.stderr
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _, _ = build_library()
+def bind_library(path: pathlib.Path) -> ctypes.CDLL:
+    """Load a built choose library and declare its launchers' C types."""
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise KernelError(f"cannot load {path}: {e}") from e
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.tsched_choose_launch.argtypes = [ptr] * 18 + [i32] * 8 + [f32] * 5 + [u32] * 2 + [ptr] * 4
+    lib.tsched_choose_launch.argtypes = [ptr] * 18 + [i32] * 8 + [f32] * 6 + [i32] + [u32] * 2 + [ptr] * 4
     lib.tsched_choose_launch.restype = ctypes.c_int
-    lib.tsched_choose_constrained_launch.argtypes = [ptr] * 26 + [i32] * 12 + [f32] * 6 + [u32] * 2 + [ptr] * 4
+    lib.tsched_choose_constrained_launch.argtypes = (
+        [ptr] * 26 + [i32] * 12 + [f32] * 6 + [i32] + [f32] + [u32] * 2 + [ptr] * 4
+    )
     lib.tsched_choose_constrained_launch.restype = ctypes.c_int
     lib.tsched_error_string.argtypes = [ctypes.c_int]
     lib.tsched_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind_library(build_library()[0])
 
 
 def _check_offset(node_offset: int) -> int:
@@ -153,6 +184,71 @@ def _check_offset(node_offset: int) -> int:
     if not 0 <= node_offset < MAX_NODE_OFFSET:
         raise ValueError(f"node_offset {node_offset} outside [0, 2^24): the reference kernel carries it as a float32")
     return node_offset
+
+
+def bitmap_words(bits: torch.Tensor) -> torch.Tensor:
+    """[N, W] 0/1 bitmap → [ceil(W/32), N] int32 words, on the bitmap's
+    device: bit k of word j is column 32·j + k (bit 31 is the sign bit), and
+    the words are transposed so that a thread per node reads them
+    coalesced.  Non-zero counts as 1; :func:`check_bitmaps` first."""
+    n, w = bits.shape
+    nw = -(-w // 32)
+    b = torch.zeros((n, nw * 32), dtype=torch.int64, device=bits.device)
+    b[:, :w] = bits != 0
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (b.view(n, nw, 32) << shifts).sum(dim=2)  # distinct powers of two: the sum is the OR
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)  # as int32 bits
+    return words.to(torch.int32).T.contiguous()
+
+
+def check_bitmaps(bitmaps: dict) -> None:
+    """Raise ValueError naming the first operand of ``bitmaps`` (name →
+    tensor) that holds a value other than exactly 0.0 or 1.0 (−0.0 counts
+    as 0.0).  One host read for all of them."""
+    bad = torch.stack([((t != 0) & (t != 1)).any() for t in bitmaps.values()]).tolist()
+    for (name, t), b in zip(bitmaps.items(), bad):
+        if b:
+            value = float(t[(t != 0) & (t != 1)][0])
+            raise ValueError(
+                f"{name}: holds {value!r}; the choose kernels count bits, so every bitmap operand must be 0.0 or 1.0"
+            )
+
+
+def check_pod_bitmaps(sel, ntol, aff, ntol_soft) -> None:
+    """:func:`check_bitmaps` on the pod side's four bitmaps (pref_w holds
+    weights and is not one)."""
+    check_bitmaps(dict(zip(POD_BITMAP_KEYS, (sel, ntol, aff, ntol_soft))))
+
+
+def pack_node_words(labels, taints, node_aff, node_pref, taints_soft) -> tuple:
+    """The node side's five [N, W] bitmaps, checked to be 0/1
+    (:func:`check_bitmaps`, ValueError otherwise), as :func:`bitmap_words`
+    — the ``node_words`` the kernels read, in NODE_WORD_KEYS order.  The
+    five are packed together, each padded to whole words, so a cycle pays
+    one pass and one host read."""
+    bitmaps = dict(zip(NODE_WORD_KEYS, (labels, taints, node_aff, node_pref, taints_soft)))
+    nws = [-(-t.shape[1] // 32) for t in bitmaps.values()]
+    joined = torch.zeros((labels.shape[0], 32 * sum(nws)), dtype=torch.float32, device=labels.device)
+    col = 0
+    for t, nw in zip(bitmaps.values(), nws):
+        joined[:, col : col + t.shape[1]] = t
+        col += 32 * nw
+    if bool(((joined != 0) & (joined != 1)).any()):
+        check_bitmaps(bitmaps)  # names the operand
+    return tuple(torch.split(bitmap_words(joined), nws))
+
+
+def pow2_reciprocal(w: float) -> float | None:
+    """1 / w when w > 0 is a power of two whose reciprocal is a finite
+    float32 (then s / w and s · (1 / w) round the same real number, so
+    they are equal bit for bit); None otherwise, and the kernel divides."""
+    w = np.float32(w)
+    if not (np.isfinite(w) and w > 0):
+        return None
+    with np.errstate(over="ignore"):
+        inv = np.float32(1.0) / w
+    # inv · w is exact in float64; it is 1 only when inv is exactly 1 / w.
+    return float(inv) if np.isfinite(inv) and float(inv) * float(w) == 1.0 else None
 
 
 def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None):
@@ -316,25 +412,50 @@ def _check_base(args) -> tuple:
     return device, b, n, r, (L, T, A, A2, Ts)
 
 
-def _launch(
-    fn, name: str, args, extra_ptrs, extra_ints, extra_floats, weights, salt, node_offset, device, b, n, r, widths
-):
+def _words(args, node_words):
+    """The node words a launch reads.  Given ``node_words`` (the caller
+    checked the bitmaps), their device, type and shape are checked and they
+    are returned as given.  Without them every bitmap operand is checked to
+    be 0/1 and, for CUDA tensors only, the words are built (the plain
+    version on the CPU reads the bitmaps themselves): returns None there."""
+    device, n = args[0].device, args[10].shape[0]
+    widths = tuple(args[i].shape[1] for i in (1, 3, 4, 6, 7))  # L, T, A, A2, Ts
+    if node_words is not None:
+        node_words = tuple(node_words)
+        if len(node_words) != len(NODE_WORD_KEYS):
+            raise ValueError(f"node_words: {len(node_words)} tensors, expected {len(NODE_WORD_KEYS)}")
+        for name, words, width in zip(NODE_WORD_KEYS, node_words, widths):
+            _check(f"{name} words", words, torch.int32, (-(-width // 32), n), device)
+        return node_words
+    sel, ntol, aff, ntol_soft = args[1], args[3], args[4], args[7]
+    check_pod_bitmaps(sel, ntol, aff, ntol_soft)
+    if device.type == "cpu":
+        check_bitmaps(dict(zip(NODE_WORD_KEYS, args[13:18])))
+        return None
+    return pack_node_words(*args[13:18])
+
+
+def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, salt, node_offset, device, b):
     """Allocate the outputs and launch one kernel on the current stream;
-    raises KernelError when the launch is refused.  ``node_offset`` (checked
-    to lie in [0, 2^24)) travels as a c_uint32."""
+    raises KernelError when the launch is refused.  The pointers are the
+    13 pod and node operands before the node bitmaps, the node words, then
+    the constraint operands ``ptrs``; then the sizes ``ints``, the five
+    weights, the jitter's exact reciprocal and its flag (pow2_reciprocal),
+    ``extra_floats``.  ``node_offset`` (checked to lie in [0, 2^24)) travels
+    as a c_uint32."""
     choice = torch.empty((b,), dtype=torch.int32, device=device)
     has = torch.empty((b,), dtype=torch.bool, device=device)
     best = torch.empty((b,), dtype=torch.float32, device=device)
     if b == 0:
         return choice, has, best
     w = np.asarray(weights, dtype=np.float32)
+    inv = pow2_reciprocal(w[2])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(t.data_ptr() for t in args), *(t.data_ptr() for t in extra_ptrs),
-            b, n, r, *widths, *extra_ints,
-            *(float(x) for x in w[:5]), *extra_floats, int(salt) & 0xFFFFFFFF, node_offset,
-            choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
+            *(t.data_ptr() for t in args[:13]), *(t.data_ptr() for t in node_words), *(t.data_ptr() for t in ptrs),
+            *ints, *(float(x) for x in w[:5]), 0.0 if inv is None else inv, int(inv is not None), *extra_floats,
+            int(salt) & 0xFFFFFFFF, node_offset, choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
         )
     if err != 0:
         raise KernelError(f"{name} kernel launch failed: {_library().tsched_error_string(err).decode()} ({err})")
@@ -344,7 +465,7 @@ def _launch(
 def choose_block(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    weights, salt: int = 0, node_offset: int = 0,
+    weights, salt: int = 0, node_offset: int = 0, node_words=None,
 ):
     """Best feasible node per pod of one block.
 
@@ -356,19 +477,26 @@ def choose_block(
     node_pref [N,A2] / taints_soft [N,Ts] float32.  ``weights``: the
     profile's float32 weight vector (host); ``salt``: the auction round;
     ``node_offset``: the global index of node row 0 (a tp shard's base).
+    Every bitmap (sel, ntol, aff, ntol_soft and the five node ones) must be
+    0/1, else ValueError.  ``node_words``: :func:`pack_node_words` of the
+    node bitmaps, built once by a caller that launches many blocks against
+    one node set (its pod bitmaps then go unchecked here: the caller checks
+    them once, :func:`check_pod_bitmaps`); built and checked here when
+    None; either way they are checked against the node bitmaps' shapes.
     Returns (choice [B] int32, local to the slice; has [B] bool; best [B]
     float32)."""
     global LAUNCHES
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
+    if req.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"choose_block: unsupported device {req.device}")
+    node_words = _words(args, node_words)
     if req.device.type == "cpu":
         return _plain(args, weights, salt, node_offset)
-    if req.device.type != "cuda":
-        raise ValueError(f"choose_block: unsupported device {req.device}")
     device, b, n, r, widths = _check_base(args)
     out = _launch(
-        _library().tsched_choose_launch, "choose", args, (), (), (), weights, salt, _check_offset(node_offset),
-        device, b, n, r, widths,
+        _library().tsched_choose_launch, "choose", args, node_words, (), (b, n, r, *widths), weights, (),
+        salt, _check_offset(node_offset), device, b,
     )
     if b:
         LAUNCHES += 1
@@ -378,11 +506,12 @@ def choose_block(
 def choose_block_constrained(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0,
+    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0, node_words=None,
 ):
     """Best feasible node per pod of one block in a constrained round: the
-    operands of :func:`choose_block`, plus ``cons_pod`` (the block's
-    CONSTRAINT_POD_KEYS bitmaps, [B, ·] float32) and ``masks`` (the round's
+    operands of :func:`choose_block` (``node_words`` and the 0/1 rule
+    included), plus ``cons_pod`` (the block's CONSTRAINT_POD_KEYS bitmaps,
+    [B, ·] float32) and ``masks`` (the round's
     constraints.round_blocked_masks, [·, N] float32).  Returns (choice,
     has, best) as choose_block does.  On the card each 8-pod tile sums the
     constraint terms over its live columns only (:func:`tile_live_columns`)
@@ -391,10 +520,11 @@ def choose_block_constrained(
     global LAUNCHES_CONSTRAINED
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
+    if req.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"choose_block_constrained: unsupported device {req.device}")
+    node_words = _words(args, node_words)
     if req.device.type == "cpu":
         return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset)
-    if req.device.type != "cuda":
-        raise ValueError(f"choose_block_constrained: unsupported device {req.device}")
     device, b, n, r, widths = _check_base(args)
     pod_ops = constrained_pod_operands(cons_pod, masks)
     node_ops = constrained_node_operands(masks)
@@ -406,9 +536,9 @@ def choose_block_constrained(
     ptrs = [t for pair in zip(pod_ops, node_ops) for t in pair]
     w_topo = float(np.asarray(weights, dtype=np.float32)[5])
     out = _launch(
-        _library().tsched_choose_constrained_launch, "choose_constrained", args, ptrs,
-        tuple(int(po.shape[1]) for po in pod_ops), (w_topo,), weights, salt, _check_offset(node_offset),
-        device, b, n, r, widths,
+        _library().tsched_choose_constrained_launch, "choose_constrained", args, node_words,
+        ptrs, (b, n, r, *widths, *(int(po.shape[1]) for po in pod_ops)), weights, (w_topo,), salt,
+        _check_offset(node_offset), device, b,
     )
     if b:
         LAUNCHES_CONSTRAINED += 1

@@ -55,7 +55,15 @@ from ..backends.cuda import _is_device_failure
 from ..errors import BackendUnavailable
 from ..models.profiles import SchedulingProfile
 from ..ops.assign import accept_claims, commit_claims
-from ..ops.choose import CONSTRAINT_POD_KEYS, choose_block, choose_block_constrained
+from ..ops.choose import (
+    CONSTRAINT_POD_KEYS,
+    NODE_WORD_KEYS,
+    POD_BITMAP_KEYS,
+    check_pod_bitmaps,
+    choose_block,
+    choose_block_constrained,
+    pack_node_words,
+)
 from ..ops.constraints import augment_round_state, constraint_commit, constraint_filter, round_blocked_masks
 from ..ops.pack import STALL_ROUNDS, PackedCluster, round_up
 from .mesh import Mesh, make_mesh
@@ -160,6 +168,7 @@ class _Shard:
     base: int  # first global node column
     pods: dict
     nodes: dict
+    words: tuple  # the node columns' bitmap words (choose.pack_node_words)
     ranks: torch.Tensor
     avail: torch.Tensor
     active: torch.Tensor
@@ -196,9 +205,11 @@ def sharded_assign_cycle(
     constrained = constraints is not None
     weights = np.asarray(weights, dtype=np.float32)
 
-    # Read-only uploads, once per (device, row) and (device, column).
+    # Read-only uploads, once per (device, row) and (device, column), the
+    # bitmaps checked to be 0/1 and the node words built there.
     row_cache: dict = {}
     col_cache: dict = {}
+    word_cache: dict = {}
     shards = []
     for i in range(dp):
         for j in range(tp):
@@ -206,11 +217,13 @@ def sharded_assign_cycle(
             lo, base = i * p_local, j * n_local
             if (d, i) not in row_cache:
                 row_cache[d, i] = {k: _put(v[lo : lo + p_local], d) for k, v in pods.items()}
+                check_pod_bitmaps(*(row_cache[d, i][k] for k in POD_BITMAP_KEYS))
             if (d, j) not in col_cache:
                 col_cache[d, j] = {k: _put(arrays[k][base : base + n_local], d) for k in _NODE_PAD_KEYS}
+                word_cache[d, j] = pack_node_words(*(col_cache[d, j][k] for k in NODE_WORD_KEYS))
             rows, cols = row_cache[d, i], col_cache[d, j]
             shards.append(_Shard(
-                i, j, d, lo, base, rows, cols,
+                i, j, d, lo, base, rows, cols, word_cache[d, j],
                 ranks=torch.arange(lo, lo + p_local, dtype=torch.int32, device=d),
                 avail=cols["node_avail"].clone(),
                 active=rows["pod_valid"].clone(),
@@ -249,10 +262,12 @@ def sharded_assign_cycle(
                 }
                 cons_pod = {k: replicas[s.device].cpods[k][s.lo : s.lo + p_local] for k in CONSTRAINT_POD_KEYS}
                 idx, _, b = choose_block_constrained(
-                    *pod_args, *node_args, cons_pod, lm, weights, rounds, node_offset=s.base
+                    *pod_args, *node_args, cons_pod, lm, weights, rounds, node_offset=s.base, node_words=s.words
                 )
             else:
-                idx, _, b = choose_block(*pod_args, *node_args, weights, rounds, node_offset=s.base)
+                idx, _, b = choose_block(
+                    *pod_args, *node_args, weights, rounds, node_offset=s.base, node_words=s.words
+                )
             best.append(b)
             local_choice.append(idx + s.base)
         choice, has, cand, claim_node, claim_req = [], [], [], [], []
