@@ -31,6 +31,19 @@ bisection kernels) and, for each main path:
   mid and constrained-row cycles held against ``CudaBackend``; the flagship
   on (2, 2) and the constrained flagship on (1, 2), timed, held against the
   unsharded cycles;
+* topology — kernels #1 and #2 with the gang co-placement term held bit
+  for bit against their plain versions (the flagship block at round 0 and
+  mid-cycle, tiles mixing gangless and several gangs, ties the term makes,
+  term magnitudes from 1e-3 to 1e9, constrained rounds), timed with and
+  without the term; bench.py's topology row at its CPU shape (8,192 ×
+  512), unconstrained and with the constrained row's fractions, on the
+  card against the CPU; then the topology flagship — bench.py's
+  ``topology_row`` at its on-chip shape (100,000 pending pods × 8,192
+  nodes in slices of 4 and racks of 16, ~35 % of draws a gang of 4-8,
+  seed 0, ``throughput``) — through ``CudaBackend.schedule``, three cycles
+  on fresh copies of the cluster (upload-cache misses) and three on one
+  (hits), with its gang quality against the topology-blind solve and a
+  profiler breakdown;
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
   ``bench_wide_kernel.py`` (kernel #3) at their full shape, and each kernel
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import random
 import statistics
 import sys
 import time
@@ -56,12 +70,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
+import tpu_scheduler_torch.backends.cuda as cuda_backend_mod
 import tpu_scheduler_torch.ops.assign as assign_mod
 import tpu_scheduler_torch.ops.bisect as bisect_mod
 import tpu_scheduler_torch.ops.choose as choose_mod
 import tpu_scheduler_torch.parallel.sharded as sharded_mod
 from tpu_scheduler_torch.backends.cuda import CudaBackend
-from tpu_scheduler_torch.convert import constraints_to_device, to_device
+from tpu_scheduler_torch.convert import constraints_to_device, to_device, topology_to_device
+from tpu_scheduler_torch.core.snapshot import ClusterSnapshot
 from tpu_scheduler_torch.models.profiles import PROFILES
 from tpu_scheduler_torch.ops.assign import assign_cycle, split_device_arrays
 from tpu_scheduler_torch.ops.choose import (
@@ -84,7 +100,10 @@ from tpu_scheduler_torch.experiments import card as nvidia_smi
 from tpu_scheduler_torch.ops.pack import pack_snapshot
 from tpu_scheduler_torch.parallel.mesh import make_mesh
 from tpu_scheduler_torch.parallel.sharded import ShardedBackend
-from tpu_scheduler_torch.testing import synth_cluster
+from tpu_scheduler_torch.testing import make_node, make_pod, synth_cluster
+from tpu_scheduler_torch.topology.locality import _add_rows as locality_add_rows
+from tpu_scheduler_torch.topology.locality import gang_placement_stats, gang_topology_term, pack_topology
+from tpu_scheduler_torch.topology.model import DEFAULT_LEVEL_KEYS, TopologyModel
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM bandwidth.
@@ -224,7 +243,7 @@ def tie_case(device, b: int = 13) -> list:
 
 def choose_bound_ms(
     b: int, n: int, r: int, widths: list[int], cons_widths: list[int] | None = None, cons_products: int = 0,
-    active: int | None = None,
+    active: int | None = None, topo_rows: int | None = None,
 ) -> tuple[float, str]:
     """Least time for one choose launch: the bytes it must move over HBM
     bandwidth, and the operations it does over the float32 peak (integer
@@ -245,12 +264,20 @@ def choose_bound_ms(
     preferred term, 1 select), and 2 ops for each product whose two factors
     are both non-zero (``cons_products``, :func:`constrained_products`):
     every other product is ±0 and adds nothing, so this run's data needs
-    only those."""
+    only those.
+
+    The gang term (``topo_rows`` given: Σ over the 8-pod tiles of the
+    distinct T rows their active pods read) adds each active pod's gang id
+    and those rows, ``topo_rows`` · N · 4 bytes, and one add per active
+    pair."""
     a = b if active is None else active
     w = sum(widths)
     wc = sum(cons_widths or [])
     nbytes = a * (4 * r + 4 * w + 12 + 4 * wc) + b * (1 + 4 + 1 + 4) + n * (8 * r + 1 + 4 * w + 4 * wc)
     ops = a * n * (r + 2 * w + 45) + (a * n * 8 + 2 * cons_products if cons_widths else 0)
+    if topo_rows is not None:
+        nbytes += 4 * a + 4 * n * topo_rows
+        ops += a * n
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -933,6 +960,264 @@ def bisect_phase(device) -> list[dict]:
     return records
 
 
+# ---- the topology (gang-locality) path -------------------------------------
+
+SLICE_KEY, RACK_KEY = DEFAULT_LEVEL_KEYS[0][1], DEFAULT_LEVEL_KEYS[1][1]
+
+
+def topology_cluster(pods: int, nodes: int, seed: int) -> dict:
+    """bench.py's ``topology_row`` cluster, built inline as bench.py does:
+    ``nodes`` nodes of 32 CPU / 128 Gi, slices of 4 nodes and racks of 16;
+    35 % of draws open a gang of 4-8 members at 2 CPU / 4 Gi, the others are
+    single pods at 1 CPU / 2 Gi.  Packed with ``pack_snapshot``'s defaults
+    and the TopologySet attached; the set-up seconds split into synth +
+    pack and ``pack_topology``."""
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    node_objs = [
+        make_node(f"tn{i:05d}", cpu="32", memory="128Gi",
+                  labels={SLICE_KEY: f"s{i // 4}", RACK_KEY: f"r{i // 16}", "name": f"tn{i:05d}"})
+        for i in range(nodes)
+    ]
+    pod_objs, gangs, gi = [], {}, 0
+    while len(pod_objs) < pods:
+        if rng.random() < 0.35:
+            members = []
+            for m in range(rng.randrange(4, 9)):
+                pod_objs.append(make_pod(f"g{gi}-m{m}", cpu="2", memory="4Gi", gang=f"gang-{gi}"))
+                members.append(f"default/g{gi}-m{m}")
+            gangs[f"gang-{gi}"] = members
+            gi += 1
+        else:
+            pod_objs.append(make_pod(f"tp{len(pod_objs)}", cpu="1", memory="2Gi"))
+    snap = ClusterSnapshot.build(node_objs, pod_objs)
+    compiled = TopologyModel.detect(node_objs).compile(node_objs)
+    packed = pack_snapshot(snap)
+    t1 = time.perf_counter()
+    topo = pack_topology(compiled, snap.pending_pods(), packed.padded_pods, packed.node_names, packed.padded_nodes)
+    t2 = time.perf_counter()
+    return {"packed": dataclasses.replace(packed, topology=topo), "compiled": compiled, "gangs": gangs,
+            "synth_pack_seconds": t1 - t0, "pack_topology_seconds": t2 - t1}
+
+
+def with_topology(snap, packed):
+    """``packed`` with the TopologySet of ``snap``'s nodes attached, after
+    labelling node i into slice i // 4 and rack i // 16 (for clusters from
+    ``synth_cluster``, which carry no topology labels)."""
+    for i, node in enumerate(snap.nodes):
+        node.metadata.labels.update({SLICE_KEY: f"s{i // 4}", RACK_KEY: f"r{i // 16}"})
+    compiled = TopologyModel.detect(snap.nodes).compile(snap.nodes)
+    topo = pack_topology(compiled, snap.pending_pods(), packed.padded_pods, packed.node_names, packed.padded_nodes)
+    return dataclasses.replace(packed, topology=topo)
+
+
+def round_term(packed, device, weights, placed_share: float = 0.0, seed: int = 0) -> tuple[dict, torch.Tensor]:
+    """(device arrays with ``pod_gang_id``, the [G+1, N] gang term) of one
+    round: the cycle-start state, or ``placed_share`` of the gangs with a
+    random member count placed on random nodes (a mid-cycle state: the
+    anchor term is live)."""
+    arrays = to_device(packed, device)
+    tpods, tmeta, tstate = topology_to_device(packed.topology, device)
+    arrays.update(tpods)
+    gang_nodes = tstate["gang_nodes"]
+    if placed_share:
+        rng = np.random.default_rng(seed)
+        g1, n1 = gang_nodes.shape
+        rows = np.flatnonzero(rng.random(g1) < placed_share)
+        rows = rows[rows > 0]
+        cols = rng.integers(0, n1 - 1, rows.shape[0])
+        gang_nodes[torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)] = torch.from_numpy(
+            rng.integers(1, 5, rows.shape[0]).astype(np.float32)).to(device)
+    t = gang_topology_term(gang_nodes, tmeta, arrays["node_avail"], arrays["pod_gang_id"], arrays["pod_req"],
+                           arrays["pod_valid"], np.float32(weights[6]))
+    return arrays, t
+
+
+def term_card_vs_cpu(packed, device, weights) -> dict:
+    """The gang term on the card against the same term on the CPU, bit for
+    bit: the topology flagship's cycle-start state and a mid-cycle one; and
+    the per-gang demand's pod-order adds (``locality._add_rows``) on
+    inexact float32 values, where another order would round differently."""
+    rec = {"phase": "topology_term_card_vs_cpu"}
+    for name, share in (("round0", 0.0), ("mid_cycle", 0.5)):
+        t_card = round_term(packed, device, weights, placed_share=share, seed=31)[1]
+        t_cpu = round_term(packed, torch.device("cpu"), weights, placed_share=share, seed=31)[1]
+        rec[name] = torch.equal(t_card.cpu().view(torch.int32), t_cpu.view(torch.int32))
+        del t_card, t_cpu
+    rng = np.random.default_rng(5)
+    idx = np.sort(rng.integers(0, 4096, 200_000))
+    vals = (rng.random((200_000, 2)) * 1e7).astype(np.float32)
+    on = {d: locality_add_rows(torch.zeros((4096, 2), device=d), torch.from_numpy(idx).to(d),
+                               torch.from_numpy(vals).to(d)).cpu() for d in (device, torch.device("cpu"))}
+    rec["pod_order_adds"] = torch.equal(on[device].view(torch.int32), on[torch.device("cpu")].view(torch.int32))
+    emit(rec)
+    if not all(v for k, v in rec.items() if k != "phase"):
+        raise SystemExit(f"the gang term differs between the card and the CPU: {rec}")
+    return rec
+
+
+def random_topo(b: int, n: int, device, seed: int, gangs: int = 6, zero_share: float = 0.3, scale=None):
+    """(gang ids [b] int32, T [gangs+1, n] float32) drawn from ``seed``: ids
+    in 1..gangs, ``zero_share`` of them 0; T normal rows times ``scale[g]``
+    (default 100), row 0 zero."""
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(1, gangs + 1, b).astype(np.int32)
+    gid[rng.random(b) < zero_share] = 0
+    t = rng.normal(size=(gangs + 1, n)).astype(np.float32)
+    t *= np.asarray(scale if scale is not None else [100.0] * (gangs + 1), dtype=np.float32)[:, None]
+    t[0] = 0.0
+    return torch.from_numpy(gid).to(device), torch.from_numpy(t).to(device)
+
+
+def tile_rows(gid: torch.Tensor, active: torch.Tensor, pods: int = 8) -> int:
+    """Σ over the 8-pod tiles of the distinct gang ids among the tile's
+    active pods: the T rows the topology instances read."""
+    b = gid.shape[0]
+    tiles = -(-b // pods)
+    g = torch.full((tiles * pods,), -1, dtype=torch.int64, device=gid.device)
+    g[:b] = torch.where(active, gid.long(), -1)
+    s = g.view(tiles, pods).sort(dim=1).values
+    return int(((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum() + (s[:, 0] >= 0).sum())
+
+
+def compare_topology(name: str, args: list, weights, salt: int, topo, cons_pod=None, masks=None, **extra) -> dict:
+    """Kernel #1 (or #2, given ``cons_pod``/``masks``) with the gang term
+    against its plain version on the same CUDA tensors, held by
+    ``outputs_equal``; also how many pods the term moved."""
+    if cons_pod is None:
+        k_out = choose_block(*args, weights, salt, topo=topo)
+        p_out = choose_block_plain(*args, weights, salt, topo=topo)
+        blind = choose_block_plain(*args, weights, salt)
+    else:
+        k_out = choose_block_constrained(*args, cons_pod, masks, weights, salt, topo=topo)
+        p_out = choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, topo=topo)
+        blind = choose_block_constrained_plain(*args, cons_pod, masks, weights, salt)
+    equal, err = outputs_equal(k_out, p_out)
+    rec = {"phase": "kernel_vs_plain_topology", "case": name, "family": "constrained" if cons_pod else "plain",
+           "B": int(args[0].shape[0]), "N": int(args[10].shape[0]), "gang_rows": int(topo[1].shape[0]),
+           "salt": salt, "feasible_pods": int(p_out[1].sum()),
+           "moved_by_term": int((p_out[1] & (p_out[0] != blind[0])).sum()), "equal": equal, "max_abs_err": err,
+           **extra}
+    emit(rec)
+    if not equal:
+        raise SystemExit(f"topology kernel and plain disagree on case {name}")
+    return rec
+
+
+def topology_tie_case(device, b: int = 45) -> tuple[list, tuple]:
+    """Every node identical (no jitter: every base score ties); gang g's T
+    row holds its maximum 100 at two nodes of one slice, 4·g + 1 and
+    4·g + 3, and at node 640 + g (another warp); each gang's pods must pick
+    4·g + 1, the gangless pods node 0."""
+    n = 700
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
+    req = torch.tensor([[100, 131072]] * b, dtype=torch.int32, device=device)
+    alloc = torch.tensor([[8000, 16777216]] * n, dtype=torch.int32, device=device)
+    avail = torch.tensor([[2000, 4194304]] * n, dtype=torch.int32, device=device)
+    args = [
+        req, z(b, 8), z(b), z(b, 8), z(b, 8), z(b), z(b, 8), z(b, 8),
+        torch.ones(b, dtype=torch.bool, device=device), torch.arange(b, dtype=torch.int32, device=device),
+        avail, alloc, torch.ones(n, dtype=torch.bool, device=device), z(n, 8), z(n, 8), z(n, 8), z(n, 8), z(n, 8),
+    ]
+    gangs = 5
+    t = z(gangs + 1, n)
+    for g in range(1, gangs + 1):
+        t[g, [4 * g + 1, 4 * g + 3, 640 + g]] = 100.0
+    gid = torch.arange(b, dtype=torch.int32, device=device) % (gangs + 1)
+    return args, (gid, t)
+
+
+def topology_bound_ms(args: list, topo, cons_widths=None, cons_products: int = 0) -> tuple[float, str]:
+    """``choose_bound_ms`` with the gang term: its ids and the distinct T
+    rows each 8-pod tile reads (``tile_rows``) in the bytes, one add per
+    active pair in the operations."""
+    active = args[8]
+    return choose_bound_ms(
+        int(args[0].shape[0]), int(args[10].shape[0]), int(args[0].shape[1]),
+        [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)], cons_widths, cons_products, int(active.sum()),
+        topo_rows=tile_rows(topo[0], active),
+    )
+
+
+def fresh_copy(packed):
+    """``packed`` with every host array copied (the TopologySet's too): to
+    the backends' upload cache a new cluster."""
+    t = packed.topology
+    topo = dataclasses.replace(t, pod_gang_id=t.pod_gang_id.copy(), meta={k: v.copy() for k, v in t.meta.items()})
+    return dataclasses.replace(packed, topology=topo, **{k: v.copy() for k, v in packed.device_arrays().items()})
+
+
+def gang_quality(result, compiled, gangs: dict) -> dict:
+    """bench.py's topology quality verdict: gangs admitted whole, the worst
+    pairwise placement distance among them, and the cross-rack ones."""
+    node_of = dict(result.bindings)
+    dists = compiled.level_distances()
+    worst, cross, admitted = 0.0, 0, 0
+    for _g, members in sorted(gangs.items()):
+        placed = [node_of.get(m) for m in members]
+        if any(n is None for n in placed):
+            continue
+        admitted += 1
+        stats = gang_placement_stats([compiled.domains_of(n) for n in placed], dists)
+        worst = max(worst, stats["max_distance"])
+        cross += bool(stats["cross_edges"])
+    return {"gangs": len(gangs), "admitted_whole": admitted, "worst_gang_distance": worst, "cross_rack_gangs": cross}
+
+
+def topology_cycles(backend, packed, profile, reps: int, fresh: bool) -> tuple[list, list, int]:
+    """``reps`` timed cycles (host clock ending in a synchronise) through
+    ``backend.schedule``; with ``fresh`` each on a new copy of ``packed``
+    (made outside the clock: every upload misses the cache), else all on
+    ``packed`` itself.  Returns (seconds, results, upload-cache miss bytes)."""
+    cuda_backend_mod.UPLOAD_BYTES = 0
+    times, results = [], []
+    for _ in range(reps):
+        p = fresh_copy(packed) if fresh else packed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(backend.schedule(p, profile))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del p
+    return times, results, cuda_backend_mod.UPLOAD_BYTES
+
+
+def topology_breakdown(backend, packed, profile) -> dict:
+    """Where one warm topology flagship cycle's time goes: device time by
+    kernel (torch.profiler) split into the choose kernels, the gang term's
+    matrix products (cuBLAS), copies and the rest (the term's and the
+    auction's elementwise ops); the idle share; and the host clock of the
+    term's construction per cycle, timed by a synchronising wrapper in a
+    separate cycle."""
+    wall_ms, rows = profiled(lambda: backend.schedule(packed, profile))
+    split = device_split(wall_ms, rows, "choose_kernel")
+    gemm_ms = sum(r[1] for r in rows if any(s in r[0].lower() for s in ("gemm", "xmma", "cutlass")))
+    spent = [0.0, 0]
+    original = assign_mod.gang_topology_term
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = original(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return out
+
+    assign_mod.gang_topology_term = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backend.schedule(packed, profile)
+        torch.cuda.synchronize()
+        cycle_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        assign_mod.gang_topology_term = original
+    return dict(split, phase="topology_breakdown", term_matmul_ms=gemm_ms,
+                term_elementwise_and_other_ms=split["other_device_ms"] - gemm_ms,
+                instrumented_cycle_ms=cycle_ms, host_term_ms=spent[0] * 1e3, term_calls=spent[1])
+
+
 NAMES_BISECT = ("bisect_parts_v0", "bisect_parts_v1", "bisect_parts_v2", "bisect_parts_v3", "bisect_wide")
 
 
@@ -1074,8 +1359,11 @@ def main() -> int:
     backend = CudaBackend()
     torch.cuda.reset_peak_memory_stats()
     choose_mod.LAUNCHES = choose_mod.LAUNCHES_CONSTRAINED = 0
+    cuda_backend_mod.UPLOAD_BYTES = 0
     times, results = [], []
-    for _ in range(4):  # one warm-up, then three timed cycles
+    # One warm-up (it fills the upload cache), then three timed cycles on
+    # the same cluster (cache hits).
+    for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results.append(backend.schedule(flagship, throughput))
@@ -1092,7 +1380,7 @@ def main() -> int:
           "warmup_seconds": times[0], "median_seconds": statistics.median(times[1:]), "seconds": times[1:],
           "rounds": res.rounds, "bound": len(res.bindings), "unschedulable": len(res.unschedulable),
           "choose_launches_per_cycle": launches // 4, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "invariants": "ok", "nvidia_smi": smi})
+          "upload_bytes_4_cycles": cuda_backend_mod.UPLOAD_BYTES, "invariants": "ok", "nvidia_smi": smi})
 
     emit(flagship_breakdown(backend, flagship, throughput))
 
@@ -1225,8 +1513,9 @@ def main() -> int:
     # The flagship constrained cycle through the user's entry point.
     torch.cuda.reset_peak_memory_stats()
     choose_mod.LAUNCHES = choose_mod.LAUNCHES_CONSTRAINED = 0
+    cuda_backend_mod.UPLOAD_BYTES = 0
     times, results = [], []
-    for _ in range(4):  # one warm-up, then three timed cycles
+    for _ in range(4):  # one warm-up (fills the upload cache), then three timed cycles (hits)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results.append(backend.schedule(cflag, throughput))
@@ -1249,7 +1538,7 @@ def main() -> int:
           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "pack_constraints_seconds_setup": pack_cons_s,
           "aa_terms_checked": terms_checked,
           "ppa_partial_sum_bound": cycle_ppa_partial_sum_bound(cflag, res.assigned),
-          "invariants": "ok", "nvidia_smi": smi})
+          "upload_bytes_4_cycles": cuda_backend_mod.UPLOAD_BYTES, "invariants": "ok", "nvidia_smi": smi})
     emit(constrained_breakdown(backend, cflag, throughput))
 
     # The sharded constrained flagship on a (1, 2) mesh: one warm-up, two
@@ -1273,6 +1562,162 @@ def main() -> int:
     cshard_max_abs_err = max([r["max_abs_err"] for r in offsets_recs] + [cshard["max_abs_err"], tail["max_abs_err"]])
     del late
     del cflag, csnap, results, sresults, res
+    torch.cuda.empty_cache()
+
+    # ---- the topology (gang-locality) main path ----------------------------
+    tcl = topology_cluster(100_000, 8_192, seed=0)
+    tflag, tcompiled, tgangs = tcl["packed"], tcl["compiled"], tcl["gangs"]
+    tset = tflag.topology
+    emit({"phase": "topology_setup", "synth_pack_seconds": tcl["synth_pack_seconds"],
+          "pack_topology_seconds": tcl["pack_topology_seconds"], "pods": tflag.num_pods, "nodes": tflag.num_nodes,
+          "padded": [tflag.padded_pods, tflag.padded_nodes], "gangs": tset.n_gangs,
+          "gang_members": int((tset.pod_gang_id > 0).sum()),
+          "domains": [int(d) for d in tcompiled.dom_counts], "term_bytes": (tset.n_gangs + 1) * tflag.padded_nodes * 4})
+
+    term_card_vs_cpu(tflag, device, w_thr)
+
+    # Kernels #1 and #2 with the gang term against their plain versions.
+    trecs = []
+    t_arrays, t_term = round_term(tflag, device, w_thr)
+    first = block_args(t_arrays, 0, 8192)
+    first_topo = (t_arrays["pod_gang_id"][:8192].contiguous(), t_term)
+    trecs.append(compare_topology("flagship_block_round0", first, w_thr, 1, first_topo))
+    m_arrays, m_term = round_term(tflag, device, w_thr, placed_share=0.5, seed=31)
+    trecs.append(compare_topology("flagship_block_mid_cycle", block_args(m_arrays, 0, 8192), w_thr, 7,
+                                  (m_arrays["pod_gang_id"][:8192].contiguous(), m_term)))
+    del m_arrays, m_term
+    small_args = block_args(a_small, 0, small.padded_pods)
+    trecs.append(compare_topology("mixed_tiles", small_args, w_thr, 3,
+                                  random_topo(small.padded_pods, small.padded_nodes, device, seed=41)))
+    tie_args, tie_topo = topology_tie_case(device)
+    trecs.append(compare_topology("term_ties", tie_args, no_jitter, 0, tie_topo))
+    tie_choice = choose_block(*tie_args, no_jitter, 0, topo=tie_topo)[0]
+    want = torch.where(tie_topo[0] > 0, 4 * tie_topo[0] + 1, 0)
+    if not torch.equal(tie_choice, want):
+        raise SystemExit("term_ties: a tie made by the gang term did not resolve to the lowest node index")
+    scales = [0.0, 1e-3, 1e-1, 1e1, 1e3, 1e5, 1e7, 1e9]
+    trecs.append(compare_topology("term_magnitudes", small_args, w_thr, 5,
+                                  random_topo(small.padded_pods, small.padded_nodes, device, seed=42, gangs=7,
+                                              zero_share=0.1, scale=scales)))
+    c_arrays, c_masks = constrained_round(csmall, device, seed=3)
+    trecs.append(compare_topology("constrained_mixed_tiles", block_args(c_arrays, 0, b_small), w_thr, 2,
+                                  random_topo(b_small, csmall.padded_nodes, device, seed=43),
+                                  block_cons(c_arrays, 0, b_small), c_masks))
+    del c_arrays, c_masks
+    # The constrained + topology cell (bench.py's topology CPU shape with the
+    # constrained row's fractions, gangs of 2-4): round 0 with its real term.
+    ct_snap = synth_cluster(n_nodes=512, n_pending=8192, seed=0, gang_fraction=0.35, **CONS_FRACTIONS)
+    ct, _ = with_constraints(ct_snap, pack_snapshot(ct_snap, pod_block=8192, node_block=128))
+    ct = with_topology(ct_snap, ct)
+    ct_arrays, ct_masks = constrained_round(ct, device)
+    ct_term_arrays, ct_term = round_term(ct, device, w_thr)
+    ct_args, ct_cons = block_args(ct_arrays, 0, 8192), block_cons(ct_arrays, 0, 8192)
+    ct_topo = (ct_term_arrays["pod_gang_id"][:8192].contiguous(), ct_term)
+    trecs.append(compare_topology("constrained_topology_round0", ct_args, w_thr, 1, ct_topo, ct_cons, ct_masks))
+    topo_max_abs_err = max(r["max_abs_err"] for r in trecs if r["family"] == "plain")
+    ctopo_max_abs_err = max(r["max_abs_err"] for r in trecs if r["family"] == "constrained")
+
+    # Timed: the full-shape first block with the term, without it, plain.
+    first_words = pack_node_words(*first[13:18])
+    topo_ms, topo_plain_ms, err = timed_and_held(
+        "choose_topology_timing", lambda: choose_block(*first, w_thr, 1, node_words=first_words, topo=first_topo),
+        lambda: choose_block_plain(*first, w_thr, 1, topo=first_topo), reps=20, plain_reps=3,
+    )
+    topo_max_abs_err = max(topo_max_abs_err, err)
+    no_term_ms = time_cuda(lambda: choose_block(*first, w_thr, 1, node_words=first_words), reps=20)
+    topo_bound, topo_bound_by = topology_bound_ms(first, first_topo)
+    emit({"phase": "choose_topology_timing", "B": 8192, "N": tflag.padded_nodes, "gang_rows": int(t_term.shape[0]),
+          "tile_rows": tile_rows(first_topo[0], first[8]), "ms": topo_ms, "ms_without_term": no_term_ms,
+          "plain_ms": topo_plain_ms, "bound_ms": topo_bound, "bound_by": topo_bound_by,
+          "share_of_bound": topo_bound / topo_ms, "equal": True, "max_abs_err": err, "nvidia_smi": smi})
+    ct_words = pack_node_words(*ct_args[13:18])
+    ctopo_ms, ctopo_plain_ms, err = timed_and_held(
+        "choose_constrained_topology_timing",
+        lambda: choose_block_constrained(*ct_args, ct_cons, ct_masks, w_thr, 1, node_words=ct_words, topo=ct_topo),
+        lambda: choose_block_constrained_plain(*ct_args, ct_cons, ct_masks, w_thr, 1, topo=ct_topo),
+        reps=20, plain_reps=3,
+    )
+    ctopo_max_abs_err = max(ctopo_max_abs_err, err)
+    ct_no_term_ms = time_cuda(
+        lambda: choose_block_constrained(*ct_args, ct_cons, ct_masks, w_thr, 1, node_words=ct_words), reps=20)
+    ct_pod_ops, ct_node_ops = constrained_pod_operands(ct_cons, ct_masks), constrained_node_operands(ct_masks)
+    ctopo_bound, ctopo_bound_by = topology_bound_ms(
+        ct_args, ct_topo, [int(t.shape[1]) for t in ct_pod_ops], constrained_products(ct_pod_ops, ct_node_ops,
+                                                                                   ct_args[8]))
+    emit({"phase": "choose_constrained_topology_timing", "B": 8192, "N": ct.padded_nodes,
+          "gang_rows": int(ct_term.shape[0]), "ms": ctopo_ms, "ms_without_term": ct_no_term_ms,
+          "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound, "bound_by": ctopo_bound_by,
+          "share_of_bound": ctopo_bound / ctopo_ms, "equal": True, "max_abs_err": err, "nvidia_smi": smi})
+    del t_arrays, t_term, first, first_topo, first_words, ct_arrays, ct_masks, ct_term_arrays, ct_term, ct_args
+    del ct_cons, ct_topo, ct_words, ct_pod_ops, ct_node_ops
+    torch.cuda.empty_cache()
+
+    # bench.py's topology row at its CPU shape, unconstrained and with the
+    # constrained row's fractions: card vs CPU.
+    tmid = topology_cluster(8192, 512, seed=0)["packed"]
+    ctopo_launches = 0
+    for name, packed in (("topology", tmid), ("constrained_topology", ct)):
+        choose_mod.LAUNCHES = choose_mod.LAUNCHES_CONSTRAINED = 0
+        choose_mod.LAUNCHES_TOPO = choose_mod.LAUNCHES_CONSTRAINED_TOPO = 0
+        t0 = time.perf_counter()
+        r_gpu = CudaBackend("cuda").schedule(packed, throughput)
+        gpu_s = time.perf_counter() - t0
+        counts = [choose_mod.LAUNCHES_TOPO, choose_mod.LAUNCHES_CONSTRAINED_TOPO, choose_mod.LAUNCHES,
+                  choose_mod.LAUNCHES_CONSTRAINED]
+        t0 = time.perf_counter()
+        r_cpu = CudaBackend(device="cpu").schedule(packed, throughput)
+        cpu_s = time.perf_counter() - t0
+        parity = (
+            np.array_equal(r_gpu.assigned, r_cpu.assigned) and r_gpu.rounds == r_cpu.rounds
+            and np.array_equal(r_gpu.stats["acc_round"], r_cpu.stats["acc_round"])
+            and np.array_equal(r_gpu.stats["rank"], r_cpu.stats["rank"])
+        )
+        constrained = packed.constraints is not None
+        emit({"phase": "topology_cycle_parity", "case": name, "pods": packed.num_pods, "nodes": packed.num_nodes,
+              "gangs": packed.topology.n_gangs, "rounds": r_gpu.rounds, "bound": len(r_gpu.bindings),
+              "launches": dict(zip(("topo", "constrained_topo", "plain", "constrained"), counts)),
+              "gpu_seconds": gpu_s, "cpu_seconds": cpu_s, "equal": bool(parity)})
+        used = counts[1] if constrained else counts[0]
+        if not parity or used == 0 or counts[2] or counts[3] or counts[0 if constrained else 1]:
+            raise SystemExit(f"{name} cycle: card and CPU disagree, or it launched {counts} (topology instances only)")
+        check_bindings(packed, r_gpu.assigned)
+        if constrained:
+            check_anti_affinity(packed, r_gpu.assigned)
+            ctopo_launches = counts[1]
+    del tmid, ct, ct_snap
+    torch.cuda.empty_cache()
+
+    # The topology flagship through the user's entry point: three cycles on a
+    # fresh copy of the cluster each (every upload misses the cache), then
+    # three on one cluster (every upload hits).
+    tbackend = CudaBackend()
+    tbackend.schedule(tflag, throughput)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    choose_mod.LAUNCHES = choose_mod.LAUNCHES_CONSTRAINED = 0
+    choose_mod.LAUNCHES_TOPO = choose_mod.LAUNCHES_CONSTRAINED_TOPO = 0
+    miss_s, miss_res, miss_bytes = topology_cycles(tbackend, tflag, throughput, 3, fresh=True)
+    hit_s, hit_res, hit_bytes = topology_cycles(tbackend, tflag, throughput, 3, fresh=False)
+    tlaunches = choose_mod.LAUNCHES_TOPO
+    tstray = [choose_mod.LAUNCHES, choose_mod.LAUNCHES_CONSTRAINED, choose_mod.LAUNCHES_CONSTRAINED_TOPO]
+    res = hit_res[-1]
+    if any(not np.array_equal(r.assigned, res.assigned) or r.rounds != res.rounds for r in miss_res + hit_res):
+        raise SystemExit("topology flagship: cycles are not deterministic")
+    check_bindings(tflag, res.assigned)
+    if tlaunches == 0 or tlaunches % 6 or any(tstray) or miss_bytes == 0 or hit_bytes != 0:
+        raise SystemExit(f"topology flagship: topology launches {tlaunches}, others {tstray} (expected a multiple "
+                         f"of 6 and none); upload bytes {miss_bytes} on misses, {hit_bytes} on hits")
+    blind = CudaBackend().schedule(dataclasses.replace(tflag, topology=None), throughput)
+    emit({"phase": "topology_flagship", "pods": tflag.num_pods, "nodes": tflag.num_nodes, "gangs": tset.n_gangs,
+          "cache_miss_seconds": miss_s, "cache_miss_median_seconds": statistics.median(miss_s),
+          "cache_miss_min_seconds": min(miss_s), "cache_miss_upload_bytes_per_cycle": miss_bytes // 3,
+          "cache_hit_seconds": hit_s, "cache_hit_median_seconds": statistics.median(hit_s),
+          "cache_hit_min_seconds": min(hit_s), "cache_hit_upload_bytes": hit_bytes,
+          "rounds": res.rounds, "bound": len(res.bindings), "unschedulable": len(res.unschedulable),
+          "choose_topology_launches_per_cycle": tlaunches // 6, "quality": gang_quality(res, tcompiled, tgangs),
+          "blind": dict(gang_quality(blind, tcompiled, tgangs), rounds=blind.rounds, bound=len(blind.bindings)),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "invariants": "ok", "nvidia_smi": smi})
+    emit(topology_breakdown(tbackend, tflag, throughput))
+    del tcl, tflag, tset, miss_res, hit_res, res, blind, tbackend
     torch.cuda.empty_cache()
 
     # ---- the bisection kernels (experiments) -------------------------------
@@ -1303,6 +1748,18 @@ def main() -> int:
             "max_abs_err": cshard_max_abs_err,
             "ms": cshard["ms"], "plain_ms": cshard["plain_ms"], "bound_ms": cshard["bound_ms"],
             "bound_by": cshard["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "choose_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
+            "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
+            "launches": tlaunches, "max_abs_err": topo_max_abs_err, "ms": topo_ms, "plain_ms": topo_plain_ms,
+            "bound_ms": topo_bound, "bound_by": topo_bound_by, "library_ms": None,
+        },
+        {
+            "name": "choose_constrained_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
+            "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
+            "launches": ctopo_launches, "max_abs_err": ctopo_max_abs_err, "ms": ctopo_ms,
+            "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound, "bound_by": ctopo_bound_by, "library_ms": None,
         },
     ] + [
         {

@@ -3,8 +3,9 @@ exactly as the JAX package's NumPy oracle ``NativeBackend`` (bindings,
 unschedulable pods, rounds, per-pod stats) — unconstrained and constrained
 cycles alike, the constrained ones also passing the order-witness replay
 through the JAX package's scalar predicates; it never drops to the CPU
-without being asked; it refuses the topology cycles this slice does not
-carry; and the port imports nothing of JAX or the JAX package."""
+without being asked; it refuses a topology cycle whose gang ids are out of
+range (tests/test_torch_topology.py holds topology cycles against the
+oracle); and the port imports nothing of JAX or the JAX package."""
 
 import dataclasses
 import json
@@ -105,9 +106,22 @@ def test_no_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("field", ["topology"])
 def test_constrained_or_topology_cycle_raises(field):
-    packed = pack_snapshot(synth_cluster(n_nodes=8, n_pending=20, seed=0))
-    with pytest.raises(NotImplementedError):
-        CudaBackend(device="cpu").assign(dataclasses.replace(packed, **{field: object()}), PROFILES["default"])
+    """A topology cycle whose gang ids point outside its gang term raises
+    ValueError before any round (the kernels would read out of bounds)."""
+    from tpu_scheduler_torch.topology.locality import pack_topology
+    from tpu_scheduler_torch.topology.model import DEFAULT_LEVEL_KEYS, TopologyModel
+
+    snap = synth_cluster(n_nodes=8, n_pending=20, seed=0, gang_fraction=0.5)
+    for i, node in enumerate(snap.nodes):
+        node.metadata.labels[DEFAULT_LEVEL_KEYS[1][1]] = f"r{i // 4}"
+    packed = pack_snapshot(snap)
+    compiled = TopologyModel.detect(snap.nodes).compile(snap.nodes)
+    topo = pack_topology(compiled, snap.pending_pods(), packed.padded_pods, packed.node_names, packed.padded_nodes)
+    bad = dataclasses.replace(topo, pod_gang_id=np.where(topo.pod_gang_id > 0, topo.n_gangs + 1, 0).astype(np.int32))
+    with pytest.raises(ValueError, match="pod_gang_id"):
+        CudaBackend(device="cpu").assign(dataclasses.replace(packed, **{field: bad}), PROFILES["default"])
+    assert CudaBackend.supports_topology
+    CudaBackend(device="cpu").assign(dataclasses.replace(packed, **{field: topo}), PROFILES["default"])
 
 
 def test_port_imports_no_jax():

@@ -326,9 +326,15 @@ def test_no_cuda_raises(monkeypatch):
 
 
 def test_sharded_refuses_topology_cycles():
+    """Like the JAX ShardedBackend, the port's does not read a cluster's
+    topology: it solves the cycle topology-blind."""
     packed = pack_snapshot(synth_cluster(n_nodes=8, n_pending=20, seed=0))
-    with pytest.raises(NotImplementedError):
-        ShardedBackend(make_mesh(CPU8)).assign(dataclasses.replace(packed, topology=object()), DEFAULT_PROFILE)
+    backend = ShardedBackend(make_mesh(CPU8))
+    assert backend.supports_topology is False
+    blind = backend.assign(packed, DEFAULT_PROFILE)
+    got = backend.assign(dataclasses.replace(packed, topology=object()), DEFAULT_PROFILE)
+    np.testing.assert_array_equal(got[0], blind[0])
+    assert got[1] == blind[1]
 
 
 def test_constraint_operands_pad_the_node_axis():

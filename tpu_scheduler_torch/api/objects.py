@@ -3,7 +3,9 @@ that ``testing.synth_cluster`` and ``ops/pack.pack_snapshot`` touch, copied so
 the port imports nothing of the JAX package.
 
 Objects are plain dataclasses; the tensor path never touches them per pod.
-The manifest (de)serializers, Binding and PodDisruptionBudget wait for the
+The manifest serializers (``pod_to_dict``, ``node_to_dict``), ``Binding``,
+``ObjectReference`` and ``PodDisruptionBudget`` are the controller's; the
+manifest parsers (``Pod.from_dict``, ``Node.from_dict``) wait for the
 controller slice of the port.
 """
 
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Mapping
 
 from .quantity import cpu_to_millis, memory_to_bytes
 
@@ -35,6 +37,11 @@ __all__ = [
     "NodeSpec",
     "Node",
     "PodResources",
+    "PodDisruptionBudget",
+    "ObjectReference",
+    "Binding",
+    "pod_to_dict",
+    "node_to_dict",
     "total_pod_resources",
     "is_extended_resource",
     "is_pod_bound",
@@ -100,6 +107,58 @@ class WeightedPodAffinityTerm:
 
     weight: int
     term: PodAffinityTerm = field(default_factory=PodAffinityTerm)
+
+
+@dataclass
+class PodDisruptionBudget:
+    """policy/v1 PodDisruptionBudget, the subset preemption consults: a
+    namespace-scoped label selector plus exactly one of ``min_available`` /
+    ``max_unavailable`` (absolute counts; percentage strings fail CLOSED —
+    zero disruptions allowed).  An empty or absent selector matches every
+    pod in the namespace (policy/v1 semantics)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    match_labels: dict[str, str] | None = None
+    match_expressions: list[LabelSelectorRequirement] | None = None
+    min_available: int | None = None
+    max_unavailable: int | None = None
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "PodDisruptionBudget":
+        meta = d.get("metadata", {})
+        spec = d.get("spec", {})
+        sel = spec.get("selector") or {}
+        exprs = sel.get("matchExpressions") or []
+        return PodDisruptionBudget(
+            metadata=ObjectMeta(name=meta.get("name", ""), namespace=meta.get("namespace")),
+            match_labels=sel.get("matchLabels"),
+            match_expressions=[
+                LabelSelectorRequirement(key=e.get("key", ""), operator=e.get("operator", ""), values=e.get("values"))
+                for e in exprs
+            ]
+            or None,
+            min_available=spec.get("minAvailable"),
+            max_unavailable=spec.get("maxUnavailable"),
+        )
+
+    def to_dict(self) -> dict[str, Any]:
+        sel: dict[str, Any] = {}
+        if self.match_labels:
+            sel["matchLabels"] = dict(self.match_labels)
+        if self.match_expressions:
+            sel["matchExpressions"] = [
+                {"key": r.key, "operator": r.operator, **({"values": list(r.values)} if r.values else {})}
+                for r in self.match_expressions
+            ]
+        spec: dict[str, Any] = {"selector": sel}
+        if self.min_available is not None:
+            spec["minAvailable"] = self.min_available
+        if self.max_unavailable is not None:
+            spec["maxUnavailable"] = self.max_unavailable
+        meta: dict[str, Any] = {"name": self.metadata.name}
+        if self.metadata.namespace is not None:
+            meta["namespace"] = self.metadata.namespace
+        return {"kind": "PodDisruptionBudget", "metadata": meta, "spec": spec}
 
 
 @dataclass
@@ -237,6 +296,155 @@ class Node:
         return self.metadata.name
 
 
+def _selector_to_dict(match_labels, match_expressions) -> dict[str, Any] | None:
+    sel: dict[str, Any] = {}
+    if match_labels:
+        sel["matchLabels"] = dict(match_labels)
+    if match_expressions:
+        sel["matchExpressions"] = [
+            {"key": e.key, "operator": e.operator, **({"values": list(e.values)} if e.values is not None else {})}
+            for e in match_expressions
+        ]
+    return sel or None
+
+
+def _term_to_dict(t) -> dict[str, Any]:
+    term: dict[str, Any] = {"topologyKey": t.topology_key}
+    sel = _selector_to_dict(t.match_labels, t.match_expressions)
+    if sel:
+        term["labelSelector"] = sel
+    return term
+
+
+def _affinity_to_dict(spec: PodSpec) -> dict[str, Any]:
+    affinity: dict[str, Any] = {}
+    if spec.anti_affinity:
+        affinity["podAntiAffinity"] = {
+            "requiredDuringSchedulingIgnoredDuringExecution": [_term_to_dict(t) for t in spec.anti_affinity]
+        }
+    if spec.preferred_pod_anti_affinity:
+        affinity.setdefault("podAntiAffinity", {})["preferredDuringSchedulingIgnoredDuringExecution"] = [
+            {"weight": w.weight, "podAffinityTerm": _term_to_dict(w.term)} for w in spec.preferred_pod_anti_affinity
+        ]
+    if spec.pod_affinity:
+        affinity["podAffinity"] = {
+            "requiredDuringSchedulingIgnoredDuringExecution": [_term_to_dict(t) for t in spec.pod_affinity]
+        }
+    if spec.preferred_pod_affinity:
+        affinity.setdefault("podAffinity", {})["preferredDuringSchedulingIgnoredDuringExecution"] = [
+            {"weight": w.weight, "podAffinityTerm": _term_to_dict(w.term)} for w in spec.preferred_pod_affinity
+        ]
+    if spec.node_affinity or spec.preferred_node_affinity:
+        node_affinity: dict[str, Any] = {}
+        if spec.node_affinity:
+            node_affinity["requiredDuringSchedulingIgnoredDuringExecution"] = {
+                "nodeSelectorTerms": [_selector_to_dict(None, t.match_expressions) or {} for t in spec.node_affinity]
+            }
+        if spec.preferred_node_affinity:
+            node_affinity["preferredDuringSchedulingIgnoredDuringExecution"] = [
+                {"weight": t.weight, "preference": _selector_to_dict(None, t.term.match_expressions) or {}}
+                for t in spec.preferred_node_affinity
+            ]
+        affinity["nodeAffinity"] = node_affinity
+    return affinity
+
+
+def pod_to_dict(pod: Pod) -> dict[str, Any]:
+    """Serialize to the k8s-manifest shape (the REST wire format): lossless
+    for every field the scheduler reads."""
+    meta: dict[str, Any] = {"name": pod.metadata.name, "uid": pod.metadata.uid}
+    if pod.metadata.namespace is not None:
+        meta["namespace"] = pod.metadata.namespace
+    if pod.metadata.labels:
+        meta["labels"] = dict(pod.metadata.labels)
+    if pod.metadata.resource_version:
+        meta["resourceVersion"] = str(pod.metadata.resource_version)
+    out: dict[str, Any] = {"kind": "Pod", "metadata": meta, "status": {"phase": pod.status.phase}}
+    if pod.spec is None:
+        return out
+    containers = []
+    for c in pod.spec.containers:
+        entry: dict[str, Any] = {"name": c.name}
+        if c.resources is not None:
+            entry["resources"] = {
+                k: v for k, v in (("requests", c.resources.requests), ("limits", c.resources.limits)) if v is not None
+            }
+        containers.append(entry)
+    spec: dict[str, Any] = {"containers": containers}
+    if pod.spec.node_selector:
+        spec["nodeSelector"] = dict(pod.spec.node_selector)
+    if pod.spec.node_name is not None:
+        spec["nodeName"] = pod.spec.node_name
+    if pod.spec.priority:
+        spec["priority"] = pod.spec.priority
+    if pod.spec.gang:
+        spec["schedulingGang"] = pod.spec.gang
+    if pod.spec.tolerations:
+        spec["tolerations"] = [
+            {
+                **({"key": t.key} if t.key else {}),
+                "operator": t.operator,
+                **({"value": t.value} if t.value else {}),
+                **({"effect": t.effect} if t.effect else {}),
+                **({"tolerationSeconds": t.toleration_seconds} if t.toleration_seconds is not None else {}),
+            }
+            for t in pod.spec.tolerations
+        ]
+    affinity = _affinity_to_dict(pod.spec)
+    if affinity:
+        spec["affinity"] = affinity
+    if pod.spec.topology_spread:
+        constraints = []
+        for c in pod.spec.topology_spread:
+            constraint: dict[str, Any] = {
+                "topologyKey": c.topology_key,
+                "maxSkew": c.max_skew,
+                "whenUnsatisfiable": c.when_unsatisfiable,
+            }
+            sel = _selector_to_dict(c.match_labels, c.match_expressions)
+            if sel:
+                constraint["labelSelector"] = sel
+            constraints.append(constraint)
+        spec["topologySpreadConstraints"] = constraints
+    out["spec"] = spec
+    return out
+
+
+def node_to_dict(node: Node) -> dict[str, Any]:
+    """Serialize to the k8s-manifest shape."""
+    meta: dict[str, Any] = {"name": node.metadata.name, "uid": node.metadata.uid}
+    if node.metadata.labels:
+        meta["labels"] = dict(node.metadata.labels)
+    if node.metadata.resource_version:
+        meta["resourceVersion"] = str(node.metadata.resource_version)
+    out: dict[str, Any] = {"kind": "Node", "metadata": meta}
+    if node.status is not None and node.status.allocatable is not None:
+        out["status"] = {"allocatable": dict(node.status.allocatable)}
+    if node.spec is not None:
+        spec: dict[str, Any] = {}
+        if node.spec.taints:
+            spec["taints"] = [{"key": t.key, "value": t.value, "effect": t.effect} for t in node.spec.taints]
+        if node.spec.unschedulable:
+            spec["unschedulable"] = True
+        if spec:
+            out["spec"] = spec
+    return out
+
+
+@dataclass
+class ObjectReference:
+    name: str | None = None
+    kind: str = "Node"
+
+
+@dataclass
+class Binding:
+    """Pod→node binding: the Binding subresource a scheduler POSTs."""
+
+    metadata: ObjectMeta
+    target: ObjectReference
+
+
 @dataclass
 class PodResources:
     """(cpu millicores, memory bytes) plus countable EXTENDED resources
@@ -246,6 +454,42 @@ class PodResources:
     cpu: int = 0  # millicores
     memory: int = 0  # bytes
     extended: dict[str, int] | None = None  # resource name -> integer count
+
+    def copy(self) -> "PodResources":
+        """Independent copy: the snapshot's memos hand these out so callers
+        can keep mutating with += / -=."""
+        return PodResources(self.cpu, self.memory, dict(self.extended) if self.extended else None)
+
+    def _ext_add(self, other: "PodResources", sign: int) -> None:
+        if other.extended:
+            if self.extended is None:
+                self.extended = {}
+            for k, v in other.extended.items():
+                self.extended[k] = self.extended.get(k, 0) + sign * v
+
+    def __isub__(self, other: "PodResources") -> "PodResources":
+        self.cpu -= other.cpu
+        self.memory -= other.memory
+        self._ext_add(other, -1)
+        return self
+
+    def __iadd__(self, other: "PodResources") -> "PodResources":
+        self.cpu += other.cpu
+        self.memory += other.memory
+        self._ext_add(other, +1)
+        return self
+
+    def fits_in(self, avail: "PodResources") -> bool:
+        """request ≤ available on EVERY axis (an extended request against a
+        node lacking the resource fails — device-plugin semantics)."""
+        if self.cpu > avail.cpu or self.memory > avail.memory:
+            return False
+        if self.extended:
+            a = avail.extended or {}
+            for k, v in self.extended.items():
+                if v > a.get(k, 0):
+                    return False
+        return True
 
 
 def is_extended_resource(name: str) -> bool:

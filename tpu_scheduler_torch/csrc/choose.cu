@@ -1,5 +1,6 @@
 // choose: fused feasibility + score + masked argmax for a block of pods
-// against every node, for Hopper (sm_90a).  One template, two families:
+// against every node, for Hopper (sm_90a).  One template, two families,
+// each with and without the gang term:
 //
 // choose_kernel<false, …> replaces tpu_scheduler/ops/pallas_choose.py::
 // choose_block_pallas with the plain kernel body _make_choose_kernel(False)
@@ -23,12 +24,29 @@
 //           operand is 0/1, so the sum is exact in any order
 //   score   after the jitter, in this order: − w5·(sps_pod·sps_node),
 //           − (2·w2)·(spd_pod·spl_node), + ppaw_pod·ppa_node
-// Both serve kernel #2b, the per-shard choose of the sharded cycle
-// (tpu_scheduler/parallel/sharded.py:261-270, choose_block_pallas with
-// node_offset and return_best): node_offset is the global index of node 0
-// of a tp shard's node slice, and the jitter hash reads n + node_offset
-// (uint32), so every shard scores as the unsharded launch does; choice stays
-// local to the slice and best is the cross-shard merge operand.
+//
+// choose_kernel<·, ·, true> adds the gang co-placement term of a topology
+// cycle: the round's [G+1, N] float32 tensor T (topology/locality.py
+// gang_topology_term) and the block's gang ids [B] int32; each pod's score
+// takes T[gid·N + n] as its LAST add, after every other term, before the
+// masked argmax, and `best` includes it.  The JAX package runs topology
+// cycles on its jnp tree instead of its Pallas kernel
+// (tpu_scheduler/ops/assign.py:229-233, the term at ops/score.py:141-150);
+// here the term is one more additive operand of the hand-written kernels.
+// The flag is a template parameter, so the launches without the term run
+// the instances they ran before, unchanged (a runtime branch in the
+// unrolled pod loop costs 8-12 %, see the jitter modes below).  A pod's
+// value is read only where the pod passed every predicate, coalesced
+// across the threads' nodes; gang members are adjacent in priority order,
+// so a tile's 8 pods read 1-3 rows and the repeated addresses hit L1.
+//
+// The two families without the term serve kernel #2b, the per-shard choose
+// of the sharded cycle (tpu_scheduler/parallel/sharded.py:261-270,
+// choose_block_pallas with node_offset and return_best): node_offset is the
+// global index of node 0 of a tp shard's node slice, and the jitter hash
+// reads n + node_offset (uint32), so every shard scores as the unsharded
+// launch does; choice stays local to the slice and best is the cross-shard
+// merge operand.
 //
 // Bitmaps as words.  Every hard predicate and the soft-taint count is a dot
 // product of 0/1 bitmaps, so it is an exact integer count: popc(sel & labels)
@@ -141,6 +159,9 @@
 // * The sign of zero: a negative weight against a zero count is −0.0; every
 //   sum starts at +0.0 and +0.0 + −0.0 = +0.0, so a sum never becomes −0.0
 //   and summing or skipping such a product gives equal bits.
+// * The gang term is one correctly rounded add, the reference's last; an
+//   out-of-range gang id would read outside T, so the wrapper checks the ids
+//   (ops/choose.check_gang_ids, once per cycle in assign_cycle).
 // * Feature presence is keyed on the operand WIDTHS (Ss > 0, Tp > 0; the
 //   level term always), never on a tile's live count: the plain version
 //   adds a term iff the feature is in the cycle, and skipping a +0.0 term
@@ -199,6 +220,8 @@ struct ChooseArgs {
   const bool* valid;
   const uint32_t *labels, *taints, *node_aff, *node_pref, *taints_soft;
   const float *blk_pod, *blk_node, *sps_pod, *sps_node, *spd_pod, *spl_node, *ppaw_pod, *ppa_node;
+  const int32_t* gang_id;  // [B], with topo [G+1, N]; null without the gang term
+  const float* topo;
   int B, N, R, L, T, A, A2, Ts, Wb, Ss, S, Tp;
   float w_lr, w_ba, w_jit, w_pref, w_soft, w_topo, inv_jit;
   int jit_pow2;  // w_jit > 0 is a power of two and inv_jit its exact reciprocal
@@ -302,7 +325,7 @@ struct Slots {
 };
 
 // Two resident blocks per SM: at most 128 registers a thread, a few spilled.
-template <bool CONSTRAINED, bool ONE_WORD>
+template <bool CONSTRAINED, bool ONE_WORD, bool TOPO>
 __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) {
   static_assert(PODS <= 32, "a tile's pods are the bits of one word");
   extern __shared__ uint32_t smem[];
@@ -319,6 +342,7 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
   __shared__ int s_need[PODS];  // selc as the integer count it must equal, −1 for none
   __shared__ float s_hasaff[PODS];
   __shared__ uint32_t s_rank[PODS];
+  __shared__ int s_gid[PODS];  // TOPO: the pod's row of T
   __shared__ int s_active[PODS];
   __shared__ int s_nlive[4];
   __shared__ float red_score[WARPS][PODS];
@@ -389,6 +413,7 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
     s_need[p] = (c >= 0.0f && c < 16777216.0f && floorf(c) == c) ? (int)c : -1;
     s_hasaff[p] = in ? a.has_aff[p0 + p] : 0.0f;
     s_rank[p] = in ? (uint32_t)a.ranks[p0 + p] : 0u;
+    if constexpr (TOPO) s_gid[p] = in ? a.gang_id[p0 + p] : 0;
   }
   __syncthreads();
 
@@ -567,6 +592,8 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
           s = __fsub_rn(s, __fmul_rn(__fmul_rn(2.0f, a.w_jit), c_spl[p]));
           if (a.Tp > 0) s = __fadd_rn(s, c_ppa[p]);
         }
+        if constexpr (TOPO)  // the gang term, last; read only for a feasible pod
+          s = __fadd_rn(s, ((ok >> p) & 1u) ? __ldg(a.topo + (size_t)s_gid[p] * N + n) : 0.0f);
         // strict: an equal score later in the walk never replaces
         const bool take = ((ok >> p) & 1u) && s > bscore[p];
         bscore[p] = take ? s : bscore[p];
@@ -620,12 +647,12 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
 // rows and their live lists), raising the kernel's limit past the 48 KB
 // default when it must.  Returns 0, TSCHED_ERR_SMEM when the device cannot
 // grant it, or a CUDA error.
-template <bool CONSTRAINED, bool ONE_WORD>
+template <bool CONSTRAINED, bool ONE_WORD, bool TOPO>
 static int launch(const ChooseArgs& a, cudaStream_t stream) {
   const Slots<ONE_WORD> sl(a.L, a.T, a.A, a.A2, a.Ts);
   const size_t wc = CONSTRAINED ? (size_t)a.Wb + a.Ss + a.S + a.Tp : 0;
   const size_t smem = 4 * ((size_t)PODS * ((size_t)sl.per_pod + a.A2 + a.R + wc) + wc);
-  const void* fn = (const void*)choose_kernel<CONSTRAINED, ONE_WORD>;
+  const void* fn = (const void*)choose_kernel<CONSTRAINED, ONE_WORD, TOPO>;
   if (smem > 48 * 1024) {
     int dev = 0, optin = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -639,19 +666,21 @@ static int launch(const ChooseArgs& a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (a.B + PODS - 1) / PODS;
-  choose_kernel<CONSTRAINED, ONE_WORD><<<grid, THREADS, smem, stream>>>(a);
+  choose_kernel<CONSTRAINED, ONE_WORD, TOPO><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool CONSTRAINED>
 static int launch_widths(const ChooseArgs& a, cudaStream_t stream) {
   const bool one = a.L <= 32 && a.T <= 32 && a.A <= 32 && a.A2 <= 32 && a.Ts <= 32;
-  return one ? launch<CONSTRAINED, true>(a, stream) : launch<CONSTRAINED, false>(a, stream);
+  if (a.topo != nullptr)
+    return one ? launch<CONSTRAINED, true, true>(a, stream) : launch<CONSTRAINED, false, true>(a, stream);
+  return one ? launch<CONSTRAINED, true, false>(a, stream) : launch<CONSTRAINED, false, false>(a, stream);
 }
 
 static int check_args(const ChooseArgs& a) {
-  if (a.R < 2 || a.N < 0 || a.L < 0 || a.T < 0 || a.A < 0 || a.A2 < 0 || a.Ts < 0 || a.Ts >= MAX_SOFT_WIDTH ||
-      a.Wb < 0 || a.Ss < 0 || a.S < 0 || a.Tp < 0)
+  if ((a.topo == nullptr) != (a.gang_id == nullptr) || a.R < 2 || a.N < 0 || a.L < 0 || a.T < 0 || a.A < 0 ||
+      a.A2 < 0 || a.Ts < 0 || a.Ts >= MAX_SOFT_WIDTH || a.Wb < 0 || a.Ss < 0 || a.S < 0 || a.Tp < 0)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -681,23 +710,24 @@ extern "C" {
 
 // Both launchers launch on `stream`, allocate nothing and do not
 // synchronise.  The node bitmaps are the words of ops/choose.pack_node_words
-// ([ceil(W/32), N] int32 each).  `jit_pow2` says that w_jit > 0 is a power
-// of two and `inv_jit` its exact reciprocal.  They return
+// ([ceil(W/32), N] int32 each).  `gang_id` [B] int32 and `topo` [G+1, N]
+// float32 carry the gang term, both null without it.  `jit_pow2` says that
+// w_jit > 0 is a power of two and `inv_jit` its exact reciprocal.  They return
 // cudaGetLastError() after the launch (0 = launched) or TSCHED_ERR_SMEM.
 
 int tsched_choose_launch(const void* req, const void* sel, const void* selc, const void* ntol, const void* aff,
                          const void* has_aff, const void* pref_w, const void* ntol_soft, const void* active,
                          const void* ranks, const void* avail, const void* alloc, const void* valid,
                          const void* labels, const void* taints, const void* node_aff, const void* node_pref,
-                         const void* taints_soft, int B, int N, int R, int L, int T, int A, int A2, int Ts,
-                         float w_lr, float w_ba, float w_jit, float w_pref, float w_soft,
-                         float inv_jit, int jit_pow2, uint32_t salt, uint32_t node_offset, void* choice, void* has,
-                         void* best, void* stream) {
+                         const void* taints_soft, const void* gang_id, const void* topo, int B, int N, int R,
+                         int L, int T, int A, int A2, int Ts, float w_lr, float w_ba, float w_jit, float w_pref,
+                         float w_soft, float inv_jit, int jit_pow2, uint32_t salt, uint32_t node_offset, void* choice,
+                         void* has, void* best, void* stream) {
   if (B <= 0) return 0;
-  const ChooseArgs a = base_args(req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks, avail, alloc,
-                                 valid, labels, taints, node_aff, node_pref, taints_soft, B, N, R, L, T, A, A2, Ts,
-                                 w_lr, w_ba, w_jit, w_pref, w_soft, inv_jit, jit_pow2, salt, node_offset, choice, has,
-                                 best);
+  ChooseArgs a = base_args(req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks, avail, alloc,
+                           valid, labels, taints, node_aff, node_pref, taints_soft, B, N, R, L, T, A, A2, Ts, w_lr,
+                           w_ba, w_jit, w_pref, w_soft, inv_jit, jit_pow2, salt, node_offset, choice, has, best);
+  a.gang_id = (const int32_t*)gang_id, a.topo = (const float*)topo;
   const int bad = check_args(a);
   if (bad) return bad;
   return launch_widths<false>(a, (cudaStream_t)stream);
@@ -706,16 +736,17 @@ int tsched_choose_launch(const void* req, const void* sel, const void* selc, con
 // The constrained choose: the operands of tsched_choose_launch plus the
 // pod/node pairs [B, Wb]/[Wb, N] (blocked band), [B, Ss]/[Ss, N] (soft
 // spread), [B, S]/[S, N] (hard-spread level), [B, Tp]/[Tp, N] (preferred
-// inter-pod), and w_topo (profile weight 5).
+// inter-pod), the gang term as tsched_choose_launch takes it, and w_topo
+// (profile weight 5).
 int tsched_choose_constrained_launch(
     const void* req, const void* sel, const void* selc, const void* ntol, const void* aff, const void* has_aff,
     const void* pref_w, const void* ntol_soft, const void* active, const void* ranks, const void* avail,
     const void* alloc, const void* valid, const void* labels, const void* taints, const void* node_aff,
     const void* node_pref, const void* taints_soft, const void* blk_pod, const void* blk_node, const void* sps_pod,
     const void* sps_node, const void* spd_pod, const void* spl_node, const void* ppaw_pod, const void* ppa_node,
-    int B, int N, int R, int L, int T, int A, int A2, int Ts, int Wb, int Ss, int S, int Tp, float w_lr, float w_ba,
-    float w_jit, float w_pref, float w_soft, float inv_jit, int jit_pow2, float w_topo, uint32_t salt,
-    uint32_t node_offset, void* choice, void* has, void* best, void* stream) {
+    const void* gang_id, const void* topo, int B, int N, int R, int L, int T, int A, int A2, int Ts, int Wb, int Ss,
+    int S, int Tp, float w_lr, float w_ba, float w_jit, float w_pref, float w_soft, float inv_jit, int jit_pow2,
+    float w_topo, uint32_t salt, uint32_t node_offset, void* choice, void* has, void* best, void* stream) {
   if (B <= 0) return 0;
   ChooseArgs a = base_args(req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks, avail, alloc, valid,
                            labels, taints, node_aff, node_pref, taints_soft, B, N, R, L, T, A, A2, Ts, w_lr, w_ba,
@@ -724,6 +755,7 @@ int tsched_choose_constrained_launch(
   a.sps_node = (const float*)sps_node, a.spd_pod = (const float*)spd_pod, a.spl_node = (const float*)spl_node;
   a.ppaw_pod = (const float*)ppaw_pod, a.ppa_node = (const float*)ppa_node;
   a.Wb = Wb, a.Ss = Ss, a.S = S, a.Tp = Tp, a.w_topo = w_topo;
+  a.gang_id = (const int32_t*)gang_id, a.topo = (const float*)topo;
   const int bad = check_args(a);
   if (bad) return bad;
   return launch_widths<true>(a, (cudaStream_t)stream);

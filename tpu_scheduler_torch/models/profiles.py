@@ -32,7 +32,7 @@ class SchedulingProfile:
     preferred_affinity_weight: float = 1.0
     soft_taint_weight: float = 10.0
     topology_weight: float = 1.0
-    # Rank-aware gang co-placement weight (topology slice; unused here).
+    # Rank-aware gang co-placement weight: topology/locality.gang_topology_term.
     gang_locality_weight: float = 64.0
     # Auction driver of the JAX package ("auto"/"monolithic"/"epochs").
     # The port has one eager driver; every value maps to it, since the JAX

@@ -1,21 +1,26 @@
 """Conflict-free batched assignment — the scheduling cycle in eager torch.
 
-Port of ``tpu_scheduler/ops/assign.py::assign_cycle`` for unconstrained
-and constrained cycles (topology cycles are not ported yet).  All pending
-pods are assigned in a few auction rounds; each round:
+Port of ``tpu_scheduler/ops/assign.py::assign_cycle``: unconstrained,
+constrained and topology (gang-locality) cycles, alone or together.  All
+pending pods are assigned in a few auction rounds; each round:
 
   1. choose:  blockwise over the active pods — feasibility + score vs the
      current remaining capacity, masked argmax → choice (ops/choose.py; on
      the card the hand-written kernels).  A constrained cycle first builds
      the round's blocked/penalty node masks from the domain state
      (ops/constraints.round_blocked_masks) and runs the constrained choose.
+     A topology cycle first builds the round's [G+1, N] gang term from the
+     placement counts (topology/locality.gang_topology_term), and the
+     choose adds each pod's gang row as its last score term.
   2. accept:  pods sit in (priority desc, FIFO) order; a stable sort by
      chosen node groups each node's claimants in priority order, and a
      segmented prefix sum of their requests — exact int64 clamped to
      INT32_MAX, which equals the JAX package's saturating int32 scan —
      accepts the longest prefix that fits.  A constrained cycle then drops
      within-round conflicts (constraints.constraint_filter) and folds the
-     survivors into the domain state (constraints.constraint_commit).
+     survivors into the domain state (constraints.constraint_commit).  A
+     topology cycle folds the accepted gang members into its placement
+     counts (locality.gang_state_update).
   3. commit:  accepted requests scatter-subtract from remaining capacity;
      pods with no feasible node drop out (capacity only shrinks in a cycle
      — except that a positive-affinity match placed this round can open
@@ -45,10 +50,12 @@ from dataclasses import dataclass
 
 import torch
 
+from ..topology.locality import gang_state_update, gang_topology_term
 from .choose import (
     CONSTRAINT_POD_KEYS,
     NODE_WORD_KEYS,
     POD_BITMAP_KEYS,
+    check_gang_ids,
     check_pod_bitmaps,
     choose_block,
     choose_block_constrained,
@@ -158,22 +165,27 @@ class _Constraints:
     stall: int = 0
 
 
-def _choose(avail, ps: dict, n_active: int, nodes: dict, words: tuple, weights, block: int, salt: int, masks=None):
+def _choose(
+    avail, ps: dict, n_active: int, nodes: dict, words: tuple, weights, block: int, salt: int, masks=None,
+    topo_t=None,
+):
     """Per-pod best feasible node vs current capacity, blockwise over the
     compacted pods: only the first ceil(n_active / block) blocks run.
     ``words``: the cycle's node bitmap words (choose.pack_node_words);
     ``masks`` (a constrained round's node masks) selects the constrained
-    choose."""
+    choose; ``topo_t`` (a topology round's [G+1, N] gang term) adds each
+    pod's gang row."""
     p = ps["pod_req"].shape[0]
     node_args = (avail,) + tuple(nodes[k] for k in _NODE_KEYS)
 
     def run(lo, hi):
         pod_args = (ps[k][lo:hi] for k in _CHOOSE_KEYS)
+        topo = None if topo_t is None else (ps["pod_gang_id"][lo:hi], topo_t)
         if masks is None:
-            return choose_block(*pod_args, *node_args, weights, salt, node_words=words)[:2]
+            return choose_block(*pod_args, *node_args, weights, salt, node_words=words, topo=topo)[:2]
         cons_pod = {k: ps[k][lo:hi] for k in CONSTRAINT_POD_KEYS}
         return choose_block_constrained(
-            *pod_args, *node_args, cons_pod, masks, weights, salt, node_words=words
+            *pod_args, *node_args, cons_pod, masks, weights, salt, node_words=words, topo=topo
         )[:2]
 
     if block >= p:
@@ -225,16 +237,23 @@ def commit_claims(avail: torch.Tensor, ch: torch.Tensor, claim: torch.Tensor, ac
 
 def _round(
     avail, ps: dict, n_active: int, rounds: int, nodes: dict, words: tuple, weights, block: int,
-    cons: _Constraints | None,
+    cons: _Constraints | None, topo: dict | None,
 ):
     """One auction round: choose, accept, (constraint filter and commit),
-    commit capacity, compact.  Returns (avail, ps, n_active) — n_active read
-    to the host; ``cons`` is updated in place."""
+    (gang placement counts), commit capacity, compact.  Returns (avail, ps,
+    n_active) — n_active read to the host; ``cons`` and the ``topo`` state
+    (``{"meta", "gang_nodes"}``) are updated in place."""
     n = avail.shape[0]
     masks = None
     if cons is not None:
         masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
-    choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks)
+    topo_t = None
+    if topo is not None:
+        topo_t = gang_topology_term(
+            topo["gang_nodes"], topo["meta"], avail, ps["pod_gang_id"], ps["pod_req"], ps["active"], weights[6]
+        )
+    choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, topo_t)
+    del topo_t
     cand = ps["active"] & has
     ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
     claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
@@ -259,6 +278,10 @@ def _round(
         new_match = (ps["pod_pa_matched"] * accepted[:, None].to(torch.float32)).sum(dim=0) > 0
         pa_hope = (ps["pod_pa_declares"].sum(dim=1) > 0) & new_match.any()
         active = active | (ps["active"] & ~has & pa_hope)
+    if topo is not None:
+        # Non-claimants carry the sentinel column n, gangless pods row 0:
+        # neither is ever read back.
+        gang_state_update(topo["gang_nodes"], accepted, ch, ps["pod_gang_id"])
     ps["active"] = active
     ps = _compact(ps)
     # One host read per round: the active count, and the accepted count
@@ -284,6 +307,8 @@ def assign_cycle(
     soft_spread: bool = False,
     soft_pa: bool = False,
     hard_pa: bool = True,
+    tmeta: dict | None = None,
+    tstate: dict | None = None,
 ):
     """Assign all pending pods to nodes in one cycle.
 
@@ -293,14 +318,23 @@ def assign_cycle(
     (ConstraintSet meta_arrays/state_arrays as tensors) switch on the
     constraint path; ``pods`` must then also carry the ConstraintSet
     pod_arrays, and the three flags say which optional features the cycle
-    has (the JAX package's assign_cycle contract).  Returns (assigned [P]
+    has (the JAX package's assign_cycle contract).  ``tmeta``/``tstate``
+    (TopologySet meta_arrays as tensors, and ``{"gang_nodes": [G+1, N+1]
+    float32 zeros}``, convert.topology_to_device) switch on the gang term;
+    ``pods`` must then also carry ``pod_gang_id``, and ``gang_nodes`` is
+    updated in place.  Returns (assigned [P]
     int32 — node index or −1, rounds int, remaining node_avail [N,R] int32,
     acc_round [P] int32 — the round each pod was accepted in or −1,
     rank_of [P] int32 — each pod's priority rank).  Every bitmap operand
     must be 0/1 (ValueError otherwise, before any round): the choose
-    kernels read the node bitmaps as words, built here once per cycle."""
+    kernels read the node bitmaps as words, built here once per cycle.
+    Gang ids outside [0, G] raise ValueError, once per cycle."""
     p_out = pods["pod_req"].shape[0]
     check_pod_bitmaps(*(pods[k] for k in POD_BITMAP_KEYS))
+    topo = None
+    if tmeta is not None:
+        topo = {"meta": tmeta, "gang_nodes": tstate["gang_nodes"]}
+        check_gang_ids(pods["pod_gang_id"], topo["gang_nodes"].shape[0])
     words = pack_node_words(*(nodes[k] for k in NODE_WORD_KEYS))
     perm, ps = _prepare_pods(pods, block)
     cons = None
@@ -330,7 +364,7 @@ def assign_cycle(
             not done and rounds < max_rounds and n_active > 0 and not _stalled(cons)
             and (not next_size or n_active > next_size)
         ):
-            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, words, weights, block, cons)
+            avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, words, weights, block, cons, topo)
             rounds += 1
         done = done or rounds >= max_rounds or n_active <= 0 or _stalled(cons)
 

@@ -11,6 +11,15 @@ Two dispatching wrappers, one per kernel of ``csrc/choose.cu``:
   and positive affinity, and the soft-spread, hard-spread-level and
   preferred inter-pod score terms (replaces ``_make_choose_kernel(True)``).
 
+Both take the gang co-placement term of a topology cycle as an optional
+operand, ``topo=(pod_gang_id, T)``: the block's gang ids [B] int32 and the
+round's [G+1, N] float32 term (topology/locality.gang_topology_term), added
+to each pod's score last.  The JAX package runs topology cycles on its jnp
+tree (``tpu_scheduler/ops/assign.py:229-233``); here the term goes into the
+same kernels as one more operand, in instances of their own
+(``choose_kernel<·, ·, true>``), so launches without it are unchanged.
+Gang ids outside [0, G] raise ValueError (:func:`check_gang_ids`).
+
 For tensors on the CPU each runs its plain torch version
 (:func:`choose_block_plain`, :func:`choose_block_constrained_plain`); for
 CUDA tensors it launches its kernel or raises — it never falls back to the
@@ -32,8 +41,9 @@ Both kernels are built at first use, by one ``nvcc`` call for ``sm_90a``,
 into ``build/torch_kernels/`` of the checkout (one subdirectory per source
 digest) and bound with ``ctypes``: plain C launchers, no PyTorch headers,
 so the build takes seconds.  ``LAUNCHES`` and ``LAUNCHES_CONSTRAINED``
-count each kernel's launches, so a run can show that its main path went
-through the kernels.
+count each kernel's launches without the gang term, ``LAUNCHES_TOPO`` and
+``LAUNCHES_CONSTRAINED_TOPO`` those with it, so a run can show that its
+main path went through the kernels.
 
 ``node_offset`` shifts the jitter hash's node indices when the node tensors
 are one tp shard of a mesh (parallel/sharded.py: the per-shard choose that
@@ -76,6 +86,7 @@ __all__ = [
     "build_library",
     "bitmap_words",
     "check_bitmaps",
+    "check_gang_ids",
     "check_pod_bitmaps",
     "pack_node_words",
     "pow2_reciprocal",
@@ -84,6 +95,8 @@ __all__ = [
     "POD_BITMAP_KEYS",
     "LAUNCHES",
     "LAUNCHES_CONSTRAINED",
+    "LAUNCHES_TOPO",
+    "LAUNCHES_CONSTRAINED_TOPO",
     "MAX_NODE_OFFSET",
 ]
 
@@ -91,6 +104,8 @@ __all__ = [
 # branch adds one to its own counter per launch, and nothing else does.
 LAUNCHES = 0
 LAUNCHES_CONSTRAINED = 0
+LAUNCHES_TOPO = 0
+LAUNCHES_CONSTRAINED_TOPO = 0
 
 # The constraint pod bitmaps (ops/constraints.ConstraintSet.pod_arrays keys)
 # the constrained choose reads for one block.
@@ -163,10 +178,10 @@ def bind_library(path: pathlib.Path) -> ctypes.CDLL:
     except OSError as e:
         raise KernelError(f"cannot load {path}: {e}") from e
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.tsched_choose_launch.argtypes = [ptr] * 18 + [i32] * 8 + [f32] * 6 + [i32] + [u32] * 2 + [ptr] * 4
+    lib.tsched_choose_launch.argtypes = [ptr] * 20 + [i32] * 8 + [f32] * 6 + [i32] + [u32] * 2 + [ptr] * 4
     lib.tsched_choose_launch.restype = ctypes.c_int
     lib.tsched_choose_constrained_launch.argtypes = (
-        [ptr] * 26 + [i32] * 12 + [f32] * 6 + [i32] + [f32] + [u32] * 2 + [ptr] * 4
+        [ptr] * 28 + [i32] * 12 + [f32] * 6 + [i32] + [f32] + [u32] * 2 + [ptr] * 4
     )
     lib.tsched_choose_constrained_launch.restype = ctypes.c_int
     lib.tsched_error_string.argtypes = [ctypes.c_int]
@@ -214,6 +229,15 @@ def check_bitmaps(bitmaps: dict) -> None:
             )
 
 
+def check_gang_ids(pod_gang_id: torch.Tensor, rows: int) -> None:
+    """Raise ValueError unless every gang id lies in [0, ``rows``): the
+    kernels read row ``gid`` of the [rows, N] gang term unchecked.  One
+    host read."""
+    if pod_gang_id.numel() and bool(((pod_gang_id < 0) | (pod_gang_id >= rows)).any()):
+        bad = int(pod_gang_id[(pod_gang_id < 0) | (pod_gang_id >= rows)][0])
+        raise ValueError(f"pod_gang_id: holds {bad}, outside the gang term's rows [0, {rows})")
+
+
 def check_pod_bitmaps(sel, ntol, aff, ntol_soft) -> None:
     """:func:`check_bitmaps` on the pod side's four bitmaps (pref_w holds
     weights and is not one)."""
@@ -251,11 +275,11 @@ def pow2_reciprocal(w: float) -> float | None:
     return float(inv) if np.isfinite(inv) and float(inv) * float(w) == 1.0 else None
 
 
-def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None):
-    """feasibility (minus ``blocked``) + score (plus ``score_terms``) +
-    ``torch.argmax``, which returns the FIRST index among equal maxima
-    (jnp.argmax's rule) and 0 for an all ``-inf`` row.  The jitter hash
-    reads node indices ``node_offset + [0, N)``."""
+def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None, topo=None):
+    """feasibility (minus ``blocked``) + score (plus ``score_terms`` and the
+    gang term ``topo``) + ``torch.argmax``, which returns the FIRST index
+    among equal maxima (jnp.argmax's rule) and 0 for an all ``-inf`` row.
+    The jitter hash reads node indices ``node_offset + [0, N)``."""
     (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
      avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft) = args
     if req.is_cuda:
@@ -267,6 +291,8 @@ def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None):
     if blocked is not None:
         m = m & ~blocked
     node_idx = torch.arange(avail.shape[0], device=req.device) + _check_offset(node_offset)
+    if topo is not None:
+        score_terms = dict(score_terms or {}, pod_gang_id=topo[0], topo_gang_node=topo[1])
     sc = score_block(
         req, alloc, avail, w, ranks, node_idx,
         pod_pref_w=pref_w, node_pref=node_pref, pod_ntol_soft=ntol_soft, node_taints_soft=taints_soft, salt=salt,
@@ -281,24 +307,26 @@ def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None):
 def choose_block_plain(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    weights, salt: int = 0, node_offset: int = 0,
+    weights, salt: int = 0, node_offset: int = 0, topo=None,
 ):
     """The plain torch version: masks.feasibility_block + score.score_block
-    + argmax.  Returns (choice [B] int32, has [B] bool, best [B] float32 —
-    the score at ``choice``, −inf where nothing is feasible)."""
+    (with the gang term ``topo`` when given) + argmax.  Returns (choice [B]
+    int32, has [B] bool, best [B] float32 — the score at ``choice``, −inf
+    where nothing is feasible)."""
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
-    return _plain(args, weights, salt, node_offset)
+    return _plain(args, weights, salt, node_offset, topo=topo)
 
 
 def choose_block_constrained_plain(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0,
+    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0, topo=None,
 ):
     """The plain torch version of the constrained choose: feasibility &
     ~constraints.blocked_block, then score_block with the round's constraint
-    terms (each present iff its mask is), then argmax.  ``cons_pod``: the
+    terms (each present iff its mask is) and the gang term ``topo`` when
+    given, then argmax.  ``cons_pod``: the
     block's CONSTRAINT_POD_KEYS bitmaps; ``masks``: the round's
     constraints.round_blocked_masks."""
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
@@ -312,7 +340,7 @@ def choose_block_constrained_plain(
         pod_ppa_w=cons_pod["pod_ppa_w"] if soft_pa else None,
         ppa_cnt_node=masks.get("ppa_cnt_node"),
     )
-    return _plain(args, weights, salt, node_offset, blocked_block(cons_pod, masks), terms)
+    return _plain(args, weights, salt, node_offset, blocked_block(cons_pod, masks), terms, topo)
 
 
 def constrained_node_operands(masks: dict) -> tuple:
@@ -435,11 +463,22 @@ def _words(args, node_words):
     return pack_node_words(*args[13:18])
 
 
-def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, salt, node_offset, device, b):
+def _check_topo(topo, b: int, n: int, device: torch.device) -> tuple:
+    """Device, type, shape and contiguity of the gang term's operands."""
+    gid, t = topo
+    _check("pod_gang_id", gid, torch.int32, (b,), device)
+    _check("topo", t, torch.float32, (t.shape[0], n), device)
+    if t.shape[0] < 1:
+        raise ValueError("topo: needs at least row 0 (the gangless pods' row)")
+    return gid, t
+
+
+def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, salt, node_offset, device, b, topo):
     """Allocate the outputs and launch one kernel on the current stream;
     raises KernelError when the launch is refused.  The pointers are the
-    13 pod and node operands before the node bitmaps, the node words, then
-    the constraint operands ``ptrs``; then the sizes ``ints``, the five
+    13 pod and node operands before the node bitmaps, the node words, the
+    constraint operands ``ptrs``, then the gang ids and term of ``topo``
+    (null without it); then the sizes ``ints``, the five
     weights, the jitter's exact reciprocal and its flag (pow2_reciprocal),
     ``extra_floats``.  ``node_offset`` (checked to lie in [0, 2^24)) travels
     as a c_uint32."""
@@ -454,7 +493,7 @@ def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, 
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in args[:13]), *(t.data_ptr() for t in node_words), *(t.data_ptr() for t in ptrs),
-            *ints, *(float(x) for x in w[:5]), 0.0 if inv is None else inv, int(inv is not None), *extra_floats,
+            *((None, None) if topo is None else (topo[0].data_ptr(), topo[1].data_ptr())), *ints, *(float(x) for x in w[:5]), 0.0 if inv is None else inv, int(inv is not None), *extra_floats,
             int(salt) & 0xFFFFFFFF, node_offset, choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
         )
     if err != 0:
@@ -465,7 +504,7 @@ def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, 
 def choose_block(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    weights, salt: int = 0, node_offset: int = 0, node_words=None,
+    weights, salt: int = 0, node_offset: int = 0, node_words=None, topo=None,
 ):
     """Best feasible node per pod of one block.
 
@@ -481,51 +520,63 @@ def choose_block(
     0/1, else ValueError.  ``node_words``: :func:`pack_node_words` of the
     node bitmaps, built once by a caller that launches many blocks against
     one node set (its pod bitmaps then go unchecked here: the caller checks
-    them once, :func:`check_pod_bitmaps`); built and checked here when
-    None; either way they are checked against the node bitmaps' shapes.
+    them once, :func:`check_pod_bitmaps`, and :func:`check_gang_ids`);
+    built and checked here when None; either way they are checked against
+    the node bitmaps' shapes.  ``topo``: (pod_gang_id [B] int32, T [G+1,
+    N] float32 contiguous), the gang term of a topology cycle, added last.
     Returns (choice [B] int32, local to the slice; has [B] bool; best [B]
     float32)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TOPO
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
     if req.device.type not in ("cpu", "cuda"):
         raise ValueError(f"choose_block: unsupported device {req.device}")
+    if topo is not None and node_words is None:
+        check_gang_ids(topo[0], topo[1].shape[0])
     node_words = _words(args, node_words)
     if req.device.type == "cpu":
-        return _plain(args, weights, salt, node_offset)
+        return _plain(args, weights, salt, node_offset, topo=topo)
     device, b, n, r, widths = _check_base(args)
+    if topo is not None:
+        topo = _check_topo(topo, b, n, device)
     out = _launch(
         _library().tsched_choose_launch, "choose", args, node_words, (), (b, n, r, *widths), weights, (),
-        salt, _check_offset(node_offset), device, b,
+        salt, _check_offset(node_offset), device, b, topo,
     )
-    if b:
+    if b and topo is None:
         LAUNCHES += 1
+    elif b:
+        LAUNCHES_TOPO += 1
     return out
 
 
 def choose_block_constrained(
     req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
     avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft,
-    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0, node_words=None,
+    cons_pod: dict, masks: dict, weights, salt: int = 0, node_offset: int = 0, node_words=None, topo=None,
 ):
     """Best feasible node per pod of one block in a constrained round: the
-    operands of :func:`choose_block` (``node_words`` and the 0/1 rule
-    included), plus ``cons_pod`` (the block's CONSTRAINT_POD_KEYS bitmaps,
+    operands of :func:`choose_block` (``node_words``, the 0/1 rule and
+    ``topo`` included), plus ``cons_pod`` (the block's CONSTRAINT_POD_KEYS bitmaps,
     [B, ·] float32) and ``masks`` (the round's
     constraints.round_blocked_masks, [·, N] float32).  Returns (choice,
     has, best) as choose_block does.  On the card each 8-pod tile sums the
     constraint terms over its live columns only (:func:`tile_live_columns`)
     and a tile with no active pod returns at once; both give the plain
     version's bits."""
-    global LAUNCHES_CONSTRAINED
+    global LAUNCHES_CONSTRAINED, LAUNCHES_CONSTRAINED_TOPO
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
     if req.device.type not in ("cpu", "cuda"):
         raise ValueError(f"choose_block_constrained: unsupported device {req.device}")
+    if topo is not None and node_words is None:
+        check_gang_ids(topo[0], topo[1].shape[0])
     node_words = _words(args, node_words)
     if req.device.type == "cpu":
-        return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset)
+        return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset, topo=topo)
     device, b, n, r, widths = _check_base(args)
+    if topo is not None:
+        topo = _check_topo(topo, b, n, device)
     pod_ops = constrained_pod_operands(cons_pod, masks)
     node_ops = constrained_node_operands(masks)
     names = ("blocked", "soft_spread", "spread_level", "preferred")
@@ -538,8 +589,10 @@ def choose_block_constrained(
     out = _launch(
         _library().tsched_choose_constrained_launch, "choose_constrained", args, node_words,
         ptrs, (b, n, r, *widths, *(int(po.shape[1]) for po in pod_ops)), weights, (w_topo,), salt,
-        _check_offset(node_offset), device, b,
+        _check_offset(node_offset), device, b, topo,
     )
-    if b:
+    if b and topo is None:
         LAUNCHES_CONSTRAINED += 1
+    elif b:
+        LAUNCHES_CONSTRAINED_TOPO += 1
     return out

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["feasibility_block", "feasibility_breakdown"]
+__all__ = ["feasibility_block", "feasibility_breakdown", "reason_rejection_counts"]
 
 
 def feasibility_breakdown(
@@ -65,3 +65,11 @@ def feasibility_block(
     for part in parts.values():
         mask = mask & part
     return mask
+
+
+def reason_rejection_counts(breakdown: dict[str, torch.Tensor], node_valid: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Per-pod candidate-node rejection counts from a breakdown: ``{reason
+    -> [B] int64 number of otherwise-valid nodes failing that predicate}``
+    (non-exclusive: a node can fail several; the first-fail attribution is
+    ``core.predicates.unschedulable_reason_counts``)."""
+    return {reason: (node_valid[None, :] & ~part).sum(-1) for reason, part in breakdown.items()}

@@ -1,7 +1,8 @@
 """Tensorization: ClusterSnapshot → packed host tensors (NumPy).
 
-Copy of the full-pack half of ``tpu_scheduler/ops/pack.py``; the
-incremental repack paths wait for the controller slice.  Layout:
+Copy of ``tpu_scheduler/ops/pack.py``: the full pack and the controller's
+incremental paths (``repack_avail``, ``extend_node_vocabs``,
+``repack_incremental`` with its identity-keyed ``res_memo``).  Layout:
 
   node_alloc[N,R]  int32   total allocatable (cpu millis, memory KiB, then
                            extended resources — res_vocab/res_scales)
@@ -24,11 +25,19 @@ padding rows have zero requests / zero capacity and are masked out.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
-from ..api.objects import LabelSelectorRequirement, NodeSelectorTerm, Pod, Taint, full_name, total_pod_resources
+from ..api.objects import (
+    LabelSelectorRequirement,
+    NodeSelectorTerm,
+    Pod,
+    Taint,
+    full_name,
+    is_extended_resource,
+    total_pod_resources,
+)
 from ..api.quantity import cpu_to_millis, memory_to_bytes
 from ..core.predicates import HARD_TAINT_EFFECTS, node_selector_term_matches
 from ..core.snapshot import ClusterSnapshot
@@ -43,6 +52,9 @@ __all__ = [
     "build_soft_taint_vocab",
     "build_pref_vocab",
     "resource_vocab",
+    "repack_avail",
+    "extend_node_vocabs",
+    "repack_incremental",
     "round_up",
     "INT32_MAX",
     "STALL_ROUNDS",
@@ -105,9 +117,8 @@ class PackedCluster:
     pref_vocab: dict[tuple, int]
 
     # Inter-pod constraint tensors (ops/constraints.ConstraintSet) and
-    # interconnect-topology tensors, attached per cycle by the caller.  The
-    # port's cycle takes the constraints; backends/cuda.py refuses a cluster
-    # that carries topology (not ported yet).
+    # interconnect-topology tensors (topology/locality.TopologySet),
+    # attached per cycle by the caller.
     constraints: object | None = None
     topology: object | None = None
 
@@ -116,6 +127,10 @@ class PackedCluster:
     # under which every value fits int32.
     res_vocab: tuple[str, ...] = ("cpu", "memory")
     res_scales: tuple[int, ...] = (1, 1024)
+
+    # The pod OBJECTS behind the rows (pod_names order): the identity keys
+    # of repack_incremental's row reuse.  Host-only, never shipped.
+    pod_objs: tuple = ()
 
     @property
     def num_nodes(self) -> int:
@@ -302,21 +317,42 @@ def _pack_ntol(pending: list[Pod], taint_vocab: dict, p_pad: int, t_pad: int) ->
     return ntol
 
 
-def resource_vocab(snapshot: ClusterSnapshot) -> tuple[str, ...]:
+def _resources(pod: Pod, res_memo: dict | None):
+    """``total_pod_resources(pod)``, through the identity-keyed memo
+    ``res_memo`` (id(pod) -> (pod, PodResources)) when given."""
+    if res_memo is None:
+        return total_pod_resources(pod)
+    hit = res_memo.get(id(pod))
+    if hit is not None and hit[0] is pod:
+        return hit[1]
+    res = total_pod_resources(pod)
+    res_memo[id(pod)] = (pod, res)
+    return res
+
+
+def resource_vocab(snapshot: ClusterSnapshot, res_memo: dict | None = None) -> tuple[str, ...]:
     """("cpu", "memory") plus every EXTENDED resource name any pod in the
-    snapshot requests (bound pods too), sorted for a stable column order."""
+    snapshot requests (bound pods too), sorted for a stable column order.
+    With ``res_memo`` unchanged pods answer from their cached sums."""
     names: set[str] = set()
     for pod in snapshot.pods:
         if pod.spec is None:
             continue
-        res = total_pod_resources(pod)
-        if res.extended:
-            names.update(res.extended)
+        if res_memo is not None:
+            res = _resources(pod, res_memo)
+            if res.extended:
+                names.update(res.extended)
+            continue
+        for c in pod.spec.containers:
+            if c.resources is not None and c.resources.requests is not None:
+                for k in c.resources.requests:
+                    if k != "cpu" and k != "memory" and is_extended_resource(k):
+                        names.add(k)
     return ("cpu", "memory", *sorted(names))
 
 
 def _alloc_and_used64(
-    snapshot: ClusterSnapshot, n_pad: int, res_vocab: tuple[str, ...]
+    snapshot: ClusterSnapshot, n_pad: int, res_vocab: tuple[str, ...], res_memo: dict | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact int64 (allocatable, bound-usage) per node, in base units."""
     r = len(res_vocab)
@@ -342,7 +378,7 @@ def _alloc_and_used64(
             if i is None:
                 continue  # bound to an unknown node; consumes nothing we track
             idxs.append(i)
-            reslist.append(total_pod_resources(pod))
+            reslist.append(_resources(pod, res_memo))
     if idxs:
         idx_arr = np.asarray(idxs, dtype=np.int64)
         m = len(idxs)
@@ -384,7 +420,14 @@ def _req_i32(req64: np.ndarray, res_scales: tuple[int, ...]) -> np.ndarray:
     return _clamp_i32(-(np.floor_divide(-req64, sc)))
 
 
-def _pack_pods(pending: list[Pod], vocab: dict, p_pad: int, l_pad: int, res_vocab: tuple[str, ...]) -> dict:
+def _avail_i32(alloc64: np.ndarray, used64: np.ndarray, res_scales: tuple[int, ...]) -> np.ndarray:
+    """Remaining capacity, floored under the column divisors."""
+    return _clamp_i32(np.floor_divide(alloc64 - used64, np.asarray(res_scales, dtype=np.int64)[None, :]))
+
+
+def _pack_pods(
+    pending: list[Pod], vocab: dict, p_pad: int, l_pad: int, res_vocab: tuple[str, ...], res_memo: dict | None = None
+) -> dict:
     """Pod-side tensors; requests in raw base units (the caller ceils them
     by ``res_scales``)."""
     pod_req64 = np.zeros((p_pad, len(res_vocab)), dtype=np.int64)
@@ -394,7 +437,7 @@ def _pack_pods(pending: list[Pod], vocab: dict, p_pad: int, l_pad: int, res_voca
     pod_valid = np.zeros((p_pad,), dtype=bool)
 
     n = len(pending)
-    reslist = [total_pod_resources(pod) for pod in pending]
+    reslist = [_resources(pod, res_memo) for pod in pending]
     if n:
         pod_req64[:n, CPU] = np.fromiter((r.cpu for r in reslist), np.int64, n)
         pod_req64[:n, MEM] = np.fromiter((r.memory for r in reslist), np.int64, n)
@@ -429,6 +472,7 @@ def _pack_pods(pending: list[Pod], vocab: dict, p_pad: int, l_pad: int, res_voca
         pod_prio=pod_prio,
         pod_valid=pod_valid,
         pod_names=tuple(full_name(p) for p in pending),
+        pod_objs=tuple(pending),
     )
 
 
@@ -442,10 +486,13 @@ def pack_snapshot(
     aff_vocab: dict[tuple, int] | None = None,
     soft_taint_vocab: dict[tuple[str, str, str], int] | None = None,
     pref_vocab: dict[tuple, int] | None = None,
+    res_memo: dict | None = None,
 ) -> PackedCluster:
     """Pack a snapshot into static-shape tensors.  A supplied vocabulary
     must cover every entry the pending pods and nodes use
-    (:class:`PackingError` otherwise); omitted ones are built fresh."""
+    (:class:`PackingError` otherwise); omitted ones are built fresh.
+    ``res_memo``: the identity-keyed request-sum memo shared across
+    cycles (:func:`repack_incremental`)."""
     pending = snapshot.pending_pods()
     nodes = list(snapshot.nodes)
     if vocab is None:
@@ -467,8 +514,8 @@ def pack_snapshot(
     ts_pad = round_up(len(soft_taint_vocab), label_block)
     a2_pad = round_up(len(pref_vocab), label_block)
 
-    res_vocab = resource_vocab(snapshot)
-    alloc64, used64 = _alloc_and_used64(snapshot, n_pad, res_vocab)
+    res_vocab = resource_vocab(snapshot, res_memo)
+    alloc64, used64 = _alloc_and_used64(snapshot, n_pad, res_vocab, res_memo)
     node_labels = np.zeros((n_pad, l_pad), dtype=np.float32)
     node_taints = np.zeros((n_pad, t_pad), dtype=np.float32)
     node_taints_soft = np.zeros((n_pad, ts_pad), dtype=np.float32)
@@ -494,14 +541,14 @@ def pack_snapshot(
                         raise PackingError(f"taint {(t.key, t.value, t.effect)} missing from supplied soft_taint_vocab")
                     node_taints_soft[i, j] = 1.0
 
-    pod_tensors = _pack_pods(pending, vocab, p_pad, l_pad, res_vocab)
+    pod_tensors = _pack_pods(pending, vocab, p_pad, l_pad, res_vocab, res_memo)
     pod_req64 = pod_tensors.pop("pod_req64")
     res_scales = _fit_scales(alloc64, pod_req64)
     scales = np.asarray(res_scales, dtype=np.int64)[None, :]
     pod_aff, pod_has_aff = _pack_affinity(pending, aff_vocab, p_pad, a_pad)
     return PackedCluster(
         node_alloc=_clamp_i32(np.floor_divide(alloc64, scales)),
-        node_avail=_clamp_i32(np.floor_divide(alloc64 - used64, scales)),
+        node_avail=_avail_i32(alloc64, used64, res_scales),
         node_labels=node_labels,
         node_taints=node_taints,
         node_aff=_pack_node_terms(nodes, aff_vocab, n_pad, a_pad),
@@ -523,4 +570,239 @@ def pack_snapshot(
         res_vocab=res_vocab,
         res_scales=res_scales,
         **pod_tensors,
+    )
+
+
+def _check_alloc_within_scales(alloc64: np.ndarray, res_scales: tuple[int, ...]) -> None:
+    """Raise when an EXTENDED allocatable column outgrows its frozen
+    divisor: a full pack would re-derive the divisor and stay exact, so a
+    capacity saturated at INT32_MAX must force that full pack instead.
+    cpu/memory scales are fixed and keep the clamp."""
+    sc = np.asarray(res_scales, dtype=np.int64)
+    if sc.shape[0] > 2 and alloc64.shape[1] > 2:
+        if (np.floor_divide(alloc64[:, 2:], sc[None, 2:]) > INT32_MAX).any():
+            raise ValueError("resource scales outgrown by node allocatable; run a full pack_snapshot instead")
+
+
+def repack_avail(packed: PackedCluster, snapshot: ClusterSnapshot) -> PackedCluster:
+    """Refresh ``node_avail`` from a new snapshot over the SAME node set
+    (ValueError otherwise, or when the resource vocabulary changed); pod
+    tensors and bitmaps are untouched."""
+    fresh_names = tuple(n.name for n in snapshot.nodes)
+    if fresh_names != packed.node_names:
+        raise ValueError("repack_avail requires an identical node set/order; run a full pack_snapshot instead")
+    if resource_vocab(snapshot) != packed.res_vocab:
+        raise ValueError("resource vocabulary changed; run a full pack_snapshot instead")
+    alloc64, used64 = _alloc_and_used64(snapshot, packed.padded_nodes, packed.res_vocab)
+    _check_alloc_within_scales(alloc64, packed.res_scales)
+    return replace(packed, node_avail=_avail_i32(alloc64, used64, packed.res_scales))
+
+
+def _grow_columns(arr: np.ndarray, total: int, label_block: int) -> np.ndarray:
+    """Copy ``arr`` with its column count grown to cover ``total`` entries
+    (padded to the block multiple).  Always copies: a cached array may
+    still be in use (the backends' upload cache keys on identity)."""
+    width = arr.shape[1]
+    if total > width:
+        w_pad = round_up(total, label_block)
+        return np.pad(arr, ((0, 0), (0, w_pad - width)))
+    return arr.copy()
+
+
+def extend_node_vocabs(packed: PackedCluster, snapshot: ClusterSnapshot, label_block: int = 8) -> PackedCluster:
+    """Grow the node-side bitmaps to cover selector pairs, affinity terms
+    and preferred terms that the pending pods newly use, over the SAME node
+    set: only the new columns are evaluated, existing columns keep their
+    indices (so results equal a fresh pack's).  Taint vocabularies are
+    node-driven and not extended.  Refuses (ValueError) once dead columns
+    would outnumber the live entries: a full pack compacts them."""
+    fresh_names = tuple(n.name for n in snapshot.nodes)
+    if fresh_names != packed.node_names:
+        raise ValueError("extend_node_vocabs requires an identical node set/order; run a full pack_snapshot instead")
+    pending = snapshot.pending_pods()
+    nodes = list(snapshot.nodes)
+    new_sel: dict[tuple[str, str], None] = {}
+    new_aff: dict[tuple, None] = {}
+    new_pref: dict[tuple, None] = {}
+    live_sel: set = set()
+    live_aff: set = set()
+    live_pref: set = set()
+    for p in pending:
+        if p.spec is None:
+            continue
+        if p.spec.node_selector:
+            for kv in p.spec.node_selector.items():
+                live_sel.add(kv)
+                if kv not in packed.vocab:
+                    new_sel[kv] = None
+        for term in p.spec.node_affinity or []:
+            k = term.key()
+            live_aff.add(k)
+            if k not in packed.aff_vocab:
+                new_aff[k] = None
+        for t in p.spec.preferred_node_affinity or []:
+            k = t.term.key()
+            live_pref.add(k)
+            if k not in packed.pref_vocab:
+                new_pref[k] = None
+    if not (new_sel or new_aff or new_pref):
+        return packed
+    for vocab, live, new in (
+        (packed.vocab, live_sel, new_sel),
+        (packed.aff_vocab, live_aff, new_aff),
+        (packed.pref_vocab, live_pref, new_pref),
+    ):
+        if len(vocab) + len(new) > max(16, 2 * len(live)):
+            raise ValueError(
+                f"vocabulary bloat: {len(vocab)} cached + {len(new)} new entries vs {len(live)} live; "
+                "full repack compacts the dead columns"
+            )
+
+    out = {}
+    if new_sel:
+        vocab = dict(packed.vocab)
+        node_labels = _grow_columns(packed.node_labels, len(vocab) + len(new_sel), label_block)
+        for kv in new_sel:
+            vocab[kv] = len(vocab)
+        for ni, node in enumerate(nodes):
+            labels = node.metadata.labels
+            if labels:
+                for k, v in new_sel:
+                    if labels.get(k) == v:
+                        node_labels[ni, vocab[(k, v)]] = 1.0
+        out["vocab"] = vocab
+        out["node_labels"] = node_labels
+    for keys, vocab_name, tensor_name in ((new_aff, "aff_vocab", "node_aff"), (new_pref, "pref_vocab", "node_pref")):
+        if not keys:
+            continue
+        vocab = dict(getattr(packed, vocab_name))
+        tensor = _grow_columns(getattr(packed, tensor_name), len(vocab) + len(keys), label_block)
+        terms = []
+        for key in keys:
+            vocab[key] = len(vocab)
+            terms.append((vocab[key], _term_from_key(key)))
+        for ni, node in enumerate(nodes):
+            labels = node.metadata.labels
+            for j, term in terms:
+                if node_selector_term_matches(term, labels):
+                    tensor[ni, j] = 1.0
+        out[vocab_name] = vocab
+        out[tensor_name] = tensor
+    return replace(packed, **out)
+
+
+def repack_incremental(
+    packed: PackedCluster,
+    snapshot: ClusterSnapshot,
+    pod_block: int = 128,
+    res_memo: dict | None = None,
+    alloc_used64: tuple[np.ndarray, np.ndarray] | None = None,
+) -> PackedCluster:
+    """Between-cycles repack over the SAME node set: reuse the node-side
+    tensors and rebuild only the pending-pod tensors and the remaining
+    capacity.  A pending pod whose OBJECT is unchanged since ``packed``
+    (same identity) has its rows gathered from the cached tensors; only new
+    or changed pods run the packing body.  ``alloc_used64``: a carried
+    exact int64 (allocatable, usage) pair, which skips the usage sweep and
+    the resource-vocabulary scan (the caller vouches for both).  Raises
+    ValueError on anything a full pack must handle (node set, resource
+    vocabulary or scales outgrown); ``packed.vocab`` must cover every
+    pending selector pair."""
+    fresh_nodes = tuple(n.name for n in snapshot.nodes)
+    if fresh_nodes != packed.node_names:
+        raise ValueError("repack_incremental requires an identical node set/order; run a full pack_snapshot instead")
+    if alloc_used64 is None:
+        if resource_vocab(snapshot, res_memo) != packed.res_vocab:
+            raise ValueError("resource vocabulary changed; run a full pack_snapshot instead")
+        alloc64, used64 = _alloc_and_used64(snapshot, packed.padded_nodes, packed.res_vocab, res_memo)
+    else:
+        alloc64, used64 = alloc_used64
+        if alloc64.shape != (packed.padded_nodes, len(packed.res_vocab)) or used64.shape != alloc64.shape:
+            raise ValueError("carried capacity pair does not match the packed node axis; run a full pack_snapshot instead")
+    _check_alloc_within_scales(alloc64, packed.res_scales)
+    pending = snapshot.pending_pods()
+    p_pad = max(packed.padded_pods, round_up(len(pending), pod_block))
+    # Pod widths come from the NODE side: extend_node_vocabs may have grown
+    # the columns since the cached pod tensors were built.
+    l_w = packed.node_labels.shape[1]
+    t_w = packed.node_taints.shape[1]
+    a_w = packed.node_aff.shape[1]
+    ts_w = packed.node_taints_soft.shape[1]
+    a2_w = packed.node_pref.shape[1]
+
+    prev_row = {name: j for j, name in enumerate(packed.pod_names)} if packed.pod_objs else {}
+    reuse_src: list[int] = []
+    reuse_dst: list[int] = []
+    fresh_idx: list[int] = []
+    names: list[str] = []
+    for i, pod in enumerate(pending):
+        nm = full_name(pod)
+        names.append(nm)
+        j = prev_row.get(nm)
+        if j is not None and packed.pod_objs[j] is pod:
+            reuse_src.append(j)
+            reuse_dst.append(i)
+        else:
+            fresh_idx.append(i)
+
+    pod_req = np.zeros((p_pad, len(packed.res_vocab)), dtype=np.int32)
+    pod_sel = np.zeros((p_pad, l_w), dtype=np.float32)
+    pod_sel_count = np.zeros((p_pad,), dtype=np.float32)
+    pod_prio = np.zeros((p_pad,), dtype=np.int32)
+    pod_valid = np.zeros((p_pad,), dtype=bool)
+    pod_ntol = np.zeros((p_pad, t_w), dtype=np.float32)
+    pod_aff = np.zeros((p_pad, a_w), dtype=np.float32)
+    pod_has_aff = np.zeros((p_pad,), dtype=np.float32)
+    pod_ntol_soft = np.zeros((p_pad, ts_w), dtype=np.float32)
+    pod_pref_w = np.zeros((p_pad, a2_w), dtype=np.float32)
+    pod_valid[: len(pending)] = True
+
+    if reuse_src:
+        src = np.asarray(reuse_src, dtype=np.intp)
+        dst = np.asarray(reuse_dst, dtype=np.intp)
+        pod_req[dst] = packed.pod_req[src]
+        pod_sel[dst, : packed.pod_sel.shape[1]] = packed.pod_sel[src]
+        pod_sel_count[dst] = packed.pod_sel_count[src]
+        pod_prio[dst] = packed.pod_prio[src]
+        pod_ntol[dst, : packed.pod_ntol.shape[1]] = packed.pod_ntol[src]
+        pod_aff[dst, : packed.pod_aff.shape[1]] = packed.pod_aff[src]
+        pod_has_aff[dst] = packed.pod_has_aff[src]
+        pod_ntol_soft[dst, : packed.pod_ntol_soft.shape[1]] = packed.pod_ntol_soft[src]
+        pod_pref_w[dst, : packed.pod_pref_w.shape[1]] = packed.pod_pref_w[src]
+
+    if fresh_idx:
+        fp = [pending[i] for i in fresh_idx]
+        fi = np.asarray(fresh_idx, dtype=np.intp)
+        n_f = len(fp)
+        sub = _pack_pods(fp, packed.vocab, n_f, l_w, packed.res_vocab, res_memo)
+        sc = np.asarray(packed.res_scales, dtype=np.int64)
+        # Extended columns only: cpu/memory scales are fixed and clamp.
+        if sc.shape[0] > 2 and (-(np.floor_divide(-sub["pod_req64"][:, 2:], sc[None, 2:])) > INT32_MAX).any():
+            raise ValueError("resource scales outgrown; run a full pack_snapshot instead")
+        pod_req[fi] = _req_i32(sub["pod_req64"], packed.res_scales)
+        pod_sel[fi] = sub["pod_sel"]
+        pod_sel_count[fi] = sub["pod_sel_count"]
+        pod_prio[fi] = sub["pod_prio"]
+        pod_ntol[fi] = _pack_ntol(fp, packed.taint_vocab, n_f, t_w)
+        f_aff, f_has = _pack_affinity(fp, packed.aff_vocab, n_f, a_w)
+        pod_aff[fi] = f_aff
+        pod_has_aff[fi] = f_has
+        pod_ntol_soft[fi] = _pack_ntol(fp, packed.soft_taint_vocab, n_f, ts_w)
+        pod_pref_w[fi] = _pack_pod_pref(fp, packed.pref_vocab, n_f, a2_w)
+
+    return replace(
+        packed,
+        node_avail=_avail_i32(alloc64, used64, packed.res_scales),
+        pod_req=pod_req,
+        pod_sel=pod_sel,
+        pod_sel_count=pod_sel_count,
+        pod_prio=pod_prio,
+        pod_valid=pod_valid,
+        pod_names=tuple(names),
+        pod_objs=tuple(pending),
+        pod_ntol=pod_ntol,
+        pod_aff=pod_aff,
+        pod_has_aff=pod_has_aff,
+        pod_ntol_soft=pod_ntol_soft,
+        pod_pref_w=pod_pref_w,
     )

@@ -21,6 +21,10 @@ then, in constrained cycles, after the jitter (each term skipped when absent):
   score            −= (2·w₂)·(sp_declares @ sp_level_node)    hard-spread steering
   score            += ppa_w @ ppa_cnt_node                    preferred inter-pod
 
+and, in topology cycles, as the last term:
+
+  score            += topo_gang_node[pod_gang_id]             gang co-placement
+
 torch has no uint32 ``add`` or ``>>``, so the hash runs in int64 and masks
 to 32 bits; ranks and node indices are below 2³¹, so no product overflows.
 """
@@ -64,6 +68,8 @@ def score_block(
     sp_level_node: torch.Tensor | None = None,
     pod_ppa_w: torch.Tensor | None = None,
     ppa_cnt_node: torch.Tensor | None = None,
+    pod_gang_id: torch.Tensor | None = None,
+    topo_gang_node: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """[B, N] float32 score of a block of pods against all nodes.
 
@@ -71,7 +77,9 @@ def score_block(
     device (models/profiles.py ``weights()`` order); ``pod_idx``/``node_idx``
     are the global indices the jitter hash reads (the jitter is skipped when
     either is None).  The constraint terms take the pod bitmaps [B, ·] and
-    the round's node masks [·, N] (ops/constraints.round_blocked_masks)."""
+    the round's node masks [·, N] (ops/constraints.round_blocked_masks);
+    the gang term the block's gang ids [B] and the round's [G+1, N] term
+    (topology/locality.gang_topology_term)."""
     f32 = torch.float32
     # Scoring reads cpu/mem only (columns 0-1).
     pod_req = pod_req[:, :2]
@@ -99,4 +107,6 @@ def score_block(
         score = score - (2.0 * weights[2]) * (pod_sp_declares @ sp_level_node)
     if pod_ppa_w is not None and ppa_cnt_node is not None:
         score = score + pod_ppa_w @ ppa_cnt_node
+    if pod_gang_id is not None and topo_gang_node is not None:
+        score = score + topo_gang_node[pod_gang_id.long()]
     return score.to(f32)

@@ -358,7 +358,8 @@ class ShardedBackend(SchedulingBackend):
     cycles included (replicated domain state).  Runs on every visible CUDA
     device unless given a mesh (``make_mesh([torch.device("cpu")] * 8, tp)``
     for the tests, ``make_mesh([torch.device("cuda:0")] * k, tp)`` for
-    virtual shards on one card).  Topology cycles are not ported."""
+    virtual shards on one card).  Like the JAX ShardedBackend it solves
+    topology-blind: a cluster's ``topology`` is not read."""
 
     name = "cuda-sharded"
     supports_topology = False
@@ -375,8 +376,8 @@ class ShardedBackend(SchedulingBackend):
                 raise BackendUnavailable("cuda-sharded backend: torch.cuda.is_available() is False")
 
     def assign(self, packed: PackedCluster, profile: SchedulingProfile):
-        if packed.topology is not None:
-            raise NotImplementedError("cuda-sharded backend: topology cycles are not ported yet")
+        # Topology-blind, as the JAX ShardedBackend: packed.topology is not
+        # read (supports_topology is False).
         tp = self.mesh.shape["tp"]
         a = dict(packed.device_arrays())
         # Node padding to the tp multiple happens here; pod padding to the
