@@ -44,6 +44,19 @@ bisection kernels) and, for each main path:
   on fresh copies of the cluster (upload-cache misses) and three on one
   (hits), with its gang quality against the topology-blind solve and a
   profiler breakdown;
+* controller — the port's Scheduler over ``CudaBackend`` against an
+  in-process API server: ``controller_e2e`` is bench.py's ``e2e_row`` at the
+  flagship size (a cold cycle, three fresh 100,000-pod waves, one more
+  under torch.profiler, three 10,000-pod churn cycles; pipelined binds,
+  full-wave cycles), each cycle's phases, bind drain, upload bytes and
+  choose launches, checked against ``CudaBackend.schedule`` of the same
+  cluster, for oversubscription and for fallbacks; ``controller_parity``
+  runs the CLI's mixed workload at 20,000 × 2,000 and bench.py's topology
+  cluster at 8,192 × 512 (alone and with the constrained row's fractions)
+  to settlement on the card and on the CPU and holds the pod → node maps
+  and cycle counts equal; ``cli`` runs ``python -m tpu_scheduler_torch.cli``
+  on the card on the mixed workload and holds its bound total to the card
+  run's;
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
   ``bench_wide_kernel.py`` (kernel #3) at their full shape, and each kernel
@@ -58,9 +71,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import os
+import pathlib
 import random
 import statistics
+import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -71,13 +89,14 @@ from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
 import tpu_scheduler_torch.backends.cuda as cuda_backend_mod
+import tpu_scheduler_torch.cli as cli_mod
 import tpu_scheduler_torch.ops.assign as assign_mod
 import tpu_scheduler_torch.ops.bisect as bisect_mod
 import tpu_scheduler_torch.ops.choose as choose_mod
 import tpu_scheduler_torch.parallel.sharded as sharded_mod
 from tpu_scheduler_torch.backends.cuda import CudaBackend
 from tpu_scheduler_torch.convert import constraints_to_device, to_device, topology_to_device
-from tpu_scheduler_torch.core.snapshot import ClusterSnapshot
+from tpu_scheduler_torch.core.snapshot import ClusterSnapshot, node_net_available
 from tpu_scheduler_torch.models.profiles import PROFILES
 from tpu_scheduler_torch.ops.assign import assign_cycle, split_device_arrays
 from tpu_scheduler_torch.ops.choose import (
@@ -100,10 +119,13 @@ from tpu_scheduler_torch.experiments import card as nvidia_smi
 from tpu_scheduler_torch.ops.pack import pack_snapshot
 from tpu_scheduler_torch.parallel.mesh import make_mesh
 from tpu_scheduler_torch.parallel.sharded import ShardedBackend
+from tpu_scheduler_torch.runtime.controller import Scheduler
+from tpu_scheduler_torch.runtime.fake_api import FakeApiServer
 from tpu_scheduler_torch.testing import make_node, make_pod, synth_cluster
 from tpu_scheduler_torch.topology.locality import _add_rows as locality_add_rows
 from tpu_scheduler_torch.topology.locality import gang_placement_stats, gang_topology_term, pack_topology
 from tpu_scheduler_torch.topology.model import DEFAULT_LEVEL_KEYS, TopologyModel
+from tpu_scheduler_torch.utils.gc_tuning import enable_daemon_gc_tuning
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM bandwidth.
@@ -965,14 +987,12 @@ def bisect_phase(device) -> list[dict]:
 SLICE_KEY, RACK_KEY = DEFAULT_LEVEL_KEYS[0][1], DEFAULT_LEVEL_KEYS[1][1]
 
 
-def topology_cluster(pods: int, nodes: int, seed: int) -> dict:
-    """bench.py's ``topology_row`` cluster, built inline as bench.py does:
-    ``nodes`` nodes of 32 CPU / 128 Gi, slices of 4 nodes and racks of 16;
-    35 % of draws open a gang of 4-8 members at 2 CPU / 4 Gi, the others are
-    single pods at 1 CPU / 2 Gi.  Packed with ``pack_snapshot``'s defaults
-    and the TopologySet attached; the set-up seconds split into synth +
-    pack and ``pack_topology``."""
-    t0 = time.perf_counter()
+def topology_objects(pods: int, nodes: int, seed: int) -> tuple[list, list, dict]:
+    """(nodes, pods, {gang: member full names}) of bench.py's
+    ``topology_row`` cluster, built inline as bench.py does: ``nodes`` nodes
+    of 32 CPU / 128 Gi, slices of 4 nodes and racks of 16; 35 % of draws
+    open a gang of 4-8 members at 2 CPU / 4 Gi, the others are single pods
+    at 1 CPU / 2 Gi."""
     rng = random.Random(seed)
     node_objs = [
         make_node(f"tn{i:05d}", cpu="32", memory="128Gi",
@@ -990,6 +1010,15 @@ def topology_cluster(pods: int, nodes: int, seed: int) -> dict:
             gi += 1
         else:
             pod_objs.append(make_pod(f"tp{len(pod_objs)}", cpu="1", memory="2Gi"))
+    return node_objs, pod_objs, gangs
+
+
+def topology_cluster(pods: int, nodes: int, seed: int) -> dict:
+    """bench.py's ``topology_row`` cluster (:func:`topology_objects`) packed
+    with ``pack_snapshot``'s defaults and the TopologySet attached; the
+    set-up seconds split into synth + pack and ``pack_topology``."""
+    t0 = time.perf_counter()
+    node_objs, pod_objs, gangs = topology_objects(pods, nodes, seed)
     snap = ClusterSnapshot.build(node_objs, pod_objs)
     compiled = TopologyModel.detect(node_objs).compile(node_objs)
     packed = pack_snapshot(snap)
@@ -1000,12 +1029,17 @@ def topology_cluster(pods: int, nodes: int, seed: int) -> dict:
             "synth_pack_seconds": t1 - t0, "pack_topology_seconds": t2 - t1}
 
 
+def label_topology(nodes) -> None:
+    """Label node i into slice i // 4 and rack i // 16, in place (for
+    clusters from ``synth_cluster``, which carry no topology labels)."""
+    for i, node in enumerate(nodes):
+        node.metadata.labels.update({SLICE_KEY: f"s{i // 4}", RACK_KEY: f"r{i // 16}"})
+
+
 def with_topology(snap, packed):
     """``packed`` with the TopologySet of ``snap``'s nodes attached, after
-    labelling node i into slice i // 4 and rack i // 16 (for clusters from
-    ``synth_cluster``, which carry no topology labels)."""
-    for i, node in enumerate(snap.nodes):
-        node.metadata.labels.update({SLICE_KEY: f"s{i // 4}", RACK_KEY: f"r{i // 16}"})
+    :func:`label_topology`."""
+    label_topology(snap.nodes)
     compiled = TopologyModel.detect(snap.nodes).compile(snap.nodes)
     topo = pack_topology(compiled, snap.pending_pods(), packed.padded_pods, packed.node_names, packed.padded_nodes)
     return dataclasses.replace(packed, topology=topo)
@@ -1219,6 +1253,281 @@ def topology_breakdown(backend, packed, profile) -> dict:
 
 
 NAMES_BISECT = ("bisect_parts_v0", "bisect_parts_v1", "bisect_parts_v2", "bisect_parts_v3", "bisect_wide")
+
+
+# ---- the controller (Scheduler over CudaBackend) ---------------------------
+
+CHOOSE_COUNTERS = ("LAUNCHES", "LAUNCHES_CONSTRAINED", "LAUNCHES_TOPO", "LAUNCHES_CONSTRAINED_TOPO")
+
+
+def zero_launches() -> None:
+    for name in CHOOSE_COUNTERS:
+        setattr(choose_mod, name, 0)
+
+
+def read_launches() -> dict:
+    """The choose wrappers' launch counts: #1, #2, #1t, #2t."""
+    return {name.lower(): getattr(choose_mod, name) for name in CHOOSE_COUNTERS}
+
+
+def oversubscribed_nodes(api) -> int:
+    """Nodes of the API's state whose bound pods request more than the node
+    allocates on some resource."""
+    snap = ClusterSnapshot.build(api.list_nodes(), api.list_pods())
+    bad = 0
+    for node in snap.nodes:
+        net = node_net_available(snap, node)
+        if net.cpu < 0 or net.memory < 0 or any(v < 0 for v in (net.extended or {}).values()):
+            bad += 1
+    return bad
+
+
+def renamed(pods: list, prefix: str) -> list:
+    """Copies of ``pods`` named ``<prefix>-<name>`` (a fresh wave)."""
+    return [dataclasses.replace(p, metadata=dataclasses.replace(p.metadata, name=f"{prefix}-{p.metadata.name}"))
+            for p in pods]
+
+
+def timed_cycle(sched, label: str, drain_s: float) -> tuple[dict, object]:
+    """One ``run_cycle`` with its phase seconds, the upload bytes and the
+    choose launches of the cycle; fails if a solve launched no kernel."""
+    cuda_backend_mod.UPLOAD_BYTES = 0
+    before = read_launches()
+    t0 = time.perf_counter()
+    m = sched.run_cycle()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in read_launches().items()}
+    if m.pending and m.solve_seconds > 0 and launches["launches"] == 0:
+        raise SystemExit(f"controller_e2e: cycle {label} solved without launching kernel #1 ({launches})")
+    row = {
+        "phase": "controller_e2e_cycle", "cycle": label, "wall_s": wall, "sync_s": m.sync_seconds,
+        "overlay_s": m.overlay_seconds, "queue_s": m.queue_seconds, "pack_s": m.pack_seconds,
+        "solve_s": m.solve_seconds, "bind_s": m.bind_seconds, "gang_s": m.gang_seconds, "slo_s": m.slo_seconds,
+        "other_s": m.other_seconds, "pending": m.pending, "bound": m.bound, "unschedulable": m.unschedulable,
+        "rounds": m.rounds, "prior_bind_drain_s": drain_s, "upload_bytes": cuda_backend_mod.UPLOAD_BYTES,
+        "choose_launches": launches,
+    }
+    emit(row)
+    return row, m
+
+
+def join_timed(sched) -> float:
+    t0 = time.perf_counter()
+    sched._join_binds()
+    return time.perf_counter() - t0
+
+
+def controller_e2e(smi: str) -> dict:
+    """bench.py's ``e2e_row`` on the port: the real Scheduler over
+    ``CudaBackend`` against an in-process FakeApiServer at the flagship's
+    size, pipelined binds, full-wave cycles.  A cold cycle, three fresh
+    100,000-pod waves (template seed 1; the previous wave deleted off the
+    clock after its binds drain), one more wave under torch.profiler, then
+    three churn cycles of 10,000 pods that retire as many bound pods."""
+    t0 = time.perf_counter()
+    base = synth_cluster(n_nodes=10_000, n_pending=100_000, n_bound=20_000, seed=0)
+    template = synth_cluster(n_nodes=10_000, n_pending=100_000, n_bound=0, seed=1).pending_pods()
+    api = FakeApiServer()
+    api.load(base.nodes, base.pods)
+    profile = PROFILES["throughput"].with_(pod_block=8192, max_rounds=64)
+    reference = CudaBackend().schedule(pack_snapshot(base), profile)
+    setup_s = time.perf_counter() - t0
+    enable_daemon_gc_tuning()  # what the CLI daemon runs with
+    sched = Scheduler(api, CudaBackend(), profile=profile, requeue_seconds=0.0, pipeline=True, delta=False)
+    metrics, rows = [], []
+    zero_launches()
+    row, m = timed_cycle(sched, "cold", 0.0)
+    rows.append(row)
+    metrics.append(m)
+    if m.bound != len(reference.bindings):
+        raise SystemExit(f"controller_e2e: the cold cycle bound {m.bound}, CudaBackend.schedule "
+                         f"{len(reference.bindings)} on the same cluster")
+    prev: list = []
+    waves = []
+    for w in range(3):
+        drain = join_timed(sched)
+        for p in prev:
+            api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+        prev = renamed(template, f"w{w}")
+        for p in prev:
+            api.create_pod(p)
+        row, m = timed_cycle(sched, f"wave{w}", drain)
+        waves.append(row)
+        metrics.append(m)
+    # One more wave under torch.profiler: the device's idle share.
+    drain = join_timed(sched)
+    for p in prev:
+        api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+    prev = renamed(template, "w3")
+    for p in prev:
+        api.create_pod(p)
+    before = read_launches()
+    wall_ms, dev_rows = profiled(lambda: metrics.append(sched.run_cycle()))
+    prof_launches = {k: v - before[k] for k, v in read_launches().items()}
+    split = device_split(wall_ms, dev_rows, "choose_kernel")
+    churn = 10_000
+    churn_rows: list = []
+    prev_churn: list = []
+    for w in range(3):
+        drain = join_timed(sched)
+        for p in prev_churn + prev[w * churn:(w + 1) * churn]:
+            api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+        prev_churn = renamed(template[:churn], f"c{w}")
+        for p in prev_churn:
+            api.create_pod(p)
+        row, m = timed_cycle(sched, f"churn{w}", drain)
+        churn_rows.append(row)
+        metrics.append(m)
+    final_drain = join_timed(sched)
+    launches = read_launches()
+    coverage = sched.profile_ring.snapshot()["coverage"]
+    counters = sched.metrics.snapshot()
+    sched.close()
+    bad = oversubscribed_nodes(api)
+    fallbacks = counters.get("scheduler_backend_fallbacks_total", 0)
+    backends = sorted({m.backend for m in metrics})
+    if bad or fallbacks or backends != ["cuda"]:
+        raise SystemExit(f"controller_e2e: {bad} oversubscribed nodes, {fallbacks} fallbacks, backends {backends}")
+    drains = [r["prior_bind_drain_s"] for r in waves[1:]] + [drain]
+    med = statistics.median
+    return {
+        "phase": "controller_e2e", "pods_per_wave": len(template), "nodes": len(base.nodes),
+        "bound_pods": 20_000, "setup_s": setup_s, "cold_wall_s": rows[0]["wall_s"], "cold_bound": rows[0]["bound"],
+        "reference_bound": len(reference.bindings),
+        "wave_wall_median_s": med(r["wall_s"] for r in waves), "wave_wall_min_s": min(r["wall_s"] for r in waves),
+        "wave_sync_median_s": med(r["sync_s"] for r in waves), "wave_pack_median_s": med(r["pack_s"] for r in waves),
+        "wave_solve_median_s": med(r["solve_s"] for r in waves), "wave_bind_median_s": med(r["bind_s"] for r in waves),
+        "wave_bind_drain_median_s": med(drains), "wave_bound": [r["bound"] for r in waves],
+        "wave_upload_bytes": [r["upload_bytes"] for r in waves],
+        "churn_pods": churn, "churn_wall_median_s": med(r["wall_s"] for r in churn_rows),
+        "churn_bound": [r["bound"] for r in churn_rows], "churn_upload_bytes": [r["upload_bytes"] for r in churn_rows],
+        "final_bind_drain_s": final_drain, "attribution_coverage": coverage,
+        "profiled_wave": dict(split, choose_launches=prof_launches), "choose_launches_all_cycles": launches,
+        "cycles": len(metrics), "oversubscribed_nodes": bad, "backend_fallbacks": fallbacks, "backends": backends,
+        "nvidia_smi": smi,
+    }
+
+
+def run_settled(api, make_sched) -> dict:
+    """Run the Scheduler ``make_sched(api)`` makes until settled, as the CLI
+    does; the pod → node map, the cycle count, the bound count, the choose
+    launches and the backends the cycles report."""
+    sched = make_sched(api)
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        metrics = sched.run(until_settled=True)
+    finally:
+        sched.close()
+    seconds = time.perf_counter() - t0
+    placement = {f"{p.metadata.namespace or 'default'}/{p.metadata.name}": p.spec.node_name if p.spec else None
+                 for p in api.list_pods()}
+    return {"placement": placement, "cycles": len(metrics), "bound": sum(m.bound for m in metrics),
+            "launches": read_launches(), "seconds": seconds, "backends": sorted({m.backend for m in metrics})}
+
+
+def loaded_api(nodes: list, pods: list):
+    api = FakeApiServer()
+    api.load(nodes, pods)
+    return api
+
+
+PARITY_CASES = ("mixed", "topology", "constrained_topology")
+# The choose instance each case's cycles launch on the card: #2, #1t, #2t.
+PARITY_KERNEL = {"mixed": "launches_constrained", "topology": "launches_topo",
+                 "constrained_topology": "launches_constrained_topo"}
+PARITY_PROFILE = PROFILES["throughput"].with_(pod_block=8192, max_rounds=64)
+
+
+def parity_case(name: str, device: str) -> tuple:
+    """(loaded API server, scheduler factory) of one ``controller_parity``
+    case on ``device``: the CLI's mixed workload at 20,000 × 2,000 built as
+    the CLI builds it (its defaults for ``--bound-pods``, ``--seed``,
+    ``--profile`` and ``--policy``); bench.py's topology cluster at 8,192 ×
+    512; that shape with the constrained row's fractions and gangs
+    (synth, topology-labelled)."""
+    if name == "mixed":
+        args = cli_mod.build_parser().parse_args(
+            ["--device", device, "--nodes", "2000", "--pods", "20000", "--workload", "mixed", "--no-delta"])
+        return cli_mod.synthetic_api(args), lambda api: cli_mod.make_scheduler(args, api, cli_mod.make_cli_backend(args))
+    if name == "topology":
+        nodes, pods, _ = topology_objects(8192, 512, seed=0)
+    else:
+        snap = synth_cluster(n_nodes=512, n_pending=8192, seed=0, gang_fraction=0.35, **CONS_FRACTIONS)
+        label_topology(snap.nodes)
+        nodes, pods = snap.nodes, snap.pods
+    return loaded_api(nodes, pods), lambda api: Scheduler(api, CudaBackend(device=device), profile=PARITY_PROFILE)
+
+
+def cpu_reference() -> None:
+    """The CPU half of ``controller_parity``, run in a child process beside
+    the card half: prints one JSON line of each case's placement, cycles,
+    bound count and seconds."""
+    logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
+    torch.set_num_threads(4)
+    out = {}
+    for name in PARITY_CASES:
+        run = run_settled(*parity_case(name, "cpu"))
+        out[name] = {k: run[k] for k in ("placement", "cycles", "bound", "seconds", "backends")}
+    print(json.dumps(out), flush=True)
+
+
+def controller_parity(smi: str) -> None:
+    """Card against CPU through the controller, to settlement, on
+    :data:`PARITY_CASES`; the CPU half runs in a child process (without a
+    visible card) while the card half and the ``cli`` phase run here."""
+    with tempfile.TemporaryFile("w+") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.cpu_reference()"],
+            cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=err, text=True,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        )
+        try:
+            card = {name: run_settled(*parity_case(name, "cuda")) for name in PARITY_CASES}
+            cli_rec = cli_phase(smi, card["mixed"]["bound"])
+            out, _ = child.communicate(timeout=900)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if child.returncode != 0:
+            err.seek(0)
+            raise SystemExit(f"controller_parity: the CPU run failed ({child.returncode}): {err.read()[-3000:]}")
+    cpu_runs = json.loads(out.strip().splitlines()[-1])
+    for name in PARITY_CASES:
+        c, r = card[name], cpu_runs[name]
+        equal = c["placement"] == r["placement"] and c["cycles"] == r["cycles"]
+        rec = {"phase": "controller_parity", "case": name, "pods": len(c["placement"]), "equal": equal,
+               "cycles": c["cycles"], "bound": c["bound"], "card_seconds": c["seconds"],
+               "cpu_seconds": r["seconds"], "card_launches": c["launches"], "backends": c["backends"],
+               "nvidia_smi": smi}
+        emit(rec)
+        if not equal or c["backends"] != ["cuda"]:
+            raise SystemExit(f"controller_parity {name}: card and CPU differ (cycles {c['cycles']} / "
+                             f"{r['cycles']}, bound {c['bound']} / {r['bound']})")
+        if c["launches"][PARITY_KERNEL[name]] == 0:
+            raise SystemExit(f"controller_parity {name}: the card run launched no {PARITY_KERNEL[name]} "
+                             f"({c['launches']})")
+    emit(cli_rec)
+
+
+def cli_phase(smi: str, expected_bound: int) -> dict:
+    """The port's CLI on the card in a subprocess, on the mixed workload of
+    ``controller_parity``; its summary's ``bound_total`` must equal that
+    phase's card run."""
+    cmd = [sys.executable, "-m", "tpu_scheduler_torch.cli", "--backend", "cuda", "--nodes", "2000", "--pods",
+           "20000", "--workload", "mixed", "--no-delta", "--log-level", "ERROR"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not summary.get("summary") or summary.get("bound_total") != expected_bound:
+        raise SystemExit(f"cli: rc {proc.returncode}, bound_total {summary.get('bound_total')} (expected "
+                         f"{expected_bound}); stderr tail: {proc.stderr[-2000:]}")
+    return {"phase": "cli", "command": " ".join(cmd[1:]), "seconds": seconds, "cycles": summary["cycles"],
+            "bound_total": summary["bound_total"], "unschedulable_last": summary["unschedulable_last"],
+            "nvidia_smi": smi}
 
 
 def main() -> int:
@@ -1718,6 +2027,13 @@ def main() -> int:
           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "invariants": "ok", "nvidia_smi": smi})
     emit(topology_breakdown(tbackend, tflag, throughput))
     del tcl, tflag, tset, miss_res, hit_res, res, blind, tbackend
+    torch.cuda.empty_cache()
+
+    # ---- the controller over CudaBackend -----------------------------------
+    logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)  # per-pod requeue lines
+    emit(controller_e2e(smi))
+    torch.cuda.empty_cache()
+    controller_parity(smi)
     torch.cuda.empty_cache()
 
     # ---- the bisection kernels (experiments) -------------------------------

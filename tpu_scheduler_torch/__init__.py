@@ -10,6 +10,8 @@ kernels of ``csrc/choose.cu`` on the card, and an upload cache keyed by
 host-array identity); the same cycle sharded over a (dp, tp) mesh of
 devices (``parallel.sharded.ShardedBackend``, topology-blind as in the JAX
 package); the choose kernel's bisection kernels (``ops/bisect.py``,
-``csrc/bisect.cu``, driven by ``experiments/``); and the controller's host
-packing and predicates (``ops.pack`` repacks, ``core.predicates``).
+``csrc/bisect.cu``, driven by ``experiments/``); and the controller above
+them — ``runtime.controller.Scheduler`` with its reflector, in-process API
+server, resilience, metrics, events, tracing and profiler, full-wave cycles
+only — and its CLI, ``python -m tpu_scheduler_torch.cli``.
 """

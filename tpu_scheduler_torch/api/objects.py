@@ -3,10 +3,11 @@ that ``testing.synth_cluster`` and ``ops/pack.pack_snapshot`` touch, copied so
 the port imports nothing of the JAX package.
 
 Objects are plain dataclasses; the tensor path never touches them per pod.
-The manifest serializers (``pod_to_dict``, ``node_to_dict``), ``Binding``,
-``ObjectReference`` and ``PodDisruptionBudget`` are the controller's; the
-manifest parsers (``Pod.from_dict``, ``Node.from_dict``) wait for the
-controller slice of the port.
+The manifest serializers (``pod_to_dict``, ``node_to_dict``) and parsers
+(``Pod.from_dict``, ``Node.from_dict``, ``PodDisruptionBudget.from_dict``),
+``Binding`` and ``ObjectReference`` are the controller's; the parsers also
+carry a cluster across from the JAX package (``convert.
+cluster_from_manifests``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,18 @@ _uid_counter = itertools.count(1)
 
 def _next_uid() -> str:
     return f"uid-{next(_uid_counter)}"
+
+
+def _parse_resource_version(rv) -> "int | str":
+    """Kubernetes resourceVersion is an opaque string; keep it numeric when
+    it parses (the in-repo servers use ints) and opaque otherwise — every
+    consumer (change detection, signatures) only needs equality."""
+    if rv is None or rv == "":
+        return 0
+    try:
+        return int(rv)
+    except (TypeError, ValueError):
+        return str(rv)
 
 
 @dataclass
@@ -272,6 +285,128 @@ class Pod:
     def name(self) -> str:
         return self.metadata.name
 
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "Pod":
+        meta = d.get("metadata", {})
+        spec_d = d.get("spec")
+        spec = None
+        if spec_d is not None:
+            containers = [
+                Container(
+                    name=c.get("name", ""),
+                    resources=ResourceRequirements(
+                        requests=(c.get("resources") or {}).get("requests"),
+                        limits=(c.get("resources") or {}).get("limits"),
+                    )
+                    if c.get("resources") is not None
+                    else None,
+                )
+                for c in spec_d.get("containers") or []
+            ]
+            def parse_expressions(selector: Mapping[str, Any] | None) -> list[LabelSelectorRequirement] | None:
+                exprs = (selector or {}).get("matchExpressions")
+                if not exprs:
+                    return None
+                return [
+                    LabelSelectorRequirement(
+                        key=e.get("key", ""),
+                        operator=e.get("operator", ""),
+                        values=e.get("values"),
+                    )
+                    for e in exprs
+                ]
+
+            def parse_term(t: Mapping[str, Any]) -> PodAntiAffinityTerm:
+                return PodAntiAffinityTerm(
+                    match_labels=(t.get("labelSelector") or {}).get("matchLabels"),
+                    topology_key=t.get("topologyKey", "kubernetes.io/hostname"),
+                    match_expressions=parse_expressions(t.get("labelSelector")),
+                )
+
+            def parse_weighted(entries) -> list[WeightedPodAffinityTerm] | None:
+                if not entries:
+                    return None
+                return [
+                    WeightedPodAffinityTerm(weight=int(e.get("weight", 1)), term=parse_term(e.get("podAffinityTerm") or {}))
+                    for e in entries
+                ]
+
+            paa_d = (spec_d.get("affinity") or {}).get("podAntiAffinity") or {}
+            anti_terms = paa_d.get("requiredDuringSchedulingIgnoredDuringExecution") or []
+            anti = [parse_term(t) for t in anti_terms] or None
+            pod_aff = None
+            pa_d = (spec_d.get("affinity") or {}).get("podAffinity") or {}
+            aff_terms = pa_d.get("requiredDuringSchedulingIgnoredDuringExecution") or []
+            if aff_terms:
+                pod_aff = [parse_term(t) for t in aff_terms]
+            pref_pod_aff = parse_weighted(pa_d.get("preferredDuringSchedulingIgnoredDuringExecution"))
+            pref_pod_anti = parse_weighted(paa_d.get("preferredDuringSchedulingIgnoredDuringExecution"))
+            spread = None
+            constraints = spec_d.get("topologySpreadConstraints") or []
+            if constraints:  # hard (DoNotSchedule) and soft (ScheduleAnyway) alike
+                spread = [
+                    TopologySpreadConstraint(
+                        topology_key=c.get("topologyKey", ""),
+                        max_skew=c.get("maxSkew", 1),
+                        match_labels=(c.get("labelSelector") or {}).get("matchLabels"),
+                        match_expressions=parse_expressions(c.get("labelSelector")),
+                        when_unsatisfiable=c.get("whenUnsatisfiable", "DoNotSchedule"),
+                    )
+                    for c in constraints
+                ]
+            node_aff = None
+            node_affinity_d = (spec_d.get("affinity") or {}).get("nodeAffinity") or {}
+            node_sel_terms = (
+                node_affinity_d.get("requiredDuringSchedulingIgnoredDuringExecution") or {}
+            ).get("nodeSelectorTerms") or []
+            if node_sel_terms:
+                node_aff = [NodeSelectorTerm(match_expressions=parse_expressions(t)) for t in node_sel_terms]
+            pref_aff = None
+            pref_terms = node_affinity_d.get("preferredDuringSchedulingIgnoredDuringExecution") or []
+            if pref_terms:
+                pref_aff = [
+                    PreferredSchedulingTerm(
+                        weight=int(t.get("weight", 1)),
+                        term=NodeSelectorTerm(match_expressions=parse_expressions(t.get("preference"))),
+                    )
+                    for t in pref_terms
+                ]
+            tolerations = [
+                Toleration(
+                    key=t.get("key", ""),
+                    operator=t.get("operator", "Equal"),
+                    value=t.get("value", ""),
+                    effect=t.get("effect", ""),
+                    toleration_seconds=t.get("tolerationSeconds"),
+                )
+                for t in spec_d.get("tolerations") or []
+            ] or None
+            spec = PodSpec(
+                containers=containers,
+                node_selector=spec_d.get("nodeSelector"),
+                node_name=spec_d.get("nodeName"),
+                priority=spec_d.get("priority", 0),
+                anti_affinity=anti,
+                pod_affinity=pod_aff,
+                preferred_pod_affinity=pref_pod_aff,
+                preferred_pod_anti_affinity=pref_pod_anti,
+                topology_spread=spread,
+                tolerations=tolerations,
+                node_affinity=node_aff,
+                preferred_node_affinity=pref_aff,
+                gang=(meta.get("labels") or {}).get("pod-group.scheduling.sigs.k8s.io") or spec_d.get("schedulingGang"),
+            )
+        status = PodStatus(phase=d.get("status", {}).get("phase", "Pending"))
+        obj_meta = ObjectMeta(
+            name=meta.get("name", ""),
+            namespace=meta.get("namespace"),
+            labels=meta.get("labels"),
+            resource_version=_parse_resource_version(meta.get("resourceVersion")),
+        )
+        if "uid" in meta:
+            obj_meta.uid = meta["uid"]
+        return Pod(metadata=obj_meta, spec=spec, status=status)
+
 
 @dataclass
 class NodeStatus:
@@ -294,6 +429,32 @@ class Node:
     @property
     def name(self) -> str:
         return self.metadata.name
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "Node":
+        meta = d.get("metadata", {})
+        status_d = d.get("status")
+        spec_d = d.get("spec")
+        spec = None
+        if spec_d is not None:
+            taints = [
+                Taint(key=t.get("key", ""), value=t.get("value", ""), effect=t.get("effect", "NoSchedule"))
+                for t in spec_d.get("taints") or []
+            ] or None
+            spec = NodeSpec(taints=taints, unschedulable=bool(spec_d.get("unschedulable", False)))
+        obj_meta = ObjectMeta(
+            name=meta.get("name", ""),
+            namespace=meta.get("namespace"),
+            labels=meta.get("labels"),
+            resource_version=_parse_resource_version(meta.get("resourceVersion")),
+        )
+        if "uid" in meta:
+            obj_meta.uid = meta["uid"]
+        return Node(
+            metadata=obj_meta,
+            status=NodeStatus(allocatable=status_d.get("allocatable")) if status_d else None,
+            spec=spec,
+        )
 
 
 def _selector_to_dict(match_labels, match_expressions) -> dict[str, Any] | None:
@@ -488,6 +649,18 @@ class PodResources:
             a = avail.extended or {}
             for k, v in self.extended.items():
                 if v > a.get(k, 0):
+                    return False
+        return True
+
+    def covers(self, need: "PodResources") -> bool:
+        """self ≥ need on every axis where need is positive (preemption's
+        freed-capacity test; negative/zero needs are already satisfied)."""
+        if need.cpu > self.cpu and need.cpu > 0 or need.memory > self.memory and need.memory > 0:
+            return False
+        if need.extended:
+            mine = self.extended or {}
+            for k, v in need.extended.items():
+                if v > 0 and v > mine.get(k, 0):
                     return False
         return True
 

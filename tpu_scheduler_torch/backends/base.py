@@ -33,9 +33,20 @@ class CycleResult:
 class SchedulingBackend(abc.ABC):
     name: str = "abstract"
 
+    # Whether a routed cycle may solve shards from concurrent threads.
+    # Mesh backends say False: their collectives must launch in one order.
+    supports_concurrent_shards: bool = True
+
     # Whether assign() consumes PackedCluster.topology (the gang locality
-    # term).
+    # term).  The controller attaches the tensors, and arms the cross-rack
+    # quality backstop, only for backends that say True.
     supports_topology: bool = False
+
+    def shard_for(self, index: int) -> "SchedulingBackend":
+        """Backend instance for the ``index``-th parallel shard of a routed
+        cycle (parallel/routing.py).  Default: this backend; device-owning
+        backends override to spread shards over their devices."""
+        return self
 
     @abc.abstractmethod
     def assign(self, packed: PackedCluster, profile: SchedulingProfile) -> tuple:

@@ -12,7 +12,9 @@ the constructor raises, and a CUDA runtime failure during a cycle raises
 Uploads are cached by host-array identity (``_put``, the JAX backend's
 ``_dev_cache``): a cycle over an unchanged array reuses its device copy.
 Per-cycle state (the constraint domain state, the gang placement counts)
-is never cached.  ``UPLOAD_BYTES`` counts the bytes of cache misses.
+is never cached.  ``UPLOAD_BYTES`` counts the bytes of cache misses, which
+also go to the profiler's transfer counter (``utils/profiler.
+record_transfer``, the controller's ``scheduler_device_transfer_bytes_total``).
 """
 
 from __future__ import annotations
@@ -29,13 +31,16 @@ from ..models.profiles import SchedulingProfile
 from ..ops.assign import assign_cycle, split_device_arrays
 from ..ops.choose import KernelError
 from ..ops.pack import PackedCluster
+from ..utils.profiler import record_transfer
 from .base import SchedulingBackend
 
 __all__ = ["CudaBackend", "make_backend", "UPLOAD_BYTES"]
 
 # Host→device bytes of upload-cache misses since the counter was last set
-# to 0 (the JAX backend records the same through record_transfer).
-UPLOAD_BYTES = 0
+# to 0, over every CudaBackend of the process (a routed cycle uploads from
+# several threads and shard backends at once).
+UPLOAD_BYTES = 0  # guarded-by: _UPLOAD_LOCK
+_UPLOAD_LOCK = threading.Lock()
 
 
 def _is_device_failure(e: RuntimeError) -> bool:
@@ -72,6 +77,21 @@ class CudaBackend(SchedulingBackend):
         self._dev_cache: dict[int, tuple[weakref.ref, torch.Tensor, weakref.finalize]] = {}
         self._dev_cache_cap = 512
         self._put_lock = threading.Lock()
+        self._shards: dict[int, CudaBackend] = {}  # device index -> routed-shard backend
+
+    def shard_for(self, index: int) -> "CudaBackend":
+        """Per-pool shard backend of a routed cycle: round-robin the shards
+        over the visible cards so their solves overlap (the JAX backend's
+        ``shard_for``).  On one card, or on the CPU, every shard is this
+        backend.  Called from the cycle's main thread only."""
+        if self.device.type != "cuda" or torch.cuda.device_count() <= 1:
+            return self
+        idx = index % torch.cuda.device_count()
+        if idx == (self.device.index if self.device.index is not None else torch.cuda.current_device()):
+            return self
+        if idx not in self._shards:
+            self._shards[idx] = CudaBackend(device=torch.device("cuda", idx))
+        return self._shards[idx]
 
     def _drop_dev_cache(self) -> None:
         """Forget every cached upload (after a device failure the buffers
@@ -99,7 +119,9 @@ class CudaBackend(SchedulingBackend):
                 del self._dev_cache[key]  # refresh recency
                 self._dev_cache[key] = ent
                 return ent[1]
-        UPLOAD_BYTES += int(arr.nbytes)
+        with _UPLOAD_LOCK:
+            UPLOAD_BYTES += int(arr.nbytes)
+        record_transfer(int(arr.nbytes))
         buf = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, copy=True)
         wr = weakref.ref(arr)
         fin = weakref.finalize(arr, self._evict, key, wr)

@@ -1,0 +1,410 @@
+"""CLI entry point of the PyTorch/CUDA port — the port of
+``tpu_scheduler/cli.py``: the same parser and flag names, with
+``--backend={cuda,cuda-sharded}`` and ``--device={cuda,cpu}``.
+
+The cluster is the in-process fake API server loaded with a synthetic
+workload.  Run on the card:
+
+    python -m tpu_scheduler_torch.cli --nodes 1000 --pods 10000
+
+and on the CPU, through the kernels' plain torch versions, only when asked:
+
+    python -m tpu_scheduler_torch.cli --device cpu --nodes 50 --pods 200
+
+Prints one JSON metrics line per cycle and a final summary line.  There is
+no fallback: without CUDA, ``--device cuda`` fails with the backend's
+``BackendUnavailable``.  Flags whose subsystem waits for a later item of
+the port (ROADMAP Queue 1) exit 2 naming the item; every cycle is a full
+wave until the delta engine is ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from .errors import BackendUnavailable
+from .models.profiles import PROFILES
+from .runtime.controller import ATTEMPTS, REQUEUE_SECONDS, Scheduler
+from .runtime.fake_api import FakeApiServer
+from .testing import synth_cluster
+from .utils.tracing import configure_logging
+
+# The CLI's mixed workload: every feature of the scheduler in one cluster.
+MIXED_WORKLOAD = dict(
+    selector_fraction=0.25,
+    anti_affinity_fraction=0.1,
+    spread_fraction=0.1,
+    tainted_fraction=0.15,
+    node_affinity_fraction=0.15,
+    soft_taint_fraction=0.15,
+    preferred_affinity_fraction=0.15,
+    schedule_anyway_fraction=0.1,
+    gang_fraction=0.1,
+    pod_affinity_fraction=0.1,
+    preferred_pod_affinity_fraction=0.15,
+    extended_fraction=0.15,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="tpu-scheduler-torch", description=__doc__)
+    p.add_argument(
+        "--backend",
+        choices=["cuda", "cuda-sharded"],
+        default="cuda",
+        help="scheduling backend; cuda-sharded runs the cycle over a dp×tp device mesh",
+    )
+    p.add_argument("--tp", type=int, default=None, help="cuda-sharded: tensor-parallel (nodes-axis) mesh width; dp gets the rest of the devices")
+    p.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help="where the backend runs: the card (default; no fallback) or, when asked, the CPU through the "
+        "kernels' plain torch versions",
+    )
+    p.add_argument(
+        "--distributed",
+        action="store_true",
+        help="multi-process meshes (not ported yet: ROADMAP Queue 1 item 7)",
+    )
+    p.add_argument("--policy", choices=["batch", "sample"], default="batch", help="batched cycle vs reference-style per-pod random sampling")
+    p.add_argument("--profile", choices=sorted(PROFILES), default="default", help="scoring profile")
+    p.add_argument(
+        "--profile-file",
+        default=None,
+        metavar="PATH",
+        help="load the scoring profile from a tuned-profile JSON artifact (learn/profiles schema; "
+        "overrides --profile; --driver/--max-rounds/--pool-key/--preemption still apply on top)",
+    )
+    p.add_argument(
+        "--driver",
+        choices=["auto", "monolithic", "epochs"],
+        default=None,
+        help="auction driver override (profiles.SchedulingProfile.driver); the port runs one eager driver for every value",
+    )
+    p.add_argument("--max-rounds", type=int, default=None, help="auction round cap override (profiles default: 32)")
+    p.add_argument("--leader-elect", action="store_true", help="lease-based leader election: only the lease holder schedules; standbys keep caches warm and take over on leader loss")
+    p.add_argument("--lease-name", default="tpu-scheduler", help="leader-election lease name")
+    p.add_argument("--lease-duration", type=float, default=15.0, help="lease TTL (seconds) — the leader lease, or each shard lease with --shards")
+    p.add_argument("--identity", default=None, help="leader-election holder identity (default: derived from pid)")
+    p.add_argument(
+        "--shards",
+        type=int,
+        default=1,
+        help="active-active sharded control plane; only 1 until it is ported (ROADMAP Queue 1 item 8)",
+    )
+    p.add_argument(
+        "--replica-id",
+        default=None,
+        help="this replica's identity for shard-lease ownership (default: --identity, then pid-derived)",
+    )
+    p.add_argument(
+        "--preemption",
+        action="store_true",
+        help="evict strictly-lower-priority pods when a cycle leaves higher-priority pods resource-starved (kube PostFilter)",
+    )
+    p.add_argument(
+        "--pool-key",
+        default=None,
+        help="node label partitioning the cluster into per-pool scheduling shards (expert-parallel routing; pods pinning the label route to their pool's shard)",
+    )
+    p.add_argument(
+        "--topology-file",
+        default=None,
+        help="JSON interconnect-topology spec (levels + optional node->domain map, topology/model.py) for "
+        "rank-aware gang co-placement; default: auto-detect from the topology.tpu-scheduler/{slice,rack} node labels",
+    )
+    p.add_argument(
+        "--no-topology",
+        action="store_true",
+        help="disable topology-aware gang scoring even when nodes carry topology labels",
+    )
+    p.add_argument("--nodes", type=int, default=100, help="synthetic cluster: node count")
+    p.add_argument("--pods", type=int, default=1000, help="synthetic cluster: pending pods")
+    p.add_argument("--bound-pods", type=int, default=0, help="synthetic cluster: pre-bound pods")
+    p.add_argument("--seed", type=int, default=0, help="synthetic cluster seed")
+    p.add_argument(
+        "--workload",
+        default="plain",
+        choices=["plain", "mixed"],
+        help="synthetic workload shape: 'mixed' exercises the full feature surface "
+        "(selectors, taints, node+pod affinity hard+soft, spread, gangs, extended TPU-chip requests)",
+    )
+    p.add_argument("--cycles", type=int, default=None, help="max scheduling cycles (default: run until settled)")
+    p.add_argument("--daemon", action="store_true", help="serve forever: never exit on settle, idle between cycles (reference main.rs:146-149)")
+    p.add_argument(
+        "--pipeline",
+        action="store_true",
+        help="overlap binding POSTs with the next cycle's pack+solve via an assumed-bindings cache (host<->device pipelining; plain unconstrained cycles — routed/constrained cycles bind synchronously)",
+    )
+    p.add_argument("--interval", type=float, default=1.0, help="daemon mode: idle sleep between settled cycles (seconds)")
+    p.add_argument("--attempts", type=int, default=ATTEMPTS, help="sample policy: candidates per pod (reference ATTEMPTS)")
+    p.add_argument(
+        "--requeue-seconds",
+        type=float,
+        default=REQUEUE_SECONDS,
+        help="failed-pod backoff base: per-failure-class exponential delays scale on it (runtime/resilience.py); 0 retries immediately",
+    )
+    p.add_argument(
+        "--breaker-open-seconds",
+        type=float,
+        default=5.0,
+        help="circuit breaker: first open window after tripping (escalates x2 while probes fail, capped at 60s)",
+    )
+    p.add_argument(
+        "--breaker-window",
+        type=int,
+        default=20,
+        help="circuit breaker: rolling bind/watch outcome window the failure ratio trips on",
+    )
+    p.add_argument(
+        "--no-breaker",
+        action="store_true",
+        help="disable the API circuit breaker (every bind POSTs immediately, brownout or not)",
+    )
+    p.add_argument(
+        "--flush-capacity",
+        type=int,
+        default=4096,
+        help="degraded mode: max binding POSTs deferred while the breaker is open (overflow requeues instead)",
+    )
+    p.add_argument(
+        "--no-delta",
+        action="store_true",
+        help="run every cycle as a full-wave pack+solve (the port's only mode until the delta engine is ported)",
+    )
+    p.add_argument(
+        "--rebalance",
+        action="store_true",
+        help="the background rebalancer (not ported yet: ROADMAP Queue 1 item 9)",
+    )
+    p.add_argument(
+        "--rebalance-every",
+        type=int,
+        default=8,
+        metavar="CYCLES",
+        help="rebalancer cadence: cycles between background ticks (with --rebalance)",
+    )
+    p.add_argument(
+        "--rebalance-batch",
+        type=int,
+        default=8,
+        metavar="N",
+        help="max migrations issued per rebalancer tick (whole-node drain groups; with --rebalance)",
+    )
+    p.add_argument(
+        "--autoscale",
+        action="store_true",
+        help="the closed-loop autoscaler (not ported yet: ROADMAP Queue 1 item 9)",
+    )
+    p.add_argument(
+        "--catalog-file",
+        default=None,
+        metavar="PATH",
+        help="JSON SKU catalog for --autoscale (name/cpu/mem_gi/hourly_cost/quota/provision_s/...); default: built-in catalog",
+    )
+    p.add_argument("--log-level", default="INFO")
+    p.add_argument(
+        "--log-format",
+        choices=["text", "json"],
+        default="text",
+        help="log line format: 'json' emits one machine-parseable JSON object per line (ts, level, logger, msg, cycle)",
+    )
+    p.add_argument(
+        "--events-buffer",
+        type=int,
+        default=4096,
+        help="flight recorder capacity (max pod timelines retained for the /debug routes); 0 disables recording",
+    )
+    p.add_argument("--profile-dir", default=None, help="write a torch.profiler Chrome trace of the cycles here")
+    p.add_argument("--checkpoint-dir", default=None, help="checkpoint restore/save (not ported yet: ROADMAP Queue 1 item 4b)")
+    p.add_argument("--http-port", type=int, default=None, help="the HTTP surface (not ported yet: ROADMAP Queue 1 item 4b)")
+    p.add_argument("--api-server", default=None, help="a remote k8s-style REST endpoint (not ported yet: ROADMAP Queue 1 item 4b)")
+    p.add_argument("--api-token", default=None, help="bearer token for --api-server")
+    p.add_argument(
+        "--kubeconfig",
+        default=None,
+        help="a real cluster through a kubeconfig (not ported yet: ROADMAP Queue 1 item 4b)",
+        nargs="?",
+        const="",
+    )
+    p.add_argument("--kube-context", default=None, help="kubeconfig context to use (default: current-context)")
+    p.add_argument(
+        "--allow-exec-auth",
+        action="store_true",
+        help="allow kubeconfig exec: credential plugins (spawns the configured helper binary; off by default)",
+    )
+    return p
+
+
+def unported_flags(args) -> list[str]:
+    """The given flags whose subsystem is not ported yet, each with its
+    ROADMAP Queue 1 item."""
+    asked = [
+        ("--kubeconfig", args.kubeconfig is not None, "4b"),
+        ("--api-server", bool(args.api_server), "4b"),
+        ("--http-port", args.http_port is not None, "4b"),
+        ("--checkpoint-dir", bool(args.checkpoint_dir), "4b"),
+        ("--distributed", args.distributed, "7"),
+        ("--shards > 1", args.shards > 1, "8"),
+        ("--rebalance", args.rebalance, "9"),
+        ("--autoscale", args.autoscale, "9"),
+    ]
+    return [f"{flag} (ROADMAP Queue 1 item {item})" for flag, on, item in asked if on]
+
+
+def make_cli_backend(args):
+    """The backend the flags ask for, on the card unless ``--device cpu``."""
+    import torch
+
+    if args.backend == "cuda-sharded":
+        from .parallel.mesh import make_mesh
+        from .parallel.sharded import ShardedBackend
+
+        if args.device == "cpu":
+            # Eight virtual CPU devices, as the JAX package's test harness.
+            return ShardedBackend(mesh=make_mesh([torch.device("cpu")] * 8, tp=args.tp))
+        return ShardedBackend(tp=args.tp)
+    from .backends.cuda import CudaBackend
+
+    return CudaBackend(device=args.device)
+
+
+def synthetic_api(args) -> FakeApiServer:
+    """The in-process API server loaded with the synthetic cluster the
+    flags describe."""
+    api = FakeApiServer()
+    snap = synth_cluster(
+        n_nodes=args.nodes,
+        n_pending=args.pods,
+        n_bound=args.bound_pods,
+        seed=args.seed,
+        **(MIXED_WORKLOAD if args.workload == "mixed" else {}),
+    )
+    api.load(snap.nodes, snap.pods)
+    return api
+
+
+def make_scheduler(args, api, backend) -> Scheduler:
+    """The Scheduler the flags describe, over ``api`` and ``backend``."""
+    if args.profile_file:
+        from .models.profiles import SchedulingProfile
+
+        profile = SchedulingProfile.from_file(args.profile_file)
+    else:
+        profile = PROFILES[args.profile]
+    if args.driver is not None:
+        profile = profile.with_(driver=args.driver)
+    if args.max_rounds is not None:
+        profile = profile.with_(max_rounds=args.max_rounds)
+    if args.pool_key:
+        profile = profile.with_(pool_key=args.pool_key)
+    if args.preemption:
+        profile = profile.with_(preemption=True)
+    from .runtime.resilience import BreakerConfig
+
+    breaker_config = BreakerConfig(
+        window=args.breaker_window,
+        open_seconds=args.breaker_open_seconds,
+        # A ratio above 1 can never be reached: --no-breaker keeps the
+        # machinery (metrics) but never trips it.
+        failure_ratio=2.0 if args.no_breaker else BreakerConfig.failure_ratio,
+    )
+    if args.no_topology:
+        topology = None
+    elif args.topology_file:
+        from .topology.model import load_topology_file
+
+        topology = load_topology_file(args.topology_file)
+    else:
+        topology = "auto"
+    return Scheduler(
+        api,
+        backend,
+        profile=profile,
+        policy=args.policy,
+        topology=topology,
+        attempts=args.attempts,
+        requeue_seconds=args.requeue_seconds,
+        pipeline=args.pipeline,
+        leader_elect=args.leader_elect,
+        identity=args.replica_id or args.identity,
+        lease_name=args.lease_name,
+        lease_duration=args.lease_duration,
+        events_buffer=args.events_buffer,
+        breaker_config=breaker_config,
+        flush_capacity=args.flush_capacity,
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "sim":
+        print("tpu-scheduler-torch: the simulator is not ported yet (ROADMAP Queue 1 item 6)", file=sys.stderr)
+        return 2
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refused = unported_flags(args)
+    if refused:
+        parser.error("not ported yet: " + ", ".join(refused))
+    configure_logging(args.log_level, args.log_format)
+
+    from .utils.gc_tuning import enable_daemon_gc_tuning
+
+    enable_daemon_gc_tuning()
+    if not args.no_delta:
+        print(
+            json.dumps({"delta": False, "reason": "the delta engine is not ported yet (ROADMAP Queue 1 item 5); "
+                        "every cycle is a full wave"}),
+            file=sys.stderr,
+        )
+    try:
+        backend = make_cli_backend(args)
+    except BackendUnavailable as e:
+        print(f"tpu-scheduler-torch: {e}", file=sys.stderr)
+        return 1
+
+    api = synthetic_api(args)
+    sched = make_scheduler(args, api, backend)
+    if args.profile_dir:
+        sched.recorder.device_trace_dir = args.profile_dir
+
+    from .utils.tracing import device_profile
+
+    try:
+        with device_profile(args.profile_dir):
+            if args.daemon:
+                try:
+                    metrics = sched.run(max_cycles=args.cycles, daemon_interval=args.interval)
+                except KeyboardInterrupt:
+                    metrics = []  # per-cycle history not kept in daemon mode; counters survive below
+            else:
+                metrics = sched.run(max_cycles=args.cycles, until_settled=args.cycles is None)
+    except BackendUnavailable as e:
+        print(f"tpu-scheduler-torch: {e}", file=sys.stderr)
+        return 1
+    finally:
+        sched.close()  # drain in-flight pipelined binds, stop the worker
+
+    for m in metrics:
+        print(m.to_json())
+    counters = sched.metrics.snapshot()
+    summary = {
+        "summary": True,
+        "backend": args.backend,
+        "device": args.device,
+        "policy": args.policy,
+        "cycles": counters.get("scheduler_cycles_total", 0),
+        "bound_total": counters.get("scheduler_pods_bound_total", 0),
+        "unschedulable_last": metrics[-1].unschedulable if metrics else 0,
+        "counters": counters,
+    }
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

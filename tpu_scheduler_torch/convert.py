@@ -1,5 +1,11 @@
 """Carry cycle state across from the JAX package.
 
+``cluster_from_manifests`` carries the cluster itself: nodes, pods and
+PodDisruptionBudgets as k8s-shaped manifests (what the JAX package's
+``pod_to_dict``/``node_to_dict``/``PodDisruptionBudget.to_dict`` give), parsed
+into the port's objects — a scheduler has no weights, the cluster is the
+state both packages must start from.
+
 ``packed_from_arrays`` builds the port's ``PackedCluster`` from the JAX
 package's ``PackedCluster`` fields given as plain NumPy arrays and Python
 values (``device_arrays()``, names, vocabularies), and
@@ -20,11 +26,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .api.objects import Node, Pod, PodDisruptionBudget
 from .ops.constraints import ConstraintSet
 from .ops.pack import PackedCluster
 from .topology.locality import TopologySet
 
 __all__ = [
+    "cluster_from_manifests",
     "packed_from_arrays",
     "to_device",
     "constraints_from_arrays",
@@ -32,6 +40,20 @@ __all__ = [
     "topology_from_arrays",
     "topology_to_device",
 ]
+
+
+def cluster_from_manifests(
+    node_dicts, pod_dicts, pdb_dicts=()
+) -> tuple[list[Node], list[Pod], list[PodDisruptionBudget]]:
+    """(nodes, pods, pdbs) of the port parsed from manifests, in the given
+    order — ``FakeApiServer.load(nodes, pods)`` and ``create_pdb`` take
+    them as they are."""
+    return (
+        [Node.from_dict(d) for d in node_dicts],
+        [Pod.from_dict(d) for d in pod_dicts],
+        [PodDisruptionBudget.from_dict(d) for d in pdb_dicts],
+    )
+
 
 _COUNTS = ("n_terms", "n_pa_terms", "n_ppa_terms", "n_spread", "n_spread_soft")
 

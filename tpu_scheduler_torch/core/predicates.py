@@ -4,8 +4,10 @@ packing evaluates on the host (the hard taint effects, the node-affinity
 term match, the label-selector match of inter-pod terms and spread
 constraints, the topology-domain rule) and the predicate chain the
 controller explains unschedulable pods with (``check_node_validity``,
-``unschedulable_reason_counts``, ``dominant_reason``).  The soft scalar
-scorers of the JAX module are not copied: nothing in the port reads them.
+``unschedulable_reason_counts``, ``dominant_reason``), with the soft
+scalar scorers the controller's host-sequential constrained phase ranks
+nodes with (``preferred_affinity_score``, ``soft_taint_penalty``,
+``make_preferred_pod_affinity_scorer``, ``make_soft_spread_scorer``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ __all__ = [
     "make_affinity_checker",
     "make_pod_affinity_checker",
     "make_spread_checker",
+    "preferred_affinity_score",
+    "soft_taint_penalty",
+    "make_soft_spread_scorer",
+    "make_preferred_pod_affinity_scorer",
     "HARD_TAINT_EFFECTS",
     "node_selector_term_matches",
     "labels_match_selector",
@@ -325,6 +331,109 @@ def topology_spread_ok(
 ) -> bool:
     """Hard topology spread: one-shot :func:`make_spread_checker`."""
     return make_spread_checker(pod, snapshot, extra_placed)(node)
+
+
+# --- soft (scoring) terms ---------------------------------------------------
+
+
+def preferred_affinity_score(pod: Pod, node: Node) -> float:
+    """Sum of weights of the pod's matching preferredDuringScheduling node-
+    affinity terms (kube NodeAffinity scoring, pre-normalization)."""
+    terms = (pod.spec.preferred_node_affinity or []) if pod.spec is not None else []
+    if not terms:
+        return 0.0
+    labels = node.metadata.labels
+    return float(sum(t.weight for t in terms if node_selector_term_matches(t.term, labels)))
+
+
+def soft_taint_penalty(pod: Pod, node: Node) -> int:
+    """Count of the node's PreferNoSchedule taints the pod does not
+    tolerate (kube TaintToleration scoring, pre-normalization)."""
+    taints = (node.spec.taints or []) if node.spec is not None else []
+    if not taints:
+        return 0
+    tolerations = (pod.spec.tolerations or []) if pod.spec is not None else []
+    n = 0
+    for taint in taints:
+        if taint.effect != "PreferNoSchedule":
+            continue
+        if not any(t.tolerates(taint) for t in tolerations):
+            n += 1
+    return n
+
+
+def make_preferred_pod_affinity_scorer(
+    pod: Pod,
+    snapshot: ClusterSnapshot,
+    extra_placed: Sequence[tuple[Pod, Node]] = (),
+) -> Callable[[Node], float]:
+    """Soft inter-pod (anti-)affinity — kube InterPodAffinity scoring: every
+    placed pod (same namespace) in the candidate node's topology domain that
+    matches one of this pod's preferred terms contributes +weight (affinity)
+    or −weight (anti-affinity).  Term weights (1-100) are the only scale —
+    no global profile knob, matching the tensor path (ops/score.py).
+    Symmetric scoring from placed pods' own preferred terms is deliberately
+    out of scope (see WeightedPodAffinityTerm)."""
+    spec = pod.spec
+    weighted = [
+        *((w.weight, w.term) for w in ((spec.preferred_pod_affinity or []) if spec is not None else [])),
+        *((-w.weight, w.term) for w in ((spec.preferred_pod_anti_affinity or []) if spec is not None else [])),
+    ]
+    if not weighted:
+        return lambda node: 0.0
+    my_ns = pod.metadata.namespace
+    # Per (signed weight, term): match counts per domain of the term's key.
+    per_term: list[tuple[float, str, dict[tuple[str, str], int]]] = []
+    for w, t in weighted:
+        counts: dict[tuple[str, str], int] = {}
+        for q, qnode in chain(snapshot.placed_pods(), extra_placed):
+            if q.metadata.namespace == my_ns and term_matches(t, q.metadata.labels):
+                d = node_topology_domain(qnode, t.topology_key)
+                counts[d] = counts.get(d, 0) + 1
+        per_term.append((float(w), t.topology_key, counts))
+
+    def score(node: Node) -> float:
+        total = 0.0
+        for w, key, counts in per_term:
+            total += w * counts.get(node_topology_domain(node, key), 0)
+        return total
+
+    return score
+
+
+def make_soft_spread_scorer(
+    pod: Pod,
+    snapshot: ClusterSnapshot,
+    extra_placed: Sequence[tuple[Pod, Node]] = (),
+) -> Callable[[Node], float]:
+    """Penalty for the pod's ScheduleAnyway spread constraints: the count of
+    matching placed pods already in the node's domain (emptier domains score
+    higher).  Scaled by the profile's ``topology_weight`` at the call site."""
+    constraints = [c for c in ((pod.spec.topology_spread or []) if pod.spec is not None else []) if not c.is_hard]
+    if not constraints:
+        return lambda node: 0.0
+    my_ns = pod.metadata.namespace
+    per_constraint: list[tuple[str, dict[str, int]]] = []
+    for c in constraints:
+        counts: dict[str, int] = {}
+        for q, qnode in chain(snapshot.placed_pods(), extra_placed):
+            v = (qnode.metadata.labels or {}).get(c.topology_key)
+            if v is None or q.metadata.namespace != my_ns:
+                continue
+            if term_matches(c, q.metadata.labels):
+                counts[v] = counts.get(v, 0) + 1
+        per_constraint.append((c.topology_key, counts))
+
+    def penalty(node: Node) -> float:
+        labels = node.metadata.labels or {}
+        total = 0.0
+        for key, counts in per_constraint:
+            v = labels.get(key)
+            if v is not None:
+                total += counts.get(v, 0)
+        return total
+
+    return penalty
 
 
 # The pure (pod, node) predicates of the chain's middle, then the whole

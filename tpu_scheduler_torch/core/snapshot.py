@@ -1,9 +1,9 @@
 """ClusterSnapshot — an immutable, I/O-free view of cluster state.
 
-Copy of ``tpu_scheduler/core/snapshot.py`` less its topology attachment:
-every predicate is evaluated against one snapshot taken per scheduling
-cycle, and the snapshot is exactly what gets packed into device tensors
-(ops/pack.py, ops/constraints.py).  ``node_allocatable``,
+Copy of ``tpu_scheduler/core/snapshot.py``: every predicate is evaluated
+against one snapshot taken per scheduling cycle, and the snapshot is
+exactly what gets packed into device tensors (ops/pack.py,
+ops/constraints.py).  ``node_allocatable``,
 ``node_used_resources`` and ``node_net_available`` serve the scalar
 predicates (core/predicates.py), memoized per (immutable) snapshot.
 """
@@ -64,10 +64,14 @@ class ClusterSnapshot:
     _placed_with_terms: list = field(default_factory=list, compare=False, repr=False)
     # Lazy pending-pod memo (the snapshot is immutable, so one scan suffices).
     _pending: list | None = field(default=None, compare=False, repr=False)
+    # Compiled interconnect topology of THIS node set (topology/model
+    # .CompiledTopology), attached by the controller once per cycle so pack,
+    # scoring and the gang accounting read the same resolved hierarchy.
+    topology: object | None = field(default=None, compare=False, repr=False)
 
     @staticmethod
-    def build(nodes: Iterable[Node], pods: Iterable[Pod]) -> "ClusterSnapshot":
-        snap = ClusterSnapshot(nodes=tuple(nodes), pods=tuple(pods))
+    def build(nodes: Iterable[Node], pods: Iterable[Pod], topology: object | None = None) -> "ClusterSnapshot":
+        snap = ClusterSnapshot(nodes=tuple(nodes), pods=tuple(pods), topology=topology)
         by_name = {n.name: n for n in snap.nodes}
         for p in snap.pods:
             if p.spec is not None and p.spec.node_name is not None:
@@ -78,6 +82,11 @@ class ClusterSnapshot:
                     if p.spec.anti_affinity:
                         snap._placed_with_terms.append((p, node))
         return snap
+
+    def attach_topology(self, compiled) -> None:
+        """Attach a compiled topology after the build (the dataclass is
+        frozen; the field is cache-like state, as the ``_pending`` memo)."""
+        object.__setattr__(self, "topology", compiled)
 
     def placed_pods(self) -> list:
         """All (pod, node) placements onto nodes present in the snapshot."""

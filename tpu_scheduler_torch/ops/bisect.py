@@ -26,7 +26,7 @@ launches.  The experiments that drive them at the scripts' shape are
 from __future__ import annotations
 
 import ctypes
-import functools
+import threading
 
 import torch
 
@@ -65,9 +65,8 @@ def build_bisect_library():
     return build_library(_SOURCE, _LIB_NAME)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _, _ = build_bisect_library()
+def bind_bisect_library(path) -> ctypes.CDLL:
+    """Load a built bisection library and declare its launcher's C types."""
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
@@ -78,6 +77,20 @@ def _library() -> ctypes.CDLL:
     lib.tsched_bisect_error_string.argtypes = [ctypes.c_int]
     lib.tsched_bisect_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_LIB_LOCK = threading.Lock()
+_LIB: list = []  # guarded-by: _LIB_LOCK — the bound library, once built
+
+
+def _library() -> ctypes.CDLL:
+    """The bound bisection library, built once whatever the number of
+    threads whose first launch comes at the same moment."""
+    if not _LIB:
+        with _LIB_LOCK:
+            if not _LIB:
+                _LIB.append(bind_bisect_library(build_bisect_library()[0]))
+    return _LIB[0]
 
 
 def _fracs(req, info):

@@ -57,17 +57,18 @@ larger offsets are refused.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import numpy as np
 import torch
 
+from ..utils.profiler import record_kernel_build
 from .constraints import blocked_block
 from .masks import feasibility_block
 from .score import score_block
@@ -156,7 +157,7 @@ def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> 
     if lib.exists():
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{lib_name}.{os.getpid()}"
+    tmp = out_dir / f".{lib_name}.{os.getpid()}.{threading.get_ident()}"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-fmad=false",  # no FMA contraction: results must round like the unfused reference tree
@@ -168,6 +169,7 @@ def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> 
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
+    record_kernel_build(seconds)
     return lib, seconds, proc.stdout + proc.stderr
 
 
@@ -189,9 +191,19 @@ def bind_library(path: pathlib.Path) -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
+_LIB_LOCK = threading.Lock()
+_LIB: list = []  # guarded-by: _LIB_LOCK — the bound library, once built
+
+
 def _library() -> ctypes.CDLL:
-    return bind_library(build_library()[0])
+    """The bound choose library, built at the first launch of any thread
+    and only once: the routed cycle's threads may all launch first at the
+    same moment."""
+    if not _LIB:
+        with _LIB_LOCK:
+            if not _LIB:
+                _LIB.append(bind_library(build_library()[0]))
+    return _LIB[0]
 
 
 def _check_offset(node_offset: int) -> int:

@@ -1,0 +1,308 @@
+"""Reflectors — watch-fed in-memory caches of cluster state.
+
+Equivalent of the reference's node reflector (``src/main.rs:133-139``:
+``reflector::store`` + ``watcher`` + backoff) and its Pending-pod controller
+feed (``main.rs:141-144``), generalised to both kinds.  The node cache is
+what becomes the device-resident node tensor (SURVEY.md §3.3); the pod cache
+replaces the reference's per-candidate live list (``predicates.rs:21-34``)
+so predicates never do I/O.
+
+Watch errors follow the reference's resilience contract (``main.rs:136-138``:
+``.backoff(ExponentialBackoff)`` + errors dropped from the stream): a failed
+poll emits no events, keeps the last-known store, and schedules the next
+attempt with exponential backoff + jitter instead of crashing the loop.
+
+Port: a copy of ``tpu_scheduler/runtime/reflector.py``, unchanged (pure host code).
+"""
+
+from __future__ import annotations
+
+import http.client
+import random
+import time
+import zlib
+
+from ..api.objects import Node
+from ..core.snapshot import ClusterSnapshot
+from .fake_api import ApiError, Watch, WatchEvent
+
+__all__ = ["Reflector", "ClusterReflector"]
+
+# Transient faults a watch poll may surface: API-level errors (5xx relists),
+# any transport failure (ConnectionError/BrokenPipeError/timeouts are all
+# OSError subclasses), and protocol-level garbage — http.client raises
+# IncompleteRead/BadStatusLine (HTTPException, NOT OSError) when a server
+# dies mid-response.
+_TRANSIENT = (ApiError, OSError, http.client.HTTPException)
+
+
+class Reflector:
+    """Applies watch events to a keyed store (kube-runtime reflector::store)."""
+
+    def __init__(
+        self,
+        watch: Watch,
+        key_fn,
+        clock=time.monotonic,
+        backoff_initial: float = 0.5,
+        backoff_max: float = 30.0,
+        rng: random.Random | None = None,
+        on_event=None,
+    ):
+        self._watch = watch
+        self._key = key_fn
+        self._clock = clock
+        self._backoff_initial = backoff_initial
+        self._backoff_max = backoff_max
+        self._rng = rng or random.Random()
+        self._backoff = 0.0
+        self._retry_at = 0.0
+        self.store: dict = {}
+        self.events_seen = 0
+        self.errors_seen = 0
+        self.last_error: str | None = None
+        # Delta hook ``(key, prev_object_or_None, new_object_or_None)``,
+        # invoked per folded event — the incremental-snapshot index
+        # (ClusterReflector) consumes it; None keeps the plain store fold.
+        self._on_event = on_event
+
+    def sync(self) -> list[WatchEvent]:
+        """Drain the watch and fold events into the store; returns the events
+        (the ``touched_objects`` stream, main.rs:137).  On a transient watch
+        failure: no events, store unchanged, exponential backoff until the
+        next attempt (main.rs:136) — the error is counted, never raised."""
+        now = self._clock()
+        if now < self._retry_at:
+            return []
+        try:
+            events = self._watch.poll()
+        except _TRANSIENT as e:
+            self.errors_seen += 1
+            self.last_error = f"{type(e).__name__}: {e}"
+            self._backoff = min(self._backoff_max, self._backoff * 2.0 if self._backoff else self._backoff_initial)
+            # Full jitter in [backoff/2, backoff] — decorrelates relist storms.
+            self._retry_at = now + self._backoff * (0.5 + 0.5 * self._rng.random())
+            return []
+        self._backoff = 0.0
+        self._retry_at = 0.0
+        self.last_error = None  # recovered — don't report stale errors
+        for ev in events:
+            key = self._key(ev.object)
+            if ev.type == "DELETED":
+                prev = self.store.pop(key, None)
+                new = None
+            else:
+                prev = self.store.get(key)
+                new = ev.object
+                self.store[key] = new
+            if self._on_event is not None:
+                self._on_event(key, prev, new)
+            self.events_seen += 1
+        return events
+
+    @property
+    def healthy(self) -> bool:
+        """True when the last poll attempt succeeded (not in a backoff
+        window) — i.e. the store reflects a live watch, not stale state."""
+        return self._backoff == 0.0
+
+    def seconds_until_retry(self, now: float) -> float:
+        """Time until the backoff window opens (0 when healthy)."""
+        return max(0.0, self._retry_at - now) if not self.healthy else 0.0
+
+    def state(self) -> list:
+        """Snapshot of cached objects (reflector Store::state, main.rs:56)."""
+        return list(self.store.values())
+
+
+def _node_content_signature(node: Node) -> int:
+    """Stable content hash of the fields packing depends on — used when the
+    API server omits resourceVersion (every relist parses to rv=0), where an
+    rv-only signature would never change and the incremental-pack path would
+    keep scheduling against stale label/taint/cordon tensors.  crc32 of a
+    canonical repr (not ``hash()``) so the signature survives process
+    restarts (PYTHONHASHSEED) and checkpoint/resume."""
+    alloc = node.status.allocatable if node.status is not None else None
+    content = (
+        tuple(sorted((node.metadata.labels or {}).items())),
+        tuple((t.key, t.value, t.effect) for t in (node.spec.taints if node.spec is not None else ()) or ()),
+        bool(node.spec.unschedulable) if node.spec is not None else False,
+        tuple(sorted(alloc.items())) if alloc else (),
+    )
+    return zlib.crc32(repr(content).encode())
+
+
+class ClusterReflector:
+    """Node + pod reflectors combined into cycle snapshots."""
+
+    def __init__(self, api, clock=time.monotonic, rng: random.Random | None = None):
+        # ``rng`` seeds the backoff jitter of both reflectors — injectable so
+        # a simulated run (tpu_scheduler/sim) replays watch-failure recovery
+        # bit-identically; None keeps the decorrelated default.
+        self.api = api
+        self.nodes = Reflector(api.watch_nodes(), key_fn=lambda n: n.name, clock=clock, rng=rng, on_event=self._node_event)
+        self.pods = Reflector(
+            api.watch_pods(),
+            key_fn=lambda p: (p.metadata.namespace, p.metadata.name),
+            clock=clock,
+            rng=rng,
+            on_event=self._pod_event,
+        )
+        # name -> (node_obj, content_sig): per-object memo for the rv-less
+        # signature path.  Keyed by identity of the stored object (the
+        # reflector replaces objects only on MODIFIED events), holding the
+        # reference so an id() can never alias a freed node.
+        self._content_sigs: dict[str, tuple[Node, int]] = {}
+        # Incrementally-maintained placement index for snapshot(): node name
+        # -> list of BOUND pods on it.  A flagship snapshot rebuild walks
+        # 200k+ pods per cycle (~1.5 s host time, the e2e cycle's single
+        # largest fixed cost); folding watch deltas into this index keeps
+        # snapshot() at O(deltas) + one cheap copy-on-write pass.
+        self._by_node: dict[str, list] = {}
+        # Pod DELETE events since the last drain — the controller prunes its
+        # per-pod ledgers (backoff queue, assumed/deferred binds) from this
+        # stream so a pod deleted mid-backoff cannot leak its entry, even
+        # across standby cycles that deliberately skip the pending-set prune.
+        self._deleted_pods: list[tuple[str | None, str]] = []
+        # External pod-event listeners ``(key, prev, new)`` — the incremental
+        # delta engine (tpu_scheduler/delta) classifies watch deltas from
+        # this feed; every listener sees the same fold the snapshot index
+        # sees, in event order.
+        self._pod_listeners: list = []
+        # Batch pod-event listeners ``(events)``: instead of one Python call
+        # per event per listener, the cycle's events accumulate here and
+        # flush ONCE per sync() — at flagship scale a relist-heavy cycle
+        # folds tens of thousands of events, and the per-event dispatch was
+        # a measured PERF.md Round 8 cost.  Scalar listeners keep exact
+        # per-event order; the batch flush happens after the drain, which is
+        # the same point the delta engine consumed its buffer anyway.
+        self._pod_batch_listeners: list = []
+        self._pod_event_batch: list[tuple] = []
+        self._dirty = True  # anything changed since the last snapshot()
+        self._last_snap: ClusterSnapshot | None = None
+
+    def _node_event(self, key, prev, new) -> None:
+        self._dirty = True
+
+    def add_pod_listener(self, fn) -> None:
+        """Subscribe ``fn(key, prev, new)`` to the pod event fold."""
+        self._pod_listeners.append(fn)
+
+    def add_pod_batch_listener(self, fn) -> None:
+        """Subscribe ``fn(events)`` — one call per sync() with the drained
+        ``(key, prev, new)`` list, in event order."""
+        self._pod_batch_listeners.append(fn)
+
+    def _pod_event(self, key, prev, new) -> None:
+        self._dirty = True
+        for fn in self._pod_listeners:
+            fn(key, prev, new)
+        if self._pod_batch_listeners:
+            self._pod_event_batch.append((key, prev, new))
+        if new is None:
+            self._deleted_pods.append(key)  # (namespace, name)
+        prev_node = prev.spec.node_name if prev is not None and prev.spec is not None else None
+        new_node = new.spec.node_name if new is not None and new.spec is not None else None
+        if prev_node is not None and (prev_node != new_node or prev is not new):
+            lst = self._by_node.get(prev_node)
+            if lst is not None:
+                for i, q in enumerate(lst):  # identity removal — dataclass == is a deep compare
+                    if q is prev:
+                        del lst[i]
+                        break
+        if new_node is not None:
+            self._by_node.setdefault(new_node, []).append(new)
+
+    def sync(self) -> tuple[int, int]:
+        """Drain both watches; returns (node_events, pod_events).  Batch pod
+        listeners flush here — one call with the whole drained event list."""
+        out = len(self.nodes.sync()), len(self.pods.sync())
+        if self._pod_event_batch:
+            batch, self._pod_event_batch = self._pod_event_batch, []
+            for fn in self._pod_batch_listeners:
+                fn(batch)
+        return out
+
+    def take_deleted_pods(self) -> list[tuple[str | None, str]]:
+        """Drain the (namespace, name) keys of pods deleted since the last
+        call — the controller's per-pod-ledger prune feed."""
+        out, self._deleted_pods = self._deleted_pods, []
+        return out
+
+    @property
+    def errors_seen(self) -> int:
+        return self.nodes.errors_seen + self.pods.errors_seen
+
+    @property
+    def healthy(self) -> bool:
+        return self.nodes.healthy and self.pods.healthy
+
+    @property
+    def last_error(self) -> str | None:
+        """Most relevant error: an *unhealthy* reflector's error first, so a
+        long-recovered hiccup on one watch never masks the live outage on
+        the other."""
+        for r in (self.pods, self.nodes):
+            if not r.healthy and r.last_error:
+                return r.last_error
+        return self.pods.last_error or self.nodes.last_error
+
+    def seconds_until_retry(self, now: float) -> float:
+        """Longest backoff window among unhealthy reflectors (0 if healthy)."""
+        return max(self.nodes.seconds_until_retry(now), self.pods.seconds_until_retry(now))
+
+    def snapshot(self) -> ClusterSnapshot:
+        """Current cluster snapshot, built INCREMENTALLY: the per-event hooks
+        keep a bound-pods-by-node index folded up to date, so this walks only
+        bound pods (copy-on-write lists) instead of re-classifying every pod
+        — same result as ``ClusterSnapshot.build`` over the stores
+        (tests/test_review_fixes_r5.py pins the equivalence), ~5x cheaper at
+        flagship scale, and FREE when nothing changed since the last call."""
+        if not self._dirty and self._last_snap is not None:
+            return self._last_snap
+        nodes = tuple(self.nodes.state())
+        snap = ClusterSnapshot(nodes=nodes, pods=tuple(self.pods.store.values()))
+        by_name = {n.name: n for n in nodes}
+        pbn = snap._pods_by_node
+        placed = snap._placed
+        placed_terms = snap._placed_with_terms
+        for name, lst in self._by_node.items():
+            if not lst:
+                continue
+            pbn[name] = list(lst)  # COW: future watch events must not mutate this snapshot
+            node = by_name.get(name)
+            if node is not None:
+                for p in lst:
+                    placed.append((p, node))
+                    if p.spec.anti_affinity:
+                        placed_terms.append((p, node))
+        self._dirty = False
+        self._last_snap = snap
+        return snap
+
+    def _cached_content_signature(self, node: Node) -> int:
+        hit = self._content_sigs.get(node.name)
+        if hit is not None and hit[0] is node:
+            return hit[1]
+        sig = _node_content_signature(node)
+        self._content_sigs[node.name] = (node, sig)
+        return sig
+
+    def node_set_signature(self) -> tuple[tuple[str, int], ...]:
+        """(name, resourceVersion-or-content-hash) per node — cheap change
+        detection for deciding between full repack and incremental avail
+        refresh.  Falls back to a content hash for any node whose
+        resourceVersion is absent/0 (remote servers that don't echo it);
+        content hashes are memoized per stored object so the steady state
+        stays O(nodes) dict lookups, not O(nodes) serializations."""
+        sigs = tuple(
+            sorted(
+                (n.name, n.metadata.resource_version or self._cached_content_signature(n))
+                for n in self.nodes.state()
+            )
+        )
+        if len(self._content_sigs) > 2 * len(sigs):
+            # Drop memo entries for deleted nodes once they dominate.
+            live = {n.name for n in self.nodes.state()}
+            self._content_sigs = {k: v for k, v in self._content_sigs.items() if k in live}
+        return sigs
