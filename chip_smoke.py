@@ -56,7 +56,27 @@ bisection kernels) and, for each main path:
   to settlement on the card and on the CPU and holds the pod → node maps
   and cycle counts equal; ``cli`` runs ``python -m tpu_scheduler_torch.cli``
   on the card on the mixed workload and holds its bound total to the card
-  run's;
+  run's (these three run full waves, ``delta=False``);
+* delta engine — ``controller_delta`` is bench.py's ``incremental_row`` on
+  the port at the flagship size (a cold full wave, 10 steady delta cycles
+  of 1,000 fresh pods, 3 bursts of 10,000, one more steady cycle under
+  torch.profiler), each cycle's phases, dirty set, kernel #1 launches,
+  upload bytes and solved node axis, checked for oversubscription,
+  fallbacks and a delta solve that launched no kernel; ``delta_shadow``
+  and ``controller_delta_parity`` share two runs at 5,000 × 500 with
+  500-pod churn and ``delta_shadow_every=1`` (the CLI's mixed workload,
+  whose constrained delta cycles the shadow check skips by its contract,
+  and that workload less its cross-node constraints) on the card (zero
+  shadow mismatches) and on the CPU in the parity child (the same bindings
+  and ``delta.stats()`` every cycle);
+  ``kernel_vs_plain_delta`` replays kernels #1 and #2 on operands captured
+  from those delta cycles;
+* HTTP boundary — ``controller_http`` serves bench.py's CPU e2e cluster
+  (10,000 × 1,000, 2,000 bound) over ``HttpApiServer`` on 127.0.0.1, runs
+  the CLI on the card through a kubeconfig with a bearer token until
+  settled and holds its bindings to an in-process Scheduler's; then a
+  ``--checkpoint-dir`` run of one cycle and a restarted run that restores
+  (one "restore" escalation) and ends with the same bindings;
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
   ``bench_wide_kernel.py`` (kernel #3) at their full shape, and each kernel
@@ -161,9 +181,10 @@ def block_args(arrays: dict, lo: int, hi: int) -> list:
     return pods + [active, ranks] + [arrays[k] for k in NODE_KEYS]
 
 
-def compare(name: str, args: list, weights, salt: int = 0) -> tuple[dict, tuple]:
+def compare(name: str, args: list, weights, salt: int = 0, **extra) -> tuple[dict, tuple]:
     """Kernel vs plain on the same CUDA tensors: has and choice equal
-    everywhere, best equal bit for bit where has holds."""
+    everywhere, best equal bit for bit where has holds.  ``extra`` joins
+    the printed record."""
     kc, kh, kb = choose_block(*args, weights, salt)
     pc, ph, pb = choose_block_plain(*args, weights, salt)
     torch.cuda.synchronize()
@@ -174,7 +195,7 @@ def compare(name: str, args: list, weights, salt: int = 0) -> tuple[dict, tuple]
         "phase": "kernel_vs_plain", "case": name, "B": int(args[0].shape[0]), "N": int(args[10].shape[0]),
         "R": int(args[0].shape[1]), "widths": [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)], "salt": salt,
         "jitter": float(np.asarray(weights, dtype=np.float32)[2]), "feasible_pods": int(ph.sum()),
-        "equal": bool(equal), "max_abs_err": err,
+        "equal": bool(equal), "max_abs_err": err, **extra,
     }
     emit(rec)
     if not equal:
@@ -1456,7 +1477,8 @@ def parity_case(name: str, device: str) -> tuple:
         snap = synth_cluster(n_nodes=512, n_pending=8192, seed=0, gang_fraction=0.35, **CONS_FRACTIONS)
         label_topology(snap.nodes)
         nodes, pods = snap.nodes, snap.pods
-    return loaded_api(nodes, pods), lambda api: Scheduler(api, CudaBackend(device=device), profile=PARITY_PROFILE)
+    return loaded_api(nodes, pods), lambda api: Scheduler(api, CudaBackend(device=device), profile=PARITY_PROFILE,
+                                                          delta=False)
 
 
 def cpu_reference() -> None:
@@ -1469,13 +1491,19 @@ def cpu_reference() -> None:
     for name in PARITY_CASES:
         run = run_settled(*parity_case(name, "cpu"))
         out[name] = {k: run[k] for k in ("placement", "cycles", "bound", "seconds", "backends")}
+    for w in DELTA_RUNS:
+        run = delta_churn_run("cpu", w)
+        out[f"delta_{w}"] = {k: run[k] for k in ("cycles", "placement", "seconds")}
     print(json.dumps(out), flush=True)
 
 
-def controller_parity(smi: str) -> None:
+def controller_parity(smi: str):
     """Card against CPU through the controller, to settlement, on
-    :data:`PARITY_CASES`; the CPU half runs in a child process (without a
-    visible card) while the card half and the ``cli`` phase run here."""
+    :data:`PARITY_CASES`, and through the delta engine on
+    :func:`delta_churn_run` (``delta_shadow`` and ``controller_delta_parity``);
+    the CPU half runs in a child process (without a visible card) while the
+    card half and the ``cli`` phase run here.  Returns the packed cluster
+    of a constrained delta cycle's solve on the card."""
     with tempfile.TemporaryFile("w+") as err:
         child = subprocess.Popen(
             [sys.executable, "-c", "import chip_smoke; chip_smoke.cpu_reference()"],
@@ -1485,6 +1513,8 @@ def controller_parity(smi: str) -> None:
         try:
             card = {name: run_settled(*parity_case(name, "cuda")) for name in PARITY_CASES}
             cli_rec = cli_phase(smi, card["mixed"]["bound"])
+            delta_card = {w: delta_churn_run("cuda", w, keep=lambda packed: packed.constraints is not None)
+                          for w in DELTA_RUNS}
             out, _ = child.communicate(timeout=900)
         finally:
             if child.poll() is None:
@@ -1509,6 +1539,8 @@ def controller_parity(smi: str) -> None:
             raise SystemExit(f"controller_parity {name}: the card run launched no {PARITY_KERNEL[name]} "
                              f"({c['launches']})")
     emit(cli_rec)
+    delta_parity_check(delta_card, cpu_runs, smi)
+    return delta_card["mixed"]["kept"]
 
 
 def cli_phase(smi: str, expected_bound: int) -> dict:
@@ -1528,6 +1560,377 @@ def cli_phase(smi: str, expected_bound: int) -> dict:
     return {"phase": "cli", "command": " ".join(cmd[1:]), "seconds": seconds, "cycles": summary["cycles"],
             "bound_total": summary["bound_total"], "unschedulable_last": summary["unschedulable_last"],
             "nvidia_smi": smi}
+
+
+# ---- the delta engine, checkpoints and the HTTP boundary -----------------
+
+
+class RecordingBackend(CudaBackend):
+    """``CudaBackend`` that notes the shape of every packed cluster it
+    solves and keeps the first one that ``keep(packed)`` accepts (the
+    operands of ``kernel_vs_plain_delta``); the solve is CudaBackend's."""
+
+    def __init__(self, keep=None, **kw):
+        super().__init__(**kw)
+        self.keep = keep
+        self.kept = None
+        self.shapes: list = []
+
+    def assign(self, packed, profile):
+        self.shapes.append((packed.padded_pods, packed.padded_nodes, len(packed.node_names)))
+        if self.kept is None and self.keep is not None and self.keep(packed):
+            self.kept = packed
+        return super().assign(packed, profile)
+
+
+def delta_row(sched, label: str, seconds: float, m, before: dict, node_axes: list) -> dict:
+    """One delta-phase cycle's record: wall, the phases, the engine's plan,
+    kernel #1 launches, upload bytes and the solved node axes."""
+    launches = {k: v - before[k] for k, v in read_launches().items()}
+    stats = sched.delta.stats()
+    return {
+        "phase": "controller_delta_cycle", "cycle": label, "wall_s": seconds, "sync_s": m.sync_seconds,
+        "delta_s": m.delta_seconds, "pack_s": m.pack_seconds, "solve_s": m.solve_seconds,
+        "bind_s": m.bind_seconds, "slo_s": m.slo_seconds, "other_s": m.other_seconds, "pending": m.pending,
+        "bound": m.bound, "unschedulable": m.unschedulable, "rounds": m.rounds,
+        "dirty": stats["dirty_sizes"][-1] if stats["dirty_sizes"] and sched._delta_plan is not None else None,
+        "full_solve": sched._delta_plan is None, "choose_launches": launches,
+        "upload_bytes": cuda_backend_mod.UPLOAD_BYTES, "node_axes": node_axes,
+    }
+
+
+def controller_delta(smi: str) -> tuple[dict, object]:
+    """bench.py's ``incremental_row`` on the port at the flagship size: the
+    Scheduler over ``CudaBackend`` with the delta engine (the default), a
+    cold full wave over 100,000 pending pods × 10,000 nodes × 20,000 bound,
+    then 10 steady cycles of 1,000 fresh pods (template seed 1, renamed; as
+    many pods of the first wave and the previous arrivals retired off the
+    clock), 3 bursts of 10,000, and one more steady cycle under
+    torch.profiler.  Returns the record and the packed cluster of a steady
+    cycle's solve (its compacted node axis when compaction paid)."""
+    from tpu_scheduler_torch.utils.profiler import compile_stats
+
+    t0 = time.perf_counter()
+    pods, nodes = 100_000, 10_000
+    base = synth_cluster(n_nodes=nodes, n_pending=pods, n_bound=20_000, seed=0)
+    wave = synth_cluster(n_nodes=nodes, n_pending=pods, n_bound=0, seed=1).pending_pods()
+    api = FakeApiServer()
+    api.load(base.nodes, base.pods)
+    retire_pool = [p for p in base.pods if p.spec is not None and p.spec.node_name is None]
+    setup_s = time.perf_counter() - t0
+    profile = PROFILES["throughput"].with_(pod_block=8192, max_rounds=64)
+    steady_n = 5  # the steady cycle whose solve kernel_vs_plain_delta replays
+    backend = RecordingBackend()
+    sched = Scheduler(api, backend, profile=profile, requeue_seconds=0.0)
+    if sched.delta is None:
+        raise SystemExit("controller_delta: the Scheduler runs without the delta engine")
+    zero_launches()
+    state = {"prev": [], "retire_from": 0, "wave_n": 0}
+    rows: list = []
+
+    def churn(n: int) -> None:
+        """Off the clock: retire the previous arrivals and ``n`` pods of the
+        first wave, arrive ``n`` fresh pods."""
+        w = state["wave_n"] = state["wave_n"] + 1
+        for p in state["prev"]:
+            api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+        rf = state["retire_from"]
+        for p in retire_pool[rf:rf + n]:
+            api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+        state["retire_from"] = rf + n
+        state["prev"] = renamed(wave[:n], f"i{w}")
+        for p in state["prev"]:
+            api.create_pod(p)
+
+    def cycle(label: str):
+        cuda_backend_mod.UPLOAD_BYTES = 0
+        before = read_launches()
+        n0 = len(backend.shapes)
+        c0 = time.perf_counter()
+        m = sched.run_cycle()
+        row = delta_row(sched, label, time.perf_counter() - c0, m, before, backend.shapes[n0:])
+        emit(row)
+        rows.append(row)
+        if row["dirty"] and m.solve_seconds > 0 and row["choose_launches"]["launches"] == 0:
+            raise SystemExit(f"controller_delta: cycle {label} solved {row['dirty']} dirty pods without "
+                             f"launching kernel #1 ({row['choose_launches']})")
+        return m
+
+    cycle("cold")
+    builds_cold = compile_stats()["builds"]
+    for i in range(10):
+        churn(1_000)
+        if i == steady_n:
+            backend.keep = lambda packed: packed.constraints is None
+        cycle(f"steady{i}")
+        backend.keep = None
+    for i in range(3):
+        churn(10_000)
+        cycle(f"burst{i}")
+    churn(1_000)
+    before = read_launches()
+    holder: list = []
+    wall_ms, dev_rows = profiled(lambda: holder.append(sched.run_cycle()))
+    split = device_split(wall_ms, dev_rows, "choose_kernel")
+    prof_launches = {k: v - before[k] for k, v in read_launches().items()}
+    launches = read_launches()
+    stats = sched.delta.stats()
+    counters = sched.metrics.snapshot()
+    sched.close()
+    bad = oversubscribed_nodes(api)
+    fallbacks = counters.get("scheduler_backend_fallbacks_total", 0)
+    if bad or fallbacks:
+        raise SystemExit(f"controller_delta: {bad} oversubscribed nodes, {fallbacks} fallbacks")
+    if launches["launches"] == 0:
+        raise SystemExit("controller_delta: the run launched kernel #1 no time")
+    steady = [r for r in rows if r["cycle"].startswith("steady")]
+    burst = [r for r in rows if r["cycle"].startswith("burst")]
+    sizes = sorted(stats["dirty_sizes"])
+    total = stats["delta_cycles"] + stats["full_solves"]
+    med = statistics.median
+
+    def pct(q: float) -> int:
+        return sizes[min(len(sizes) - 1, int(q * (len(sizes) - 1)))] if sizes else 0
+
+    rec = {
+        "phase": "controller_delta", "pods": pods, "nodes": nodes, "bound_pods": 20_000, "setup_s": setup_s,
+        "cold_wall_s": rows[0]["wall_s"], "cold_bound": rows[0]["bound"],
+        "steady_wall_median_s": med(r["wall_s"] for r in steady), "steady_wall_min_s": min(r["wall_s"] for r in steady),
+        "burst_wall_median_s": med(r["wall_s"] for r in burst),
+        "steady_phases_median_s": {ph: med(r[f"{ph}_s"] for r in steady)
+                                   for ph in ("sync", "delta", "pack", "solve", "bind", "slo", "other")},
+        "burst_phases_median_s": {ph: med(r[f"{ph}_s"] for r in burst)
+                                  for ph in ("sync", "delta", "pack", "solve", "bind", "slo", "other")},
+        "full_solve_fraction": stats["full_solves"] / total if total else None,
+        "escalations": stats["full_solve_reasons"], "dirty_p50": pct(0.50), "dirty_p95": pct(0.95),
+        "kernel_builds_after_cold": compile_stats()["builds"] - builds_cold,
+        "steady_launches": [r["choose_launches"]["launches"] for r in steady],
+        "steady_upload_bytes": [r["upload_bytes"] for r in steady],
+        "burst_upload_bytes": [r["upload_bytes"] for r in burst],
+        "steady_node_axes": [sorted({a[1] for a in r["node_axes"]}) for r in steady],
+        "node_compactions": counters.get("scheduler_delta_node_compactions_total", 0),
+        "profiled_cycle": dict(split, choose_launches=prof_launches, wall_s=wall_ms / 1e3,
+                               bound=holder[0].bound if holder else None),
+        "choose_launches_all_cycles": launches, "oversubscribed_nodes": bad, "backend_fallbacks": fallbacks,
+        "nvidia_smi": smi,
+    }
+    return rec, backend.kept
+
+
+# The two delta parity runs, at 5,000 pending pods × 500 nodes with 500-pod
+# churn of the same workload less its cross-node constraints: "mixed" is
+# the CLI's mixed workload, whose delta cycles are constrained (kernel #2),
+# and whose shadow checks the engine skips by its contract (the stall
+# mop-up runs outside the solver); "node_local" keeps every term that is
+# local to a node — selectors, taints, node affinity hard and soft, soft
+# taints, gangs, extended resources — so its delta cycles run kernel #1 and
+# every one is held against the full solve.
+DELTA_RUNS = ("mixed", "node_local")
+NODE_LOCAL = dict(selector_fraction=0.25, tainted_fraction=0.15, node_affinity_fraction=0.15,
+                  soft_taint_fraction=0.15, preferred_affinity_fraction=0.15, gang_fraction=0.1,
+                  extended_fraction=0.15)
+DELTA_KERNEL = {"mixed": "launches_constrained", "node_local": "launches"}
+
+
+def delta_churn_run(device: str, workload: str, keep=None) -> dict:
+    """One delta parity run on ``device`` through the CLI's Scheduler
+    (delta on, ``delta_shadow_every=1``): a cold cycle, then 5 churn cycles
+    that retire 500 pods of the first wave and the previous arrivals and
+    arrive 500 fresh pods.  Per cycle the bindings made (as a digest and a
+    count) and ``delta.stats()``; the final pod → node map."""
+    import hashlib
+
+    args = cli_mod.build_parser().parse_args(
+        ["--device", device, "--nodes", "500", "--pods", "5000", "--workload", "mixed" if workload == "mixed"
+         else "plain", "--log-level", "ERROR"])
+    if workload == "mixed":
+        api = cli_mod.synthetic_api(args)
+    else:
+        snap = synth_cluster(n_nodes=500, n_pending=5_000, seed=0, **NODE_LOCAL)
+        api = loaded_api(snap.nodes, snap.pods)
+    backend = RecordingBackend(device=device)
+    sched = cli_mod.make_scheduler(args, api, backend)
+    sched.delta_shadow_every = 1
+    template = synth_cluster(n_nodes=500, n_pending=2_500, seed=1, **NODE_LOCAL).pending_pods()
+    retire = [p for p in api.list_pods() if p.spec is not None and p.spec.node_name is None]
+    zero_launches()
+    prev: list = []
+    cycles = []
+    t0 = time.perf_counter()
+
+    def placed() -> dict:
+        return {f"{p.metadata.namespace or 'default'}/{p.metadata.name}": p.spec.node_name
+                for p in api.list_pods() if p.spec is not None and p.spec.node_name}
+
+    try:
+        for c in range(6):
+            if c:
+                backend.keep = keep  # the delta cycles' solves, not the cold wave's
+                for p in prev + retire[(c - 1) * 500:c * 500]:
+                    api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+                prev = renamed(template[(c - 1) * 500:c * 500], f"d{c}")
+                for p in prev:
+                    api.create_pod(p)
+            before = placed()
+            m = sched.run_cycle()
+            made = sorted((k, v) for k, v in placed().items() if before.get(k) != v)
+            cycles.append({"bound": m.bound, "unschedulable": m.unschedulable, "made": len(made),
+                           "digest": hashlib.sha256(json.dumps(made).encode()).hexdigest()[:16],
+                           "stats": sched.delta.stats()})
+    finally:
+        sched.close()
+    return {"cycles": cycles, "placement": placed(), "seconds": time.perf_counter() - t0,
+            "launches": read_launches(), "fallbacks": sched.metrics.snapshot().get(
+                "scheduler_backend_fallbacks_total", 0), "kept": backend.kept}
+
+
+def delta_parity_check(card: dict, cpu: dict, smi: str) -> None:
+    """``delta_shadow`` from the card runs, ``controller_delta_parity`` of
+    each card run against the CPU child's."""
+    finals = {w: card[w]["cycles"][-1]["stats"] for w in DELTA_RUNS}
+    checks = sum(f["shadow_checks"] for f in finals.values())
+    mismatches = sum(f["shadow_mismatches"] for f in finals.values())
+    emit({"phase": "delta_shadow", "pods": 5000, "nodes": 500, "cycles": 6,
+          "runs": {w: {k: f[k] for k in ("shadow_checks", "shadow_mismatches", "shadow_skipped", "delta_cycles",
+                                         "full_solve_reasons")} for w, f in finals.items()},
+          "shadow_checks": checks, "shadow_mismatches": mismatches, "nvidia_smi": smi})
+    if mismatches or not checks:
+        raise SystemExit(f"delta_shadow: {mismatches} mismatches in {checks} checks")
+    for w in DELTA_RUNS:
+        c, r = card[w], cpu[f"delta_{w}"]
+        equal = c["cycles"] == r["cycles"] and c["placement"] == r["placement"]
+        emit({"phase": "controller_delta_parity", "workload": w, "pods": 5000, "nodes": 500, "equal": equal,
+              "per_cycle_bound": [x["bound"] for x in c["cycles"]], "dirty_sizes": finals[w]["dirty_sizes"],
+              "card_seconds": c["seconds"], "cpu_seconds": r["seconds"], "card_launches": c["launches"],
+              "backend_fallbacks": c["fallbacks"], "nvidia_smi": smi})
+        if not equal or c["fallbacks"]:
+            diff = [i for i, (a, b) in enumerate(zip(c["cycles"], r["cycles"])) if a != b]
+            raise SystemExit(f"controller_delta_parity {w}: card and CPU differ at cycles {diff}")
+        if c["launches"][DELTA_KERNEL[w]] == 0:
+            raise SystemExit(f"controller_delta_parity {w}: the card run launched no {DELTA_KERNEL[w]} "
+                             f"({c['launches']})")
+
+
+def kernel_vs_plain_delta(plain_packed, cons_packed, profile, device) -> None:
+    """Kernels #1 and #2 held bit for bit against their plain versions on
+    operands captured from delta cycles: #1 at a steady cycle of
+    ``controller_delta`` (its dirty pod block against its compacted node
+    axis), #2 at a constrained delta cycle of ``delta_shadow``."""
+    if plain_packed is None or cons_packed is None:
+        raise SystemExit("kernel_vs_plain_delta: a delta cycle's solve was not captured")
+    arrays = to_device(plain_packed, device)
+    b = min(8192, plain_packed.padded_pods)
+    compare("delta_steady_block", block_args(arrays, 0, b), profile.weights(), salt=1, phase="kernel_vs_plain_delta",
+            kernel="choose", nodes_real=len(plain_packed.node_names), active=int(plain_packed.pod_valid[:b].sum()))
+    carrays, masks = constrained_round(cons_packed, device)
+    cb = min(8192, cons_packed.padded_pods)
+    compare_constrained("delta_constrained_block", block_args(carrays, 0, cb), block_cons(carrays, 0, cb), masks,
+                        PROFILES["default"].weights(), salt=1, phase="kernel_vs_plain_delta",
+                        kernel="choose_constrained", active=int(cons_packed.pod_valid[:cb].sum()))
+
+
+def write_kubeconfig(path: pathlib.Path, server: str, token: str) -> None:
+    """A kubeconfig for ``server`` with a bearer token, written as JSON — a
+    subset of YAML that kubectl reads, and that the port reads without
+    PyYAML."""
+    path.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "local", "user": "smoke"}}],
+        "clusters": [{"name": "local", "cluster": {"server": server}}],
+        "users": [{"name": "smoke", "user": {"token": token}}],
+    }))
+
+
+def http_cluster():
+    """bench.py's CPU e2e shape: 10,000 pending pods × 1,000 nodes × 2,000
+    bound, seed 0, in a fresh FakeApiServer."""
+    snap = synth_cluster(n_nodes=1_000, n_pending=10_000, n_bound=2_000, seed=0)
+    return loaded_api(snap.nodes, snap.pods)
+
+
+def placement_of(api) -> dict:
+    return {f"{p.metadata.namespace or 'default'}/{p.metadata.name}": p.spec.node_name if p.spec else None
+            for p in api.list_pods()}
+
+
+def cli_over_http(*flags: str) -> dict:
+    """``python -m tpu_scheduler_torch.cli`` on the card in a child process
+    with ``flags``: its summary, per-cycle lines and wall seconds."""
+    cmd = [sys.executable, "-m", "tpu_scheduler_torch.cli", "--log-level", "ERROR", *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines or not lines[-1].get("summary"):
+        raise SystemExit(f"controller_http: the CLI failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+    return {"summary": lines[-1], "cycles": lines[:-1], "seconds": seconds}
+
+
+def controller_http(smi: str, tmp: pathlib.Path) -> dict:
+    """The port's CLI on the card against an HTTP API server through a
+    kubeconfig with a bearer token, until settled with delta on: its
+    bindings, read back from the server, equal an in-process Scheduler's
+    with the CLI's profile and settings.  Then ``--checkpoint-dir``: a run
+    of one cycle saves at exit, a second restores (first cycle "restore")
+    and ends with the uninterrupted run's bindings."""
+    import importlib.util
+
+    from tpu_scheduler_torch.runtime.http_api import HttpApiServer
+
+    pyyaml = importlib.util.find_spec("yaml") is not None
+
+    api = http_cluster()
+    server = HttpApiServer(api).start()
+    cfg = tmp / "kubeconfig"
+    write_kubeconfig(cfg, server.base_url, "smoke-token")
+    try:
+        run = cli_over_http("--kubeconfig", str(cfg))
+        remote = placement_of(api)
+    finally:
+        server.stop()
+    args = cli_mod.build_parser().parse_args(["--log-level", "ERROR"])
+    local_api = http_cluster()
+    t0 = time.perf_counter()
+    sched = cli_mod.make_scheduler(args, local_api, CudaBackend())
+    try:
+        local_cycles = sched.run(until_settled=True)
+    finally:
+        sched.close()
+    local_s = time.perf_counter() - t0
+    equal = remote == placement_of(local_api)
+    ck = tmp / "checkpoint"
+    api2 = http_cluster()
+    server2 = HttpApiServer(api2).start()
+    write_kubeconfig(cfg, server2.base_url, "smoke-token")
+    try:
+        first = cli_over_http("--kubeconfig", str(cfg), "--checkpoint-dir", str(ck), "--cycles", "1")
+        second = cli_over_http("--kubeconfig", str(cfg), "--checkpoint-dir", str(ck))
+        restarted = placement_of(api2)
+    finally:
+        server2.stop()
+    restore = second["summary"]["counters"].get('scheduler_full_solves_total{reason="restore"}', 0)
+    restart_equal = restarted == remote
+    cyc = run["cycles"]
+    bind_s = sum(c["bind_seconds"] for c in cyc)
+    rec = {
+        "phase": "controller_http", "pods": 10_000, "nodes": 1_000, "bound_pods": 2_000, "pyyaml": pyyaml,
+        "kubeconfig_format": "json", "cli_seconds": run["seconds"], "cli_cycles": run["summary"]["cycles"],
+        "cli_bound": run["summary"]["bound_total"], "http_sync_first_s": cyc[0]["sync_seconds"] if cyc else None,
+        "http_sync_later_s": [c["sync_seconds"] for c in cyc[1:]], "bind_s": bind_s,
+        "bind_posts_per_s": run["summary"]["bound_total"] / bind_s if bind_s else None,
+        "cycle_walls_s": [c["wall_seconds"] for c in cyc], "in_process_seconds": local_s,
+        "in_process_cycles": len(local_cycles), "equal": equal,
+        "checkpoint_first_seconds": first["seconds"], "checkpoint_second_seconds": second["seconds"],
+        "checkpoint_first_cycles": first["summary"]["cycles"], "restart_cycles": second["summary"]["cycles"],
+        "restart_restore_escalations": restore, "restart_equal": restart_equal,
+        "fallbacks": [r["summary"]["counters"].get("scheduler_backend_fallbacks_total", 0)
+                      for r in (run, first, second)],
+        "nvidia_smi": smi,
+    }
+    if not equal or not restart_equal or restore != 1 or any(rec["fallbacks"]) or not run["summary"]["bound_total"]:
+        emit(rec)
+        raise SystemExit(f"controller_http: equal {equal}, restart_equal {restart_equal}, restore {restore}")
+    return rec
 
 
 def main() -> int:
@@ -2033,8 +2436,17 @@ def main() -> int:
     logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)  # per-pod requeue lines
     emit(controller_e2e(smi))
     torch.cuda.empty_cache()
-    controller_parity(smi)
+    delta_rec, steady_packed = controller_delta(smi)
+    emit(delta_rec)
     torch.cuda.empty_cache()
+    cons_packed = controller_parity(smi)
+    torch.cuda.empty_cache()
+    kernel_vs_plain_delta(steady_packed, cons_packed, throughput, device)
+    del steady_packed, cons_packed
+    build_dir = pathlib.Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        emit(controller_http(smi, pathlib.Path(tmp)))
 
     # ---- the bisection kernels (experiments) -------------------------------
     brecs = bisect_phase(device)

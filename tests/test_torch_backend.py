@@ -135,13 +135,16 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'tpu_scheduler.'))\n"
         "       or n == 'tpu_scheduler']\n"
-        "print(json.dumps({'bad': bad, 'n': len([n for n in sys.modules if n.startswith('tpu_scheduler_torch')])}))\n"
+        "print(json.dumps({'bad': bad, 'mods': sorted(n for n in sys.modules if n.startswith('tpu_scheduler_torch'))}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
-    assert report["n"] >= 15
+    assert len(report["mods"]) >= 15
+    for name in ("delta.engine", "delta.index", "delta.repack", "delta.state", "runtime.checkpoint",
+                 "runtime.http_api", "runtime.kubeconfig", "runtime.controller", "cli"):
+        assert f"tpu_scheduler_torch.{name}" in report["mods"], name
 
 
 def test_chip_smoke_refuses_without_cuda():

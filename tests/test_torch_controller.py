@@ -1,6 +1,7 @@
 """The controller slice as a whole: the port's ``Scheduler`` over
 ``CudaBackend(device="cpu")`` against the JAX package's ``Scheduler`` over
-``NativeBackend`` (both full-wave, ``delta=False``), each on its own
+``NativeBackend`` (both full-wave, ``delta=False``, and both through the
+delta engine, ``delta=True``), each on its own
 in-process API server loaded with one cluster — the JAX objects, and the
 same objects carried across as manifests (``convert.cluster_from_manifests``)
 — with one scripted clock and one seeded rng each.  Every scenario holds,
@@ -54,8 +55,9 @@ class Side:
     object crosses into it (identity for the JAX side, the manifests for the
     port)."""
 
-    def __init__(self, port: bool):
+    def __init__(self, port: bool, delta: bool = False):
         self.port = port
+        self.delta = delta
         self.clock = FakeClock()
         self.api = (fake_api if port else jax_fake_api).FakeApiServer(clock=self.clock)
         self.scheds = []
@@ -78,7 +80,7 @@ class Side:
         if breaker is not None:
             kw["breaker_config"] = (resilience if self.port else jax_resilience).BreakerConfig(**breaker)
         sched = mod.Scheduler(self.api, backend, profile=profile, clock=self.clock, rng=random.Random(kw.pop("seed", 7)),
-                              delta=False, **kw)
+                              delta=self.delta, **kw)
         self.scheds.append(sched)
         return sched
 
@@ -280,8 +282,8 @@ SCENARIOS = {
 }
 
 
-def _drive(scenario, port: bool) -> dict:
-    side = Side(port)
+def _drive(scenario, port: bool, delta: bool = False) -> dict:
+    side = Side(port, delta)
     mutate, cycles, step = SCENARIOS[scenario](side)
     per_cycle = []
     for c in range(cycles):
@@ -309,13 +311,15 @@ def _drive(scenario, port: bool) -> dict:
             "leases": side.api.list_lease_summaries()}
 
 
-@pytest.mark.parametrize("scenario", list(SCENARIOS))
-def test_controller_matches_jax_controller(scenario):
+@pytest.mark.parametrize("scenario,delta", [pytest.param(s, False, id=s) for s in SCENARIOS]
+                         + [pytest.param(s, True, id=f"{s}-delta") for s in SCENARIOS])
+def test_controller_matches_jax_controller(scenario, delta):
     """The port's controller over CudaBackend(device="cpu") against the JAX
-    controller over NativeBackend, exactly: per-cycle counts, the final pod →
-    node map, the counters without timings, the requeue deadlines, the
-    timeline kinds of a sample of pods, the leases."""
-    port, jax = _drive(scenario, True), _drive(scenario, False)
+    controller over NativeBackend, exactly, full-wave and through the delta
+    engine: per-cycle counts, the final pod → node map, the counters without
+    timings, the requeue deadlines, the timeline kinds of a sample of pods,
+    the leases."""
+    port, jax = _drive(scenario, True, delta), _drive(scenario, False, delta)
     assert port["per_cycle"] == jax["per_cycle"]
     assert port["placement"] == jax["placement"]
     for p_final, j_final in zip(port["finals"], jax["finals"], strict=True):
@@ -343,8 +347,7 @@ def test_controller_matches_jax_controller(scenario):
 def test_unported_options_are_refused_by_item():
     api = fake_api.FakeApiServer()
     backend = CudaBackend(device="cpu")
-    for kw, item in ((dict(delta=True), "item 5"), (dict(delta_shadow_every=4), "item 5"), (dict(shards=2), "item 8"),
-                     (dict(rebalance=True), "item 9"), (dict(autoscale=True), "item 9")):
+    for kw, item in ((dict(shards=2), "item 8"), (dict(rebalance=True), "item 9"), (dict(autoscale=True), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             controller.Scheduler(api, backend, **kw)
     sched = controller.Scheduler(api, backend)
@@ -412,9 +415,22 @@ def test_cli_matches_jax_cli():
     assert port["backend"] == "cuda" and port["device"] == "cpu" and port["bound_total"] > 0
 
 
-@pytest.mark.parametrize("flags", [["sim"], ["--kubeconfig"], ["--api-server", "http://localhost:1"],
-                                   ["--http-port", "0"], ["--checkpoint-dir", "ckpt"], ["--shards", "2"],
-                                   ["--rebalance"], ["--autoscale"], ["--distributed"]])
+def test_cli_delta_matches_jax_cli():
+    """Without ``--no-delta`` both CLIs run the delta engine: the same
+    cycles, bound total and last unschedulable count, and no notice that
+    the cycles are full waves."""
+    flags = [f for f in CLI_FLAGS if f != "--no-delta"]
+    port_proc = _cli("tpu_scheduler_torch.cli", "--device", "cpu", *flags)
+    port = _summary(port_proc)
+    jax = _summary(_cli("tpu_scheduler.cli", "--backend", "native", *flags))
+    for key in ("cycles", "bound_total", "unschedulable_last"):
+        assert port[key] == jax[key], key
+    assert port["counters"].get("scheduler_delta_cycles_total", 0) == jax["counters"].get(
+        "scheduler_delta_cycles_total", 0)
+    assert '"delta": false' not in port_proc.stderr
+
+
+@pytest.mark.parametrize("flags", [["sim"], ["--shards", "2"], ["--rebalance"], ["--autoscale"], ["--distributed"]])
 def test_cli_refuses_unported_flags(flags):
     proc = _cli("tpu_scheduler_torch.cli", *flags, "--device", "cpu", "--nodes", "2", "--pods", "2")
     assert proc.returncode == 2

@@ -3,19 +3,22 @@
 ``--backend={cuda,cuda-sharded}`` and ``--device={cuda,cpu}``.
 
 The cluster is the in-process fake API server loaded with a synthetic
-workload.  Run on the card:
+workload, or a Kubernetes-style API server over HTTP (``--api-server URL``
+with ``--api-token``, or ``--kubeconfig [PATH]``).  Run on the card:
 
     python -m tpu_scheduler_torch.cli --nodes 1000 --pods 10000
+    python -m tpu_scheduler_torch.cli --kubeconfig ~/.kube/config --http-port 8080
 
 and on the CPU, through the kernels' plain torch versions, only when asked:
 
     python -m tpu_scheduler_torch.cli --device cpu --nodes 50 --pods 200
 
-Prints one JSON metrics line per cycle and a final summary line.  There is
+Prints one JSON metrics line per cycle and a final summary line.  Cycles
+run through the delta engine unless ``--no-delta``; ``--checkpoint-dir``
+restores scheduler-local state at start and saves it at exit.  There is
 no fallback: without CUDA, ``--device cuda`` fails with the backend's
-``BackendUnavailable``.  Flags whose subsystem waits for a later item of
-the port (ROADMAP Queue 1) exit 2 naming the item; every cycle is a full
-wave until the delta engine is ported.
+``BackendUnavailable`` before any cycle.  Flags whose subsystem waits for
+a later item of the port (ROADMAP Queue 1) exit 2 naming the item.
 """
 
 from __future__ import annotations
@@ -173,7 +176,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--no-delta",
         action="store_true",
-        help="run every cycle as a full-wave pack+solve (the port's only mode until the delta engine is ported)",
+        help="disable the incremental delta-scheduling engine: every cycle runs the classic full-wave pack+solve",
     )
     p.add_argument(
         "--rebalance",
@@ -219,14 +222,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="flight recorder capacity (max pod timelines retained for the /debug routes); 0 disables recording",
     )
     p.add_argument("--profile-dir", default=None, help="write a torch.profiler Chrome trace of the cycles here")
-    p.add_argument("--checkpoint-dir", default=None, help="checkpoint restore/save (not ported yet: ROADMAP Queue 1 item 4b)")
-    p.add_argument("--http-port", type=int, default=None, help="the HTTP surface (not ported yet: ROADMAP Queue 1 item 4b)")
-    p.add_argument("--api-server", default=None, help="a remote k8s-style REST endpoint (not ported yet: ROADMAP Queue 1 item 4b)")
+    p.add_argument("--checkpoint-dir", default=None, help="restore scheduler-local state from / save it to this directory")
+    p.add_argument("--http-port", type=int, default=None, help="serve /metrics, /healthz, /debug/* (and, for the in-process cluster, the k8s REST routes) on this port")
+    p.add_argument("--api-server", default=None, help="schedule against a remote k8s-style REST endpoint instead of the in-process cluster")
     p.add_argument("--api-token", default=None, help="bearer token for --api-server")
     p.add_argument(
         "--kubeconfig",
         default=None,
-        help="a real cluster through a kubeconfig (not ported yet: ROADMAP Queue 1 item 4b)",
+        help="schedule against a real cluster: kubeconfig path (bare flag = $KUBECONFIG -> ~/.kube/config -> in-cluster serviceaccount)",
         nargs="?",
         const="",
     )
@@ -243,10 +246,6 @@ def unported_flags(args) -> list[str]:
     """The given flags whose subsystem is not ported yet, each with its
     ROADMAP Queue 1 item."""
     asked = [
-        ("--kubeconfig", args.kubeconfig is not None, "4b"),
-        ("--api-server", bool(args.api_server), "4b"),
-        ("--http-port", args.http_port is not None, "4b"),
-        ("--checkpoint-dir", bool(args.checkpoint_dir), "4b"),
         ("--distributed", args.distributed, "7"),
         ("--shards > 1", args.shards > 1, "8"),
         ("--rebalance", args.rebalance, "9"),
@@ -270,6 +269,23 @@ def make_cli_backend(args):
     from .backends.cuda import CudaBackend
 
     return CudaBackend(device=args.device)
+
+
+def make_api(args):
+    """The cluster the flags name: a kubeconfig's (``Client::try_default()``
+    resolution), an ``--api-server`` endpoint, or the synthetic one."""
+    if args.kubeconfig is not None:
+        from .runtime.http_api import RemoteApiAdapter
+        from .runtime.kubeconfig import client_from_kubeconfig
+
+        return RemoteApiAdapter(
+            client_from_kubeconfig(args.kubeconfig or None, context=args.kube_context, allow_exec=args.allow_exec_auth)
+        )
+    if args.api_server:
+        from .runtime.http_api import KubeApiClient, RemoteApiAdapter
+
+        return RemoteApiAdapter(KubeApiClient(args.api_server, token=args.api_token))
+    return synthetic_api(args)
 
 
 def synthetic_api(args) -> FakeApiServer:
@@ -336,7 +352,36 @@ def make_scheduler(args, api, backend) -> Scheduler:
         events_buffer=args.events_buffer,
         breaker_config=breaker_config,
         flush_capacity=args.flush_capacity,
+        delta=not args.no_delta,
     )
+
+
+def start_http(args, api, sched):
+    """The ``--http-port`` server: metrics, health and the debug routes, and
+    the cluster routes when the cluster is the in-process one (a remote API
+    server owns its cluster state)."""
+    from .runtime.http_api import HttpApiServer
+    from .utils.profiler import ReplicaLatencyRegistry, ReplicaProfileRegistry
+
+    local_api = None if (args.api_server or args.kubeconfig is not None) else api
+    # /debug/profile and /debug/latency serve through replica registries so
+    # multi-replica deployments can aggregate (?replica= selects); a single
+    # replica registers just itself.
+    profile_registry = ReplicaProfileRegistry()
+    profile_registry.register(sched.identity, sched.profile_snapshot)
+    latency_registry = ReplicaLatencyRegistry()
+    latency_registry.register(sched.identity, sched.latency_snapshot)
+    return HttpApiServer(
+        local_api,
+        metrics=sched.metrics,
+        recorder=sched.recorder,
+        resilience=sched.resilience_snapshot,
+        shards=sched.shards_snapshot,
+        profile=profile_registry.snapshot,
+        pending_ages=sched.pending_age_debug,
+        latency=latency_registry.snapshot,
+        port=args.http_port,
+    ).start()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -355,22 +400,29 @@ def main(argv: list[str] | None = None) -> int:
     from .utils.gc_tuning import enable_daemon_gc_tuning
 
     enable_daemon_gc_tuning()
-    if not args.no_delta:
-        print(
-            json.dumps({"delta": False, "reason": "the delta engine is not ported yet (ROADMAP Queue 1 item 5); "
-                        "every cycle is a full wave"}),
-            file=sys.stderr,
-        )
     try:
         backend = make_cli_backend(args)
     except BackendUnavailable as e:
         print(f"tpu-scheduler-torch: {e}", file=sys.stderr)
         return 1
 
-    api = synthetic_api(args)
+    api = make_api(args)
     sched = make_scheduler(args, api, backend)
     if args.profile_dir:
         sched.recorder.device_trace_dir = args.profile_dir
+
+    if args.checkpoint_dir:
+        from .runtime.checkpoint import restore_scheduler
+
+        restore_scheduler(sched, args.checkpoint_dir)
+    # Counters restored from a checkpoint are all-time totals; remember the
+    # starting point so the summary line reports *this run's* work.
+    counters_at_start = sched.metrics.snapshot()
+
+    http_server = None
+    if args.http_port is not None:
+        http_server = start_http(args, api, sched)
+        print(json.dumps({"http": True, "url": http_server.base_url}), file=sys.stderr)
 
     from .utils.tracing import device_profile
 
@@ -387,18 +439,28 @@ def main(argv: list[str] | None = None) -> int:
         print(f"tpu-scheduler-torch: {e}", file=sys.stderr)
         return 1
     finally:
+        if args.checkpoint_dir:
+            from .runtime.checkpoint import save_scheduler
+
+            save_scheduler(sched, args.checkpoint_dir)
+        if http_server is not None:
+            http_server.stop()
         sched.close()  # drain in-flight pipelined binds, stop the worker
 
     for m in metrics:
         print(m.to_json())
     counters = sched.metrics.snapshot()
+    # In daemon mode the per-cycle history is truncated (and empty after a
+    # Ctrl-C), so this run's totals come from counter deltas vs startup
+    # (checkpoint restore pre-loads all-time totals).
+    run_total = lambda name: counters.get(name, 0) - counters_at_start.get(name, 0)  # noqa: E731
     summary = {
         "summary": True,
         "backend": args.backend,
         "device": args.device,
         "policy": args.policy,
-        "cycles": counters.get("scheduler_cycles_total", 0),
-        "bound_total": counters.get("scheduler_pods_bound_total", 0),
+        "cycles": run_total("scheduler_cycles_total"),
+        "bound_total": run_total("scheduler_pods_bound_total"),
         "unschedulable_last": metrics[-1].unschedulable if metrics else 0,
         "counters": counters,
     }

@@ -352,9 +352,11 @@ def resource_vocab(snapshot: ClusterSnapshot, res_memo: dict | None = None) -> t
 
 
 def _alloc_and_used64(
-    snapshot: ClusterSnapshot, n_pad: int, res_vocab: tuple[str, ...], res_memo: dict | None = None
-) -> tuple[np.ndarray, np.ndarray]:
-    """Exact int64 (allocatable, bound-usage) per node, in base units."""
+    snapshot: ClusterSnapshot, n_pad: int, res_memo: dict | None = None, res_vocab: tuple[str, ...] = ("cpu", "memory")
+) -> tuple[np.ndarray, np.ndarray, dict[str, int]]:
+    """Exact int64 (allocatable, bound-usage) per node, in base units, and
+    the node name -> row map — shared by pack, the incremental avail refresh
+    and the delta engine's rebuild."""
     r = len(res_vocab)
     alloc64 = np.zeros((n_pad, r), dtype=np.int64)
     used64 = np.zeros((n_pad, r), dtype=np.int64)
@@ -392,7 +394,7 @@ def _alloc_and_used64(
                         j = ext_col.get(name)
                         if j is not None and v:
                             used64[i, j] += v
-    return alloc64, used64
+    return alloc64, used64, node_index
 
 
 def _fit_scales(alloc64: np.ndarray, req64: np.ndarray) -> tuple[int, ...]:
@@ -515,7 +517,7 @@ def pack_snapshot(
     a2_pad = round_up(len(pref_vocab), label_block)
 
     res_vocab = resource_vocab(snapshot, res_memo)
-    alloc64, used64 = _alloc_and_used64(snapshot, n_pad, res_vocab, res_memo)
+    alloc64, used64, _ = _alloc_and_used64(snapshot, n_pad, res_memo, res_vocab)
     node_labels = np.zeros((n_pad, l_pad), dtype=np.float32)
     node_taints = np.zeros((n_pad, t_pad), dtype=np.float32)
     node_taints_soft = np.zeros((n_pad, ts_pad), dtype=np.float32)
@@ -593,7 +595,7 @@ def repack_avail(packed: PackedCluster, snapshot: ClusterSnapshot) -> PackedClus
         raise ValueError("repack_avail requires an identical node set/order; run a full pack_snapshot instead")
     if resource_vocab(snapshot) != packed.res_vocab:
         raise ValueError("resource vocabulary changed; run a full pack_snapshot instead")
-    alloc64, used64 = _alloc_and_used64(snapshot, packed.padded_nodes, packed.res_vocab)
+    alloc64, used64, _ = _alloc_and_used64(snapshot, packed.padded_nodes, None, packed.res_vocab)
     _check_alloc_within_scales(alloc64, packed.res_scales)
     return replace(packed, node_avail=_avail_i32(alloc64, used64, packed.res_scales))
 
@@ -714,7 +716,7 @@ def repack_incremental(
     if alloc_used64 is None:
         if resource_vocab(snapshot, res_memo) != packed.res_vocab:
             raise ValueError("resource vocabulary changed; run a full pack_snapshot instead")
-        alloc64, used64 = _alloc_and_used64(snapshot, packed.padded_nodes, packed.res_vocab, res_memo)
+        alloc64, used64, _ = _alloc_and_used64(snapshot, packed.padded_nodes, res_memo, packed.res_vocab)
     else:
         alloc64, used64 = alloc_used64
         if alloc64.shape != (packed.padded_nodes, len(packed.res_vocab)) or used64.shape != alloc64.shape:

@@ -26,18 +26,17 @@ Shared semantics with the reference:
     port wires no fallback, so a CUDA failure surfaces instead of a cycle
     that quietly ran elsewhere.
 
-Port: every path of the JAX controller's full-wave cycle is kept — both
-policies, the incremental repack and the topology attach, the constrained
-phase and its host-sequential fallback, gang admission and the cross-rack
-backstop, routed cycles, pipelined binds, preemption and PDBs, NoExecute
-eviction, the breaker and the deferred flush, leader election, and the
-SLO, latency and profile snapshots.  The subsystems of later port items
-are refused with ``NotImplementedError``: the delta engine (``delta``,
-``delta_shadow_every``; ROADMAP Queue 1 item 5), the sharded control plane
-and the fleet (``shards > 1``; item 8), the rebalancer and the autoscaler
-(``rebalance``, ``autoscale``; item 9).  ``delta`` defaults to False: a
-full-wave cycle places the same pod set the delta engine's contract
-promises.
+Port: every path of the JAX controller's cycle is kept — both policies,
+the delta engine (``delta``, the default, with ``delta_shadow_every``) and
+the full wave it escalates to, the incremental repack and the topology
+attach, the constrained phase and its host-sequential fallback, gang
+admission and the cross-rack backstop, routed cycles, pipelined binds,
+preemption and PDBs, NoExecute eviction, the breaker and the deferred
+flush, leader election, and the SLO, latency and profile snapshots.  The
+subsystems of later port items are refused with ``NotImplementedError``:
+the sharded control plane and the fleet (``shards > 1``; ROADMAP Queue 1
+item 8), the rebalancer and the autoscaler (``rebalance``, ``autoscale``;
+item 9).
 """
 
 from __future__ import annotations
@@ -92,12 +91,10 @@ ATTEMPTS = 5  # reference main.rs:49
 REQUEUE_SECONDS = 300.0  # reference main.rs:124
 
 
-def _refuse_unported(delta, delta_shadow_every, shards, rebalance, autoscale) -> None:
+def _refuse_unported(shards, rebalance, autoscale) -> None:
     """Refuse the options whose subsystem waits for a later item of the
     port (ROADMAP Queue 1), naming the item."""
     asked = [
-        ("delta=True", bool(delta), 5, "the delta engine"),
-        ("delta_shadow_every > 0", int(delta_shadow_every) > 0, 5, "the delta engine"),
         ("shards > 1", int(shards) > 1, 8, "the sharded control plane and the fleet"),
         ("rebalance", rebalance is not None and rebalance is not False, 9, "the rebalancer"),
         ("autoscale", autoscale is not None and autoscale is not False, 9, "the autoscaler"),
@@ -212,7 +209,7 @@ class Scheduler:
         flush_capacity: int = 4096,
         backoff_policies: dict | None = None,
         topology="auto",
-        delta: bool = False,
+        delta: bool = True,
         delta_shadow_every: int = 0,
         rebalance=None,
         autoscale=None,
@@ -220,7 +217,7 @@ class Scheduler:
     ):
         if policy not in ("batch", "sample"):
             raise ValueError(f"unknown policy {policy!r} (expected 'batch' or 'sample')")
-        _refuse_unported(delta, delta_shadow_every, shards, rebalance, autoscale)
+        _refuse_unported(shards, rebalance, autoscale)
         self.api = api
         self.backend = backend
         self.profile = profile
@@ -380,6 +377,27 @@ class Scheduler:
         # so identity captures label changes too).
         self.topology = topology
         self._topo_cache: dict[tuple, tuple] = {}
+        # Incremental delta-scheduling engine (delta/): the steady-state
+        # cycle solves only the pods invalidated by watch deltas against
+        # carried residual-capacity tensors; the full-wave solve survives
+        # as the escalation path (cold start, takeover, node-set change,
+        # closure overflow, periodic epoch refresh).  Batch-policy only —
+        # the sample policy has no packed state to carry, and routed
+        # (--pool-key) cycles shard the snapshot in ways the per-node
+        # residual ledger does not model.
+        if delta and policy == "batch" and not profile.pool_key:
+            from ..delta import DeltaEngine
+
+            self.delta = DeltaEngine(metrics=self.metrics)
+            self.delta.attach(self.reflector)
+        else:
+            self.delta = None
+        # Shadow parity sampling: every Nth delta cycle also runs the
+        # full-wave solve and checks that both placed the same pod set.
+        self.delta_shadow_every = int(delta_shadow_every)
+        self._delta_plan = None  # the running cycle's DeltaPlan (or None = full wave)
+        self._delta_avail = None  # carried (alloc64, used64) for the next _pack, consume-once
+        self._cycle_bind_failures = 0  # bind-path failures this cycle (shadow comparability)
         if pipeline and profile.pool_key:
             logger.warning(
                 "--pipeline applies to plain unconstrained cycles; routed (--pool-key) and "
@@ -425,6 +443,13 @@ class Scheduler:
         reconcile error (errors.py mirrors ``error.rs:3-15``) stays a
         delayed retry, never a crash."""
         cls = self._requeue_reason_class(reason)
+        if cls in ("binding-failed", "api-error", "network-error"):
+            self._cycle_bind_failures += 1
+            if self.delta is not None:
+                # A committed placement that failed to stick (async bind
+                # failure, deferred overflow) must release its capacity in
+                # the carried residual ledger.
+                self.delta.uncommit(pod_name)
         delay = self.requeue_at.fail(pod_name, cls, self.clock())
         self.metrics.inc("scheduler_requeues_total")
         self.metrics.inc("scheduler_requeues_by_reason_total", labels={"reason": cls})
@@ -550,6 +575,10 @@ class Scheduler:
         labeled counter, the state gauge, the cycle notes ring, the log."""
         self.metrics.inc("scheduler_circuit_transitions_total", labels={"to": to})
         self.metrics.set_gauge("scheduler_circuit_state", float(STATES.index(to)))
+        if to == "closed" and self.delta is not None:
+            # Brownout over: the blackout may have cost watch evidence —
+            # never trust the carried residuals across a recovery.
+            self.delta.invalidate("breaker-recovery")
         self._cycle_notes.append(f"circuit-breaker: {frm} -> {to}")
         logger.warning("API circuit breaker %s -> %s (%d deferred binds held)", frm, to, len(self.deferred_binds))
 
@@ -758,6 +787,11 @@ class Scheduler:
         the cached node tensors in place (ops/pack.extend_node_vocabs)
         instead of abandoning the incremental path."""
         sig = self.reflector.node_set_signature()
+        # Carried residual capacity from the delta engine, consume-once: it
+        # matches the FIRST pack of the cycle (the dirty batch); any later
+        # segment pack must re-sweep against its own overlaid snapshot.
+        delta_cap = self._delta_avail
+        self._delta_avail = None
         memo_cap = 4 * max(1, len(snapshot.pods))
         if len(self._res_memo) > memo_cap or len(self._cons_memo) > memo_cap:
             live = {id(p) for p in snapshot.pods}
@@ -772,7 +806,9 @@ class Scheduler:
                 extended = extend_node_vocabs(self._packed, snapshot)
                 if extended is not self._packed:
                     self.metrics.inc("scheduler_vocab_extensions_total")
-                packed = repack_incremental(extended, snapshot, pod_block=self.pod_block, res_memo=self._res_memo)
+                packed = repack_incremental(
+                    extended, snapshot, pod_block=self.pod_block, res_memo=self._res_memo, alloc_used64=delta_cap
+                )
                 self.metrics.inc("scheduler_incremental_packs_total")
             except (ValueError, KeyError):
                 # The cached node tensors don't match the live node order
@@ -1088,6 +1124,26 @@ class Scheduler:
         return bound, 0
 
     @staticmethod
+    def _reduced_view(snapshot: ClusterSnapshot, pending: list[Pod]) -> ClusterSnapshot:
+        """A ClusterSnapshot sharing ``snapshot``'s node/pod tuples and lazy
+        caches (immutable once built, so sharing is safe) with the pending
+        list preset to ``pending`` — the delta cycle's O(1) alternative to
+        the filtered ``ClusterSnapshot.build`` rebuild.  Every consumer
+        (pack, constraints domain state, predicates, gang solve) sees the
+        identical placed view; only ``pending_pods()`` shrinks."""
+        view = ClusterSnapshot(
+            nodes=snapshot.nodes,
+            pods=snapshot.pods,
+            _pods_by_node=snapshot._pods_by_node,
+            _alloc_cache=snapshot._alloc_cache,
+            _used_cache=snapshot._used_cache,
+            _net_cache=snapshot._net_cache,
+            _placed=snapshot._placed,
+            _placed_with_terms=snapshot._placed_with_terms,
+        )
+        object.__setattr__(view, "_pending", list(pending))
+        return view
+
     @staticmethod
     def _bound_clone(pod: Pod, node: Node) -> Pod:
         """A copy of ``pod`` with ``spec.nodeName`` set — lets a same-cycle
@@ -1522,6 +1578,17 @@ class Scheduler:
                     # cycle's placements and is rebuilt every time.
                     packed = replace(packed, constraints=cons)
                     self.metrics.inc("scheduler_constraint_tensor_cycles_total")
+            if self._delta_plan is not None:
+                # Delta cycle, plain batch: drop node columns no dirty pod
+                # can land on (delta/repack.py — the accepted-claimant
+                # compaction idea on the node axis).  The cached full-axis
+                # pack above is untouched; only this solve sees the workspace.
+                from ..delta.repack import compact_candidate_nodes
+
+                compacted = compact_candidate_nodes(packed, node_block=self.node_block)
+                if compacted is not packed:
+                    packed = compacted
+                    self.metrics.inc("scheduler_delta_node_compactions_total")
         with span("solve"):
             result = self._solve_gang_aware(packed, batch_snapshot)
         mop_bound = mop_unsched = 0
@@ -2122,6 +2189,11 @@ class Scheduler:
         if self._revalidate_pending and self.is_leader:
             self._revalidate_overlays(snapshot)
             self._revalidate_pending = False
+            if self.delta is not None:
+                # Fresh leadership: the previous owner's commits may
+                # predate our watch view — rebuild the SolveState from a
+                # full wave, never revalidate residuals.
+                self.delta.invalidate("takeover")
         # Degraded-mode bookkeeping: promote the breaker if its open
         # window elapsed, arm this cycle's half-open probe budget, then
         # flush recovered deferred binds / overlay the still-held ones.
@@ -2155,6 +2227,9 @@ class Scheduler:
         self._cycle_gangs = {}
         self._cycle_tag = self._cycle_count + 1
         self._cycle_notes = []
+        self._delta_plan = None
+        self._delta_avail = None
+        self._cycle_bind_failures = 0
         self._explain_snapshot = None
         self._explain_budget = self.EXPLAIN_WORK
         set_log_cycle(self._cycle_tag)
@@ -2191,6 +2266,7 @@ class Scheduler:
                 # not wipe the backoff ledger.
                 pending_all = []
                 pending = []
+                eligible_all = []
             else:
                 with span("noexecute"):
                     evicted = self._evict_noexecute(snapshot)
@@ -2208,6 +2284,26 @@ class Scheduler:
                     pending_names = {full_name(p) for p in pending_all}
                     for gone in [k for k in self.requeue_at if k not in pending_names]:
                         del self.requeue_at[gone]
+                # Incremental engine (delta/): classify this cycle's watch
+                # deltas, close the invalidation set, and — on the delta
+                # path — shrink the solve to the dirty pods with the carried
+                # residual capacity riding into _pack.  ``None`` = escalate:
+                # the cycle below runs the classic full wave and the engine
+                # rebuilds at commit.
+                eligible_all = pending
+                if self.delta is not None:
+                    with span("delta"):
+                        self._delta_plan = self.delta.plan(
+                            snapshot,
+                            pending,
+                            pending_all,
+                            self._packed,
+                            self.reflector.node_set_signature(),
+                            preempting=self.profile.preemption,
+                        )
+                    if self._delta_plan is not None:
+                        pending = self._delta_plan.pods
+                        self._delta_avail = self._delta_plan.alloc_used64
             if pending:
                 # Schedule only eligible pods; bound pods — including
                 # bound-but-still-Pending ones (kubelet lag) — count capacity.
@@ -2215,7 +2311,14 @@ class Scheduler:
                 # accumulates into the same phase as the eligibility filter.)
                 with span("queue"):
                     eligible_names = {full_name(p) for p in pending}
-                    if len(pending) == len(pending_all):
+                    if self._delta_plan is not None:
+                        # Delta cycle: a shared-cache VIEW of the snapshot
+                        # with pending preset to the dirty set — zero
+                        # object copies, no O(all pods) rebuild (the
+                        # filtered rebuild below is the full-wave path's
+                        # cost, exactly what the delta cycle shrinks away).
+                        cycle_snapshot = self._reduced_view(snapshot, pending)
+                    elif len(pending) == len(pending_all):
                         # Every pending pod is eligible (no requeue backoffs
                         # in force): the filtered rebuild would reproduce the
                         # snapshot verbatim, and at flagship scale one
@@ -2263,6 +2366,31 @@ class Scheduler:
             else:
                 bound, unsched, rounds = 0, 0, 0
             if not (self.leader_elect and not self.is_leader):
+                if self.delta is not None:
+                    # Fold the cycle's outcome into the SolveState: delta
+                    # cycles commit placements/verdicts incrementally; full
+                    # waves rebuild wholesale (counting the escalation).
+                    # Deferred binds committed here flush later as watch
+                    # no-ops — exactly-once by the placements ledger.
+                    with span("delta"):
+                        with span("commit"):
+                            self.delta.commit(
+                                self._delta_plan,
+                                snapshot,
+                                self._packed,
+                                self.reflector.node_set_signature(),
+                                self._cycle_placed,
+                                self._cycle_unschedulable,
+                                pending_all,
+                                self._res_memo,
+                            )
+                        if (
+                            self._delta_plan is not None
+                            and self.delta_shadow_every > 0
+                            and self._cycle_tag % self.delta_shadow_every == 0
+                        ):
+                            with span("shadow"):
+                                self._delta_shadow_check(snapshot, eligible_all, pending_all)
                 # SLO burn bookkeeping (utils/profiler.SLO_TIERS): pods
                 # leaving the pending set observe their final time-in-queue;
                 # survivors drive the per-tier oldest-age/burn-rate gauges.
@@ -2316,6 +2444,53 @@ class Scheduler:
             self._xfer_folded = xfer
         set_log_cycle(None)
         return m
+
+    def _delta_shadow_check(self, snapshot: ClusterSnapshot, eligible: list[Pod], pending_all: list[Pod]) -> None:
+        """Shadow-solve parity (sampled): solve the FULL eligible
+        set fresh — new pack, fresh capacity sweep, gang-aware — and assert
+        the delta cycle placed exactly the same POD SET.  Placements may
+        differ node-by-node (score tie-break freedom: the reduced pod axis
+        reshuffles jitter rows); the placed set and therefore the
+        unschedulable set may not — any difference is an invalidation-
+        closure bug.  Cycles the contract does not cover record as skipped:
+        bind-path failures (the API, not the solver, decided), a not-closed
+        breaker, preempting profiles (the shadow does not preempt), and
+        constrained batches (the stall mop-up runs outside the solver)."""
+        if (
+            self._cycle_bind_failures
+            or self.breaker.mode() != "closed"
+            or self.profile.preemption
+            or self.deferred_binds
+        ):
+            self.delta.record_shadow(None)
+            return
+        view = self._reduced_view(snapshot, eligible)
+        _, constrained = self._split_affinity_pending(view, eligible)
+        if constrained:
+            self.delta.record_shadow(None)
+            return
+        packed = self._attach_topology(
+            pack_snapshot(view, pod_block=self.pod_block, node_block=self.node_block), view
+        )
+        saved_gangs = self._cycle_gangs
+        gangs: dict[str, set[str]] = {}
+        for p in pending_all:
+            if p.spec is not None and p.spec.gang:
+                gangs.setdefault(p.spec.gang, set()).add(full_name(p))
+        self._cycle_gangs = gangs
+        try:
+            result = self._solve_gang_aware(packed, view)
+        finally:
+            self._cycle_gangs = saved_gangs
+        shadow_placed = {pf for pf, _n in result.bindings}
+        actual_placed = {full_name(p) for p, _n in self._cycle_placed}
+        ok = shadow_placed == actual_placed
+        detail = ""
+        if not ok:
+            only_full = sorted(shadow_placed - actual_placed)[:5]
+            only_delta = sorted(actual_placed - shadow_placed)[:5]
+            detail = f"full-only={only_full} delta-only={only_delta}"
+        self.delta.record_shadow(ok, detail)
 
     def _account_gangs(self, eligible_names: set[str], compiled_topo) -> None:
         """Per-gang admission accounting (the ``gang`` phase).  Metrics

@@ -4,8 +4,7 @@ lease backend:
 
   * :class:`~tpu_scheduler_torch.runtime.fake_api.FakeApiServer` — in-process
     store with resourceVersion compare-and-swap;
-  * :class:`KubeApiClient` of the JAX package's ``runtime/http_api.py`` (not
-    ported yet) — the SAME
+  * :class:`~tpu_scheduler_torch.runtime.http_api.KubeApiClient` — the SAME
     algorithm over spec-shaped HTTP requests only (GET/POST/PUT Lease
     objects; no invented verbs), so it works against a real kube-apiserver.
 

@@ -35,8 +35,7 @@ the scorecard ``profile`` block carries exclusively the deterministic parts
 Port: a copy of ``tpu_scheduler/utils/profiler.py``.  The ``jax.monitoring``
 compile listener becomes the kernel-build counter (``record_kernel_build``,
 ``compile_stats``); the ``compile`` span name stays.  The replica registries
-of the HTTP debug routes wait for the HTTP boundary's port (ROADMAP Queue 1
-item 4b).
+serve the HTTP debug routes (``runtime/http_api.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +51,8 @@ __all__ = [
     "build_tree",
     "coverage",
     "ProfileRing",
+    "ReplicaProfileRegistry",
+    "ReplicaLatencyRegistry",
     "record_kernel_build",
     "compile_stats",
     "record_transfer",
@@ -322,6 +323,101 @@ class ProfileRing:
             "wall_total_s": wall_total,
             "overhead_frac": (overhead_total / wall_total) if wall_total > 0 else 0.0,
         }
+
+
+# -- multi-replica aggregation ------------------------------------------------
+
+
+class ReplicaProfileRegistry:
+    """Replica id -> snapshot callable; the /debug/profile route's source in
+    multi-replica deployments (and the single-replica CLI registers its one
+    scheduler).  ``snapshot(replica=...)`` selects one replica; without it,
+    per-replica blocks plus a merged per-path sum."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._replicas: dict[str, object] = {}  # guarded-by: _lock — id -> () -> dict
+
+    def register(self, replica_id: str, snapshot_fn) -> None:
+        with self._lock:
+            self._replicas[replica_id] = snapshot_fn
+
+    def replica_ids(self) -> list[str]:
+        with self._lock:
+            return sorted(self._replicas)
+
+    def snapshot(self, replica: str | None = None) -> dict:
+        with self._lock:
+            fns = dict(self._replicas)
+        if replica is not None:
+            fn = fns.get(replica)
+            if fn is None:
+                return {"error": f"unknown replica {replica!r}", "replicas": sorted(fns)}
+            return {"replica": replica, **fn()}
+        per = {rid: fn() for rid, fn in sorted(fns.items())}
+        merged: dict = {"cycles": 0, "wall_total_s": 0.0, "other_total_s": 0.0}
+        for snap in per.values():
+            prof = snap.get("profile", snap)
+            merged["cycles"] += prof.get("cycles", 0)
+            merged["wall_total_s"] += prof.get("wall_total_s", 0.0)
+            merged["other_total_s"] += prof.get("other_total_s", 0.0)
+        wt = merged["wall_total_s"]
+        merged["coverage"] = round(1.0 - merged["other_total_s"] / wt, 6) if wt > 0 else 1.0
+        merged["wall_total_s"] = round(merged["wall_total_s"], 6)
+        merged["other_total_s"] = round(merged["other_total_s"], 6)
+        return {"replicas": per, "merged": merged}
+
+
+class ReplicaLatencyRegistry:
+    """Replica id -> latency_snapshot callable; the /debug/latency route's
+    source in multi-replica deployments (same registration pattern as
+    ReplicaProfileRegistry).  ``snapshot(replica=...)`` selects one replica;
+    without it, per-replica blocks plus a fleet-merged per-tier sum of the
+    time-to-bind decomposition."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._replicas: dict[str, object] = {}  # guarded-by: _lock — id -> () -> dict
+
+    def register(self, replica_id: str, snapshot_fn) -> None:
+        with self._lock:
+            self._replicas[replica_id] = snapshot_fn
+
+    def replica_ids(self) -> list[str]:
+        with self._lock:
+            return sorted(self._replicas)
+
+    def snapshot(self, replica: str | None = None) -> dict:
+        with self._lock:
+            fns = dict(self._replicas)
+        if replica is not None:
+            fn = fns.get(replica)
+            if fn is None:
+                return {"error": f"unknown replica {replica!r}", "replicas": sorted(fns)}
+            return {"replica": replica, **fn()}
+        per = {rid: fn() for rid, fn in sorted(fns.items())}
+        merged_tiers: dict[str, dict] = {}
+        confirmed = 0
+        awaiting = 0
+        for snap in per.values():
+            confirmed += snap.get("confirmed", 0)
+            awaiting += snap.get("awaiting_confirm", 0)
+            for tier, blk in snap.get("tiers", {}).items():
+                acc = merged_tiers.setdefault(
+                    tier, {"count": 0, "ttb_sum_s": 0.0, "unattributed_sum_s": 0.0, "segments_sum_s": {}}
+                )
+                acc["count"] += blk.get("count", 0)
+                acc["ttb_sum_s"] += blk.get("ttb_sum_s", 0.0)
+                acc["unattributed_sum_s"] += blk.get("unattributed_sum_s", 0.0)
+                for seg, v in blk.get("segments_sum_s", {}).items():
+                    acc["segments_sum_s"][seg] = acc["segments_sum_s"].get(seg, 0.0) + v
+        for acc in merged_tiers.values():
+            acc["mean_ttb_s"] = round(acc["ttb_sum_s"] / acc["count"], 9) if acc["count"] else 0.0
+            acc["ttb_sum_s"] = round(acc["ttb_sum_s"], 9)
+            acc["unattributed_sum_s"] = round(acc["unattributed_sum_s"], 9)
+            acc["segments_sum_s"] = {seg: round(v, 9) for seg, v in acc["segments_sum_s"].items()}
+        merged = {"confirmed": confirmed, "awaiting_confirm": awaiting, "tiers": merged_tiers}
+        return {"replicas": per, "merged": merged}
 
 
 # -- kernel-build/transfer accounting -----------------------------------------
