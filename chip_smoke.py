@@ -143,7 +143,16 @@ from tpu_scheduler_torch.runtime.controller import Scheduler
 from tpu_scheduler_torch.runtime.fake_api import FakeApiServer
 from tpu_scheduler_torch.testing import make_node, make_pod, synth_cluster
 from tpu_scheduler_torch.topology.locality import _add_rows as locality_add_rows
-from tpu_scheduler_torch.topology.locality import gang_placement_stats, gang_topology_term, pack_topology
+import tpu_scheduler_torch.topology.locality as locality_mod
+from tpu_scheduler_torch.topology.locality import (
+    GangTerm,
+    gang_cycle_operands,
+    gang_placement_stats,
+    gang_round_operands,
+    gang_state_update,
+    gang_topology_term,
+    pack_topology,
+)
 from tpu_scheduler_torch.topology.model import DEFAULT_LEVEL_KEYS, TopologyModel
 from tpu_scheduler_torch.utils.gc_tuning import enable_daemon_gc_tuning
 
@@ -286,7 +295,7 @@ def tie_case(device, b: int = 13) -> list:
 
 def choose_bound_ms(
     b: int, n: int, r: int, widths: list[int], cons_widths: list[int] | None = None, cons_products: int = 0,
-    active: int | None = None, topo_rows: int | None = None,
+    active: int | None = None, extra_bytes: int = 0, extra_ops: int = 0,
 ) -> tuple[float, str]:
     """Least time for one choose launch: the bytes it must move over HBM
     bandwidth, and the operations it does over the float32 peak (integer
@@ -309,18 +318,15 @@ def choose_bound_ms(
     every other product is ±0 and adds nothing, so this run's data needs
     only those.
 
-    The gang term (``topo_rows`` given: Σ over the 8-pod tiles of the
-    distinct T rows their active pods read) adds each active pod's gang id
-    and those rows, ``topo_rows`` · N · 4 bytes, and one add per active
-    pair."""
+    ``extra_bytes`` and ``extra_ops`` add a further term's work (the gang
+    term: :func:`topology_bound_ms`)."""
     a = b if active is None else active
     w = sum(widths)
     wc = sum(cons_widths or [])
     nbytes = a * (4 * r + 4 * w + 12 + 4 * wc) + b * (1 + 4 + 1 + 4) + n * (8 * r + 1 + 4 * w + 4 * wc)
     ops = a * n * (r + 2 * w + 45) + (a * n * 8 + 2 * cons_products if cons_widths else 0)
-    if topo_rows is not None:
-        nbytes += 4 * a + 4 * n * topo_rows
-        ops += a * n
+    nbytes += extra_bytes
+    ops += extra_ops
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1066,67 +1072,107 @@ def with_topology(snap, packed):
     return dataclasses.replace(packed, topology=topo)
 
 
-def round_term(packed, device, weights, placed_share: float = 0.0, seed: int = 0) -> tuple[dict, torch.Tensor]:
-    """(device arrays with ``pod_gang_id``, the [G+1, N] gang term) of one
-    round: the cycle-start state, or ``placed_share`` of the gangs with a
-    random member count placed on random nodes (a mid-cycle state: the
-    anchor term is live)."""
+def add_placements(state: dict, dom_col: torch.Tensor, gangs, nodes, counts) -> None:
+    """Place ``counts[i]`` members of gang ``gangs[i]`` on node ``nodes[i]``
+    in the per-domain state (``locality.gang_state_update`` with the counts
+    in place of its 0/1 accepted flags), in place."""
+    dev = dom_col.device
+    gang_state_update(state, dom_col, torch.as_tensor(counts, dtype=torch.float32, device=dev),
+                      torch.as_tensor(nodes, dtype=torch.int64, device=dev),
+                      torch.as_tensor(gangs, dtype=torch.int32, device=dev))
+
+
+def round_term(packed, device, weights, placed_share: float = 0.0, seed: int = 0) -> tuple[dict, GangTerm]:
+    """(device arrays with ``pod_gang_id``, the round's GangTerm over every
+    pod row, its gang ids those of all P rows) of one round: the
+    cycle-start state, or ``placed_share`` of the gangs with a random member
+    count placed on random nodes (a mid-cycle state: the anchor term is
+    live)."""
     arrays = to_device(packed, device)
     tpods, tmeta, tstate = topology_to_device(packed.topology, device)
     arrays.update(tpods)
-    gang_nodes = tstate["gang_nodes"]
+    cyc = gang_cycle_operands(tmeta)
     if placed_share:
         rng = np.random.default_rng(seed)
-        g1, n1 = gang_nodes.shape
+        g1 = tstate["total"].shape[0]
         rows = np.flatnonzero(rng.random(g1) < placed_share)
         rows = rows[rows > 0]
-        cols = rng.integers(0, n1 - 1, rows.shape[0])
-        gang_nodes[torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)] = torch.from_numpy(
-            rng.integers(1, 5, rows.shape[0]).astype(np.float32)).to(device)
-    t = gang_topology_term(gang_nodes, tmeta, arrays["node_avail"], arrays["pod_gang_id"], arrays["pod_req"],
-                           arrays["pod_valid"], np.float32(weights[6]))
-    return arrays, t
+        add_placements(tstate, cyc["dom_col"], rows, rng.integers(0, packed.padded_nodes, rows.shape[0]),
+                       rng.integers(1, 5, rows.shape[0]))
+    op = gang_round_operands(cyc, tstate, tmeta, arrays["node_avail"], arrays["pod_gang_id"], arrays["pod_req"],
+                             arrays["pod_valid"], weights[6])
+    return arrays, op._replace(gang_id=arrays["pod_gang_id"])
+
+
+def block_term(op: GangTerm, lo: int, hi: int) -> GangTerm:
+    """``op`` with the gang ids of pod rows [lo, hi)."""
+    return op._replace(gang_id=op.gang_id[lo:hi].contiguous())
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
 
 
 def term_card_vs_cpu(packed, device, weights) -> dict:
-    """The gang term on the card against the same term on the CPU, bit for
-    bit: the topology flagship's cycle-start state and a mid-cycle one; and
-    the per-gang demand's pod-order adds (``locality._add_rows``) on
-    inexact float32 values, where another order would round differently."""
+    """The gang term's round inputs (remaining demand, domain capacities)
+    and the dense term built from them (the kernels' plain version) on the
+    card against the same on the CPU, bit for bit: the topology flagship's
+    cycle-start state and a mid-cycle one; and the per-gang demand's
+    pod-order adds (``locality._add_rows``) on inexact float32 values, where
+    another order would round differently."""
     rec = {"phase": "topology_term_card_vs_cpu"}
     for name, share in (("round0", 0.0), ("mid_cycle", 0.5)):
-        t_card = round_term(packed, device, weights, placed_share=share, seed=31)[1]
-        t_cpu = round_term(packed, torch.device("cpu"), weights, placed_share=share, seed=31)[1]
-        rec[name] = torch.equal(t_card.cpu().view(torch.int32), t_cpu.view(torch.int32))
-        del t_card, t_cpu
+        op_card = round_term(packed, device, weights, placed_share=share, seed=31)[1]
+        op_cpu = round_term(packed, torch.device("cpu"), weights, placed_share=share, seed=31)[1]
+        rec[f"{name}_inputs"] = all(bits_equal(getattr(op_card, k), getattr(op_cpu, k))
+                                    for k in ("placed", "total", "rem", "dom_free", "herd"))
+        rec[name] = bits_equal(gang_topology_term(op_card), gang_topology_term(op_cpu))
+        del op_card, op_cpu
     rng = np.random.default_rng(5)
     idx = np.sort(rng.integers(0, 4096, 200_000))
     vals = (rng.random((200_000, 2)) * 1e7).astype(np.float32)
     on = {d: locality_add_rows(torch.zeros((4096, 2), device=d), torch.from_numpy(idx).to(d),
                                torch.from_numpy(vals).to(d)).cpu() for d in (device, torch.device("cpu"))}
-    rec["pod_order_adds"] = torch.equal(on[device].view(torch.int32), on[torch.device("cpu")].view(torch.int32))
+    rec["pod_order_adds"] = bits_equal(on[device], on[torch.device("cpu")])
     emit(rec)
     if not all(v for k, v in rec.items() if k != "phase"):
         raise SystemExit(f"the gang term differs between the card and the CPU: {rec}")
     return rec
 
 
-def random_topo(b: int, n: int, device, seed: int, gangs: int = 6, zero_share: float = 0.3, scale=None):
-    """(gang ids [b] int32, T [gangs+1, n] float32) drawn from ``seed``: ids
-    in 1..gangs, ``zero_share`` of them 0; T normal rows times ``scale[g]``
-    (default 100), row 0 zero."""
+def random_gang_term(b: int, n: int, device, seed: int, gangs: int = 6, zero_share: float = 0.3,
+                     levels=((1.0, 64), (2.0, 16)), weight: float = 64.0) -> GangTerm:
+    """A GangTerm drawn from ``seed``: gang ids in 1..gangs, ``zero_share``
+    of them 0; per level (distance, domains) random node domains (the
+    sentinel included); random placed counts and totals, demands and
+    domain capacities in 64 Ki units (so fits varies), herd values
+    1 + 4·U[0, 1)."""
     rng = np.random.default_rng(seed)
     gid = rng.integers(1, gangs + 1, b).astype(np.int32)
     gid[rng.random(b) < zero_share] = 0
-    t = rng.normal(size=(gangs + 1, n)).astype(np.float32)
-    t *= np.asarray(scale if scale is not None else [100.0] * (gangs + 1), dtype=np.float32)[:, None]
-    t[0] = 0.0
-    return torch.from_numpy(gid).to(device), torch.from_numpy(t).to(device)
+    cols, off = [], 0
+    for _dist, d in levels:
+        cols.append(rng.integers(0, d + 1, n) + off)
+        off += d + 1
+    placed = (rng.integers(0, 4, (gangs + 1, off)) * (rng.random((gangs + 1, off)) < 0.3)).astype(np.float32)
+    total = (placed.sum(axis=1) + rng.integers(0, 3, gangs + 1)).astype(np.float32)
+    rem = (rng.integers(0, 40, (gangs + 1, 2)) * 65536).astype(np.float32)
+    dom_free = (rng.integers(0, 64, (off, 2)) * 65536).astype(np.float32)
+    herd = (1.0 + 4.0 * rng.random((gangs + 1, off))).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return GangTerm(t(gid), t(np.stack(cols).astype(np.int32)), t(np.float32([d for d, _ in levels])), t(placed),
+                    t(total), t(rem), t(dom_free), t(herd), float(np.float32(weight)))
+
+
+def distinct_gangs(gid: torch.Tensor, active: torch.Tensor) -> int:
+    """The distinct gang ids among the active pods of a block."""
+    return int(torch.unique(gid[active]).numel())
 
 
 def tile_rows(gid: torch.Tensor, active: torch.Tensor, pods: int = 8) -> int:
     """Σ over the 8-pod tiles of the distinct gang ids among the tile's
-    active pods: the T rows the topology instances read."""
+    active pods: the dense term's rows the instances before the redesign
+    read (the old bound)."""
     b = gid.shape[0]
     tiles = -(-b // pods)
     g = torch.full((tiles * pods,), -1, dtype=torch.int64, device=gid.device)
@@ -1135,7 +1181,8 @@ def tile_rows(gid: torch.Tensor, active: torch.Tensor, pods: int = 8) -> int:
     return int(((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum() + (s[:, 0] >= 0).sum())
 
 
-def compare_topology(name: str, args: list, weights, salt: int, topo, cons_pod=None, masks=None, **extra) -> dict:
+def compare_topology(name: str, args: list, weights, salt: int, topo: GangTerm, cons_pod=None, masks=None,
+                     **extra) -> dict:
     """Kernel #1 (or #2, given ``cons_pod``/``masks``) with the gang term
     against its plain version on the same CUDA tensors, held by
     ``outputs_equal``; also how many pods the term moved."""
@@ -1149,8 +1196,9 @@ def compare_topology(name: str, args: list, weights, salt: int, topo, cons_pod=N
         blind = choose_block_constrained_plain(*args, cons_pod, masks, weights, salt)
     equal, err = outputs_equal(k_out, p_out)
     rec = {"phase": "kernel_vs_plain_topology", "case": name, "family": "constrained" if cons_pod else "plain",
-           "B": int(args[0].shape[0]), "N": int(args[10].shape[0]), "gang_rows": int(topo[1].shape[0]),
-           "salt": salt, "feasible_pods": int(p_out[1].sum()),
+           "B": int(args[0].shape[0]), "N": int(args[10].shape[0]), "gang_rows": int(topo.placed.shape[0]),
+           "levels": int(topo.dom_col.shape[0]), "domain_columns": int(topo.placed.shape[1]),
+           "weight": topo.weight, "salt": salt, "feasible_pods": int(p_out[1].sum()),
            "moved_by_term": int((p_out[1] & (p_out[0] != blind[0])).sum()), "equal": equal, "max_abs_err": err,
            **extra}
     emit(rec)
@@ -1159,39 +1207,83 @@ def compare_topology(name: str, args: list, weights, salt: int, topo, cons_pod=N
     return rec
 
 
-def topology_tie_case(device, b: int = 45) -> tuple[list, tuple]:
-    """Every node identical (no jitter: every base score ties); gang g's T
-    row holds its maximum 100 at two nodes of one slice, 4·g + 1 and
-    4·g + 3, and at node 640 + g (another warp); each gang's pods must pick
-    4·g + 1, the gangless pods node 0."""
-    n = 700
+def topology_tie_case(device, b: int = 45, n: int = 700, gangs: int = 5) -> tuple[list, GangTerm]:
+    """Every node identical (no jitter: every base score ties).  One level
+    of 4-node slices; gang g has one member placed in slice g and one in
+    slice 160 + g (nodes 640 + 4·g .. +3, another warp), so the term ties
+    the 8 nodes of those two slices at its maximum.  Node 4·g is invalid:
+    each gang's pods must pick 4·g + 1, the gangless pods node 0."""
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
     req = torch.tensor([[100, 131072]] * b, dtype=torch.int32, device=device)
     alloc = torch.tensor([[8000, 16777216]] * n, dtype=torch.int32, device=device)
     avail = torch.tensor([[2000, 4194304]] * n, dtype=torch.int32, device=device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    valid[[4 * g for g in range(1, gangs + 1)]] = False
     args = [
         req, z(b, 8), z(b), z(b, 8), z(b, 8), z(b), z(b, 8), z(b, 8),
         torch.ones(b, dtype=torch.bool, device=device), torch.arange(b, dtype=torch.int32, device=device),
-        avail, alloc, torch.ones(n, dtype=torch.bool, device=device), z(n, 8), z(n, 8), z(n, 8), z(n, 8), z(n, 8),
+        avail, alloc, valid, z(n, 8), z(n, 8), z(n, 8), z(n, 8), z(n, 8),
     ]
-    gangs = 5
-    t = z(gangs + 1, n)
+    d = n // 4 + 1  # the slices and the sentinel
+    placed = z(gangs + 1, d)
     for g in range(1, gangs + 1):
-        t[g, [4 * g + 1, 4 * g + 3, 640 + g]] = 100.0
+        placed[g, g] = placed[g, 160 + g] = 1.0
     gid = torch.arange(b, dtype=torch.int32, device=device) % (gangs + 1)
-    return args, (gid, t)
+    dom = (torch.arange(n, dtype=torch.int32, device=device) // 4)[None, :].contiguous()
+    op = GangTerm(gid, dom, torch.ones(1, device=device), placed, placed.sum(dim=1),
+                  torch.full((gangs + 1, 2), 100.0, device=device), torch.full((d, 2), 1e6, device=device),
+                  torch.ones((gangs + 1, d), device=device), 64.0)
+    return args, op
 
 
-def topology_bound_ms(args: list, topo, cons_widths=None, cons_products: int = 0) -> tuple[float, str]:
-    """``choose_bound_ms`` with the gang term: its ids and the distinct T
-    rows each 8-pod tile reads (``tile_rows``) in the bytes, one add per
-    active pair in the operations."""
+def topology_bound_ms(args: list, topo: GangTerm, cons_widths=None, cons_products: int = 0) -> dict:
+    """``choose_bound_ms`` of the fused function with the gang term, whatever
+    implements it: the term's ~10 float ops per level once per (distinct
+    gang among the block's active pods, node) and one add per active pair;
+    in the bytes each active pod's gang id, those gangs' per-domain rows
+    (placed and herd) and totals and demands, every node's domain columns,
+    the domain capacities and the level distances.  Beside it the bound
+    before the redesign, which took the dense [G+1, N] term as given and
+    counted its rows each tile reads (``tile_rows``) and one add per active
+    pair."""
     active = args[8]
-    return choose_bound_ms(
-        int(args[0].shape[0]), int(args[10].shape[0]), int(args[0].shape[1]),
-        [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)], cons_widths, cons_products, int(active.sum()),
-        topo_rows=tile_rows(topo[0], active),
-    )
+    a = int(active.sum())
+    b, n, r = int(args[0].shape[0]), int(args[10].shape[0]), int(args[0].shape[1])
+    widths = [int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)]
+    lv, dt = int(topo.dom_col.shape[0]), int(topo.placed.shape[1])
+    gangs = distinct_gangs(topo.gang_id, active)
+    new_bytes = 4 * a + 4 * lv * n + 8 * dt + 4 * lv + gangs * (8 * dt + 12)
+    new_ops = a * n + gangs * n * 10 * lv
+    bound, by = choose_bound_ms(b, n, r, widths, cons_widths, cons_products, a, new_bytes, new_ops)
+    dense, dense_by = choose_bound_ms(b, n, r, widths, cons_widths, cons_products, a,
+                                      4 * a + 4 * n * tile_rows(topo.gang_id, active), a * n)
+    return {"bound_ms": bound, "bound_by": by, "distinct_gangs": gangs, "bound_ms_dense_term": dense,
+            "bound_by_dense_term": dense_by}
+
+
+def interleaved_ms(fns: dict, rounds: int = 5, reps: int = 50) -> dict:
+    """{name: [ms per call in each round]}: CUDA events around ``reps``
+    back-to-back calls of each function, the functions in turn, forwards
+    and backwards in alternate rounds, after one warm-up call each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(rounds):
+        for name in names if i % 2 == 0 else names[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            out[name].append(start.elapsed_time(end) / reps)
+    return out
+
+
+def spread(times: list) -> dict:
+    return {"median": statistics.median(times), "min": min(times), "max": max(times), "rounds": times}
 
 
 def fresh_copy(packed):
@@ -1239,27 +1331,31 @@ def topology_cycles(backend, packed, profile, reps: int, fresh: bool) -> tuple[l
 
 def topology_breakdown(backend, packed, profile) -> dict:
     """Where one warm topology flagship cycle's time goes: device time by
-    kernel (torch.profiler) split into the choose kernels, the gang term's
-    matrix products (cuBLAS), copies and the rest (the term's and the
-    auction's elementwise ops); the idle share; and the host clock of the
-    term's construction per cycle, timed by a synchronising wrapper in a
-    separate cycle."""
+    kernel (torch.profiler) split into the choose kernels, the matrix
+    products (cuBLAS: only the domains' ``onehot @ free`` now), copies and
+    the rest; the idle share; and the host clock of the term's per-round
+    preparation (``gang_round_operands``: the demand adds and the domain
+    capacities) and of the state update, timed by synchronising wrappers in
+    a separate cycle."""
     wall_ms, rows = profiled(lambda: backend.schedule(packed, profile))
     split = device_split(wall_ms, rows, "choose_kernel")
     gemm_ms = sum(r[1] for r in rows if any(s in r[0].lower() for s in ("gemm", "xmma", "cutlass")))
-    spent = [0.0, 0]
-    original = assign_mod.gang_topology_term
+    spent = {"gang_round_operands": [0.0, 0], "gang_state_update": [0.0, 0]}
+    originals = {name: getattr(assign_mod, name) for name in spent}
 
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = original(*a, **k)
-        torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t
-        spent[1] += 1
-        return out
+    def timed(name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[name](*a, **k)
+            torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t
+            spent[name][1] += 1
+            return out
+        return run
 
-    assign_mod.gang_topology_term = timed
+    for name in spent:
+        setattr(assign_mod, name, timed(name))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1267,10 +1363,14 @@ def topology_breakdown(backend, packed, profile) -> dict:
         torch.cuda.synchronize()
         cycle_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        assign_mod.gang_topology_term = original
+        for name, fn in originals.items():
+            setattr(assign_mod, name, fn)
+    prep_s, rounds = spent["gang_round_operands"]
     return dict(split, phase="topology_breakdown", term_matmul_ms=gemm_ms,
                 term_elementwise_and_other_ms=split["other_device_ms"] - gemm_ms,
-                instrumented_cycle_ms=cycle_ms, host_term_ms=spent[0] * 1e3, term_calls=spent[1])
+                instrumented_cycle_ms=cycle_ms, host_term_ms=prep_s * 1e3, term_calls=rounds,
+                host_term_ms_per_round=prep_s * 1e3 / max(rounds, 1),
+                host_state_update_ms=spent["gang_state_update"][0] * 1e3)
 
 
 NAMES_BISECT = ("bisect_parts_v0", "bisect_parts_v1", "bisect_parts_v2", "bisect_parts_v3", "bisect_wide")
@@ -2284,7 +2384,9 @@ def main() -> int:
           "pack_topology_seconds": tcl["pack_topology_seconds"], "pods": tflag.num_pods, "nodes": tflag.num_nodes,
           "padded": [tflag.padded_pods, tflag.padded_nodes], "gangs": tset.n_gangs,
           "gang_members": int((tset.pod_gang_id > 0).sum()),
-          "domains": [int(d) for d in tcompiled.dom_counts], "term_bytes": (tset.n_gangs + 1) * tflag.padded_nodes * 4})
+          "domains": [int(d) for d in tcompiled.dom_counts],
+          "state_bytes": sum(int(v.nbytes) for v in tset.state_arrays().values()),
+          "dense_term_bytes": (tset.n_gangs + 1) * tflag.padded_nodes * 4})
 
     term_card_vs_cpu(tflag, device, w_thr)
 
@@ -2292,28 +2394,31 @@ def main() -> int:
     trecs = []
     t_arrays, t_term = round_term(tflag, device, w_thr)
     first = block_args(t_arrays, 0, 8192)
-    first_topo = (t_arrays["pod_gang_id"][:8192].contiguous(), t_term)
+    first_topo = block_term(t_term, 0, 8192)
     trecs.append(compare_topology("flagship_block_round0", first, w_thr, 1, first_topo))
     m_arrays, m_term = round_term(tflag, device, w_thr, placed_share=0.5, seed=31)
     trecs.append(compare_topology("flagship_block_mid_cycle", block_args(m_arrays, 0, 8192), w_thr, 7,
-                                  (m_arrays["pod_gang_id"][:8192].contiguous(), m_term)))
+                                  block_term(m_term, 0, 8192)))
     del m_arrays, m_term
     small_args = block_args(a_small, 0, small.padded_pods)
     trecs.append(compare_topology("mixed_tiles", small_args, w_thr, 3,
-                                  random_topo(small.padded_pods, small.padded_nodes, device, seed=41)))
+                                  random_gang_term(small.padded_pods, small.padded_nodes, device, seed=41)))
     tie_args, tie_topo = topology_tie_case(device)
     trecs.append(compare_topology("term_ties", tie_args, no_jitter, 0, tie_topo))
     tie_choice = choose_block(*tie_args, no_jitter, 0, topo=tie_topo)[0]
-    want = torch.where(tie_topo[0] > 0, 4 * tie_topo[0] + 1, 0)
-    if not torch.equal(tie_choice, want):
+    want = torch.where(tie_topo.gang_id > 0, 4 * tie_topo.gang_id + 1, 0)
+    if not torch.equal(tie_choice, want.to(torch.int32)):
         raise SystemExit("term_ties: a tie made by the gang term did not resolve to the lowest node index")
-    scales = [0.0, 1e-3, 1e-1, 1e1, 1e3, 1e5, 1e7, 1e9]
-    trecs.append(compare_topology("term_magnitudes", small_args, w_thr, 5,
-                                  random_topo(small.padded_pods, small.padded_nodes, device, seed=42, gangs=7,
-                                              zero_share=0.1, scale=scales)))
+    # Term magnitudes through the weight (0 and −0.0 included) and the level
+    # distances: four levels from 1e-3 to 1e5.
+    for k, weight in enumerate([0.0, -0.0, 1e-3, 1e-1, 1e1, 1e3, 1e5, 1e7, 1e9, -64.0]):
+        trecs.append(compare_topology(
+            "term_magnitudes", small_args, w_thr, 5,
+            random_gang_term(small.padded_pods, small.padded_nodes, device, seed=42 + k, gangs=7, zero_share=0.1,
+                             levels=((1e-3, 300), (1.0, 75), (1e2, 20), (1e5, 4)), weight=weight)))
     c_arrays, c_masks = constrained_round(csmall, device, seed=3)
     trecs.append(compare_topology("constrained_mixed_tiles", block_args(c_arrays, 0, b_small), w_thr, 2,
-                                  random_topo(b_small, csmall.padded_nodes, device, seed=43),
+                                  random_gang_term(b_small, csmall.padded_nodes, device, seed=43),
                                   block_cons(c_arrays, 0, b_small), c_masks))
     del c_arrays, c_masks
     # The constrained + topology cell (bench.py's topology CPU shape with the
@@ -2322,45 +2427,58 @@ def main() -> int:
     ct, _ = with_constraints(ct_snap, pack_snapshot(ct_snap, pod_block=8192, node_block=128))
     ct = with_topology(ct_snap, ct)
     ct_arrays, ct_masks = constrained_round(ct, device)
-    ct_term_arrays, ct_term = round_term(ct, device, w_thr)
+    ct_term = round_term(ct, device, w_thr)[1]
     ct_args, ct_cons = block_args(ct_arrays, 0, 8192), block_cons(ct_arrays, 0, 8192)
-    ct_topo = (ct_term_arrays["pod_gang_id"][:8192].contiguous(), ct_term)
+    ct_topo = block_term(ct_term, 0, 8192)
     trecs.append(compare_topology("constrained_topology_round0", ct_args, w_thr, 1, ct_topo, ct_cons, ct_masks))
     topo_max_abs_err = max(r["max_abs_err"] for r in trecs if r["family"] == "plain")
     ctopo_max_abs_err = max(r["max_abs_err"] for r in trecs if r["family"] == "constrained")
 
-    # Timed: the full-shape first block with the term, without it, plain.
+    # Timed: the full-shape first block with the term and without it, in
+    # interleaved rounds; the plain version apart.
     first_words = pack_node_words(*first[13:18])
     topo_ms, topo_plain_ms, err = timed_and_held(
         "choose_topology_timing", lambda: choose_block(*first, w_thr, 1, node_words=first_words, topo=first_topo),
         lambda: choose_block_plain(*first, w_thr, 1, topo=first_topo), reps=20, plain_reps=3,
     )
     topo_max_abs_err = max(topo_max_abs_err, err)
-    no_term_ms = time_cuda(lambda: choose_block(*first, w_thr, 1, node_words=first_words), reps=20)
-    topo_bound, topo_bound_by = topology_bound_ms(first, first_topo)
-    emit({"phase": "choose_topology_timing", "B": 8192, "N": tflag.padded_nodes, "gang_rows": int(t_term.shape[0]),
-          "tile_rows": tile_rows(first_topo[0], first[8]), "ms": topo_ms, "ms_without_term": no_term_ms,
-          "plain_ms": topo_plain_ms, "bound_ms": topo_bound, "bound_by": topo_bound_by,
-          "share_of_bound": topo_bound / topo_ms, "equal": True, "max_abs_err": err, "nvidia_smi": smi})
+    tms = interleaved_ms({
+        "term": lambda: choose_block(*first, w_thr, 1, node_words=first_words, topo=first_topo),
+        "no_term": lambda: choose_block(*first, w_thr, 1, node_words=first_words),
+    })
+    topo_ms = statistics.median(tms["term"])
+    topo_bound = topology_bound_ms(first, first_topo)
+    emit({"phase": "choose_topology_timing", "B": 8192, "N": tflag.padded_nodes, "gang_rows": int(t_term.placed.shape[0]),
+          "tile_rows": tile_rows(first_topo.gang_id, first[8]), "ms": topo_ms, "ms_spread": spread(tms["term"]),
+          "ms_without_term": statistics.median(tms["no_term"]), "ms_without_term_spread": spread(tms["no_term"]),
+          "plain_ms": topo_plain_ms, **topo_bound, "share_of_bound": topo_bound["bound_ms"] / topo_ms,
+          "equal": True, "max_abs_err": err, "nvidia_smi": smi})
     ct_words = pack_node_words(*ct_args[13:18])
-    ctopo_ms, ctopo_plain_ms, err = timed_and_held(
+    _ctopo_ms, ctopo_plain_ms, err = timed_and_held(
         "choose_constrained_topology_timing",
         lambda: choose_block_constrained(*ct_args, ct_cons, ct_masks, w_thr, 1, node_words=ct_words, topo=ct_topo),
         lambda: choose_block_constrained_plain(*ct_args, ct_cons, ct_masks, w_thr, 1, topo=ct_topo),
         reps=20, plain_reps=3,
     )
     ctopo_max_abs_err = max(ctopo_max_abs_err, err)
-    ct_no_term_ms = time_cuda(
-        lambda: choose_block_constrained(*ct_args, ct_cons, ct_masks, w_thr, 1, node_words=ct_words), reps=20)
+    # #2t's time at this shape read 0.21-0.42 ms across earlier runs: 5
+    # interleaved rounds of 50 launches with and without the term.
+    cms = interleaved_ms({
+        "term": lambda: choose_block_constrained(*ct_args, ct_cons, ct_masks, w_thr, 1, node_words=ct_words,
+                                                 topo=ct_topo),
+        "no_term": lambda: choose_block_constrained(*ct_args, ct_cons, ct_masks, w_thr, 1, node_words=ct_words),
+    })
+    ctopo_ms = statistics.median(cms["term"])
     ct_pod_ops, ct_node_ops = constrained_pod_operands(ct_cons, ct_masks), constrained_node_operands(ct_masks)
-    ctopo_bound, ctopo_bound_by = topology_bound_ms(
+    ctopo_bound = topology_bound_ms(
         ct_args, ct_topo, [int(t.shape[1]) for t in ct_pod_ops], constrained_products(ct_pod_ops, ct_node_ops,
                                                                                    ct_args[8]))
     emit({"phase": "choose_constrained_topology_timing", "B": 8192, "N": ct.padded_nodes,
-          "gang_rows": int(ct_term.shape[0]), "ms": ctopo_ms, "ms_without_term": ct_no_term_ms,
-          "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound, "bound_by": ctopo_bound_by,
-          "share_of_bound": ctopo_bound / ctopo_ms, "equal": True, "max_abs_err": err, "nvidia_smi": smi})
-    del t_arrays, t_term, first, first_topo, first_words, ct_arrays, ct_masks, ct_term_arrays, ct_term, ct_args
+          "gang_rows": int(ct_term.placed.shape[0]), "ms": ctopo_ms, "ms_spread": spread(cms["term"]),
+          "ms_without_term": statistics.median(cms["no_term"]), "ms_without_term_spread": spread(cms["no_term"]),
+          "plain_ms": ctopo_plain_ms, **ctopo_bound, "share_of_bound": ctopo_bound["bound_ms"] / ctopo_ms,
+          "equal": True, "max_abs_err": err, "nvidia_smi": smi})
+    del t_arrays, t_term, first, first_topo, first_words, ct_arrays, ct_masks, ct_term, ct_args
     del ct_cons, ct_topo, ct_words, ct_pod_ops, ct_node_ops
     torch.cuda.empty_cache()
 
@@ -2407,10 +2525,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     choose_mod.LAUNCHES = choose_mod.LAUNCHES_CONSTRAINED = 0
     choose_mod.LAUNCHES_TOPO = choose_mod.LAUNCHES_CONSTRAINED_TOPO = 0
+    locality_mod.DENSE_TERMS_CUDA = 0
     miss_s, miss_res, miss_bytes = topology_cycles(tbackend, tflag, throughput, 3, fresh=True)
     hit_s, hit_res, hit_bytes = topology_cycles(tbackend, tflag, throughput, 3, fresh=False)
     tlaunches = choose_mod.LAUNCHES_TOPO
     tstray = [choose_mod.LAUNCHES, choose_mod.LAUNCHES_CONSTRAINED, choose_mod.LAUNCHES_CONSTRAINED_TOPO]
+    dense_terms = locality_mod.DENSE_TERMS_CUDA
+    peak_mem = torch.cuda.max_memory_allocated()
+    if dense_terms:
+        raise SystemExit(f"topology flagship: {dense_terms} dense [G+1, N] gang terms built on the card")
     res = hit_res[-1]
     if any(not np.array_equal(r.assigned, res.assigned) or r.rounds != res.rounds for r in miss_res + hit_res):
         raise SystemExit("topology flagship: cycles are not deterministic")
@@ -2427,7 +2550,7 @@ def main() -> int:
           "rounds": res.rounds, "bound": len(res.bindings), "unschedulable": len(res.unschedulable),
           "choose_topology_launches_per_cycle": tlaunches // 6, "quality": gang_quality(res, tcompiled, tgangs),
           "blind": dict(gang_quality(blind, tcompiled, tgangs), rounds=blind.rounds, bound=len(blind.bindings)),
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "invariants": "ok", "nvidia_smi": smi})
+          "dense_terms_on_card": dense_terms, "peak_mem_bytes": peak_mem, "invariants": "ok", "nvidia_smi": smi})
     emit(topology_breakdown(tbackend, tflag, throughput))
     del tcl, tflag, tset, miss_res, hit_res, res, blind, tbackend
     torch.cuda.empty_cache()
@@ -2481,13 +2604,14 @@ def main() -> int:
             "name": "choose_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
             "launches": tlaunches, "max_abs_err": topo_max_abs_err, "ms": topo_ms, "plain_ms": topo_plain_ms,
-            "bound_ms": topo_bound, "bound_by": topo_bound_by, "library_ms": None,
+            "bound_ms": topo_bound["bound_ms"], "bound_by": topo_bound["bound_by"], "library_ms": None,
         },
         {
             "name": "choose_constrained_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
             "launches": ctopo_launches, "max_abs_err": ctopo_max_abs_err, "ms": ctopo_ms,
-            "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound, "bound_by": ctopo_bound_by, "library_ms": None,
+            "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound["bound_ms"], "bound_by": ctopo_bound["bound_by"],
+            "library_ms": None,
         },
     ] + [
         {

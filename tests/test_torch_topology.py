@@ -1,7 +1,9 @@
 """Topology (gang-locality) cycles of the PyTorch/CUDA port against the JAX
 package, on the same NumPy inputs: the copied model and packing
-(``TopologyModel``, ``load_topology_file``, ``pack_topology``), the torch
-term and state update against the JAX package's NumPy path bit for bit,
+(``TopologyModel``, ``load_topology_file``, ``pack_topology``), the port's
+per-(gang, domain) state, its update and the dense term built from it
+against the JAX package's per-node state, ``gang_state_update`` and
+``gang_topology_term`` (NumPy path) bit for bit,
 ``score_block`` with the term against the JAX ``score_block`` under jnp,
 the choose wrappers' topology operand, ``CudaBackend(device="cpu")``
 topology cycles — unconstrained and constrained — against ``NativeBackend``
@@ -150,7 +152,12 @@ def test_pack_topology_matches_jax(kw):
     for k in tp.meta:
         assert tp.meta[k].dtype == tj.meta[k].dtype, k
         np.testing.assert_array_equal(tp.meta[k], tj.meta[k], err_msg=k)
-    for k, v in tj.state_arrays().items():
+    # The port's per-domain zeros are the JAX package's per-node zeros summed
+    # per domain.
+    want = _domain_state(tj.state_arrays()["gang_nodes"], tj.meta)
+    assert sorted(tp.state_arrays()) == ["placed", "total"]
+    for k, v in want.items():
+        assert tp.state_arrays()[k].dtype == np.float32
         np.testing.assert_array_equal(tp.state_arrays()[k], v)
     snap = synth_cluster(n_nodes=8, n_pending=10, seed=1)
     compiled = model.TopologyModel.detect(_label(snap).nodes).compile(snap.nodes)
@@ -160,6 +167,31 @@ def test_pack_topology_matches_jax(kw):
 
 
 # --- the term and its state -----------------------------------------------------
+
+
+def _domain_state(gang_nodes, meta):
+    """The port's per-(gang, domain) state of a JAX per-node state
+    ``gang_nodes`` [G+1, N+1] (its sentinel column dropped): ``placed``
+    [G+1, Dt], each level's ``gang_nodes @ onehot.T`` side by side, and
+    ``total`` [G+1].  Integer counts: exact in any order."""
+    n = meta["dom_id_0"].shape[0]
+    per_node = gang_nodes[:, :n].astype(np.float64)
+    levels = meta["level_dist"].shape[0]
+    placed = np.concatenate([per_node @ meta[f"dom_onehot_{lvl}"].T for lvl in range(levels)], axis=1)
+    return {"placed": placed.astype(np.float32), "total": per_node.sum(axis=1).astype(np.float32)}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _port_term(meta, state, avail, gid, req, active, w):
+    """The port's dense term from the per-domain ``state`` (NumPy arrays in,
+    torch out), through gang_cycle_operands and gang_round_operands."""
+    tmeta = {k: _t(v) for k, v in meta.items()}
+    op = locality.gang_round_operands(locality.gang_cycle_operands(tmeta), {k: _t(v.copy()) for k, v in state.items()},
+                                      tmeta, _t(avail), _t(gid), _t(req), _t(active), w)
+    return locality.gang_topology_term(op)
 
 
 def _random_round(seed, g1, n, p, dists, domains):
@@ -180,29 +212,75 @@ def _random_round(seed, g1, n, p, dists, domains):
     return meta, gang_nodes, avail, req, gid, active, rng
 
 
-@pytest.mark.parametrize(
-    "seed,dists,domains",
-    [(0, [1.0, 1.0], [12, 4]), (1, [1.0, 2.5], [9, 3]), (2, [0.75], [20]), (3, [1.0, 1.0, 3.0], [16, 8, 2])],
-)
+def _same_bits(got: torch.Tensor, want: np.ndarray) -> None:
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want, np.float32).view(np.int32))
+
+
+ROUNDS = [
+    (0, [1.0, 1.0], [12, 4]), (1, [1.0, 2.5], [9, 3]), (2, [0.75], [20]), (3, [1.0, 1.0, 3.0], [16, 8, 2]),
+    (4, [0.5, 1.0, 2.0, 4.0], [30, 10, 5, 2]), (5, [1.0, 1.0], [1, 1]), (6, [3.0], [61]),
+]
+
+
+@pytest.mark.parametrize("seed,dists,domains", ROUNDS)
 def test_term_and_state_update_match_jax_numpy(seed, dists, domains):
+    """A mid-cycle state (random placed counts): the dense term from the
+    per-domain state equals the JAX term from the per-node state; the
+    update, with non-claimants on the sentinel N, equals the JAX update
+    summed per domain."""
     g1, n, p = 11, 61, 57
     meta, gang_nodes, avail, req, gid, active, rng = _random_round(seed, g1, n, p, dists, domains)
     w = np.float32(64.0)
     want = jax_loc.gang_topology_term(np, gang_nodes, meta, avail, gid, req, active, w)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
-    got = locality.gang_topology_term(t(gang_nodes), {k: t(v) for k, v in meta.items()}, t(avail), t(gid), t(req),
-                                      t(active), w)
-    assert got.dtype == torch.float32 and got.is_contiguous()
-    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    state = _domain_state(gang_nodes, meta)
+    got = _port_term(meta, state, avail, gid, req, active, w)
+    _same_bits(got, want)
     assert (got[0] == 0).all() and not torch.signbit(got[0]).any()
 
     accepted = rng.random(p) < 0.5
-    choice = rng.integers(0, n + 1, p).astype(np.int32)  # n: the non-claimant sentinel
-    want_state = jax_loc.gang_state_update(np, gang_nodes, accepted, choice, gid)
-    state = t(gang_nodes.copy())
-    out = locality.gang_state_update(state, t(accepted), t(choice), t(gid))
-    assert out is state  # updated in place
-    np.testing.assert_array_equal(out.numpy(), want_state)
+    choice = rng.integers(0, n, p).astype(np.int32)
+    choice[~accepted & (rng.random(p) < 0.5)] = n  # the non-claimant sentinel
+    want_state = _domain_state(jax_loc.gang_state_update(np, gang_nodes, accepted, choice, gid), meta)
+    tstate = {k: _t(v.copy()) for k, v in state.items()}
+    dom_col = locality.gang_cycle_operands({k: _t(v) for k, v in meta.items()})["dom_col"]
+    out = locality.gang_state_update(tstate, dom_col, _t(accepted), _t(choice), _t(gid))
+    assert out is tstate and out["placed"].data_ptr() == tstate["placed"].data_ptr()  # updated in place
+    for k, v in want_state.items():
+        _same_bits(out[k], v)
+
+
+@pytest.mark.parametrize("weight", [0.0, -0.0, 1e-3, 0.3, 1.0, 64.0, 1e5, 1e9, -2.5])
+@pytest.mark.parametrize("seed", [7, 8])
+def test_term_across_weights_matches_jax(seed, weight):
+    """Weight 0 (w·t is −0.0 where t < 0), negative weights and weights
+    across magnitudes, with level distances across magnitudes too."""
+    meta, gang_nodes, avail, req, gid, active, _rng = _random_round(seed, 9, 45, 40, [1e-3, 1e4], [7, 3])
+    w = np.float32(weight)
+    want = jax_loc.gang_topology_term(np, gang_nodes, meta, avail, gid, req, active, w)
+    _same_bits(_port_term(meta, _domain_state(gang_nodes, meta), avail, gid, req, active, w), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_state_over_rounds_matches_jax(seed):
+    """Three rounds of placements folded into both states from zero, the
+    term after each: the per-domain counts track the per-node ones."""
+    g1, n, p = 7, 40, 60
+    meta, _gn, avail, req, gid, active, rng = _random_round(seed, g1, n, p, [1.0, 2.0], [10, 2])
+    gang_nodes = np.zeros((g1, n + 1), np.float32)
+    tmeta = {k: _t(v) for k, v in meta.items()}
+    cyc = locality.gang_cycle_operands(tmeta)
+    state = locality.gang_state_zeros(tmeta, g1 - 1, "cpu")
+    w = np.float32(64.0)
+    for _ in range(3):
+        accepted = active & (rng.random(p) < 0.4)
+        choice = np.where(accepted, rng.integers(0, n, p), n).astype(np.int32)
+        gang_nodes = jax_loc.gang_state_update(np, gang_nodes, accepted, choice, gid)
+        locality.gang_state_update(state, cyc["dom_col"], _t(accepted), _t(choice.astype(np.int64)), _t(gid))
+        active = active & ~accepted
+        want = jax_loc.gang_topology_term(np, gang_nodes, meta, avail, gid, req, active, w)
+        op = locality.gang_round_operands(cyc, state, tmeta, _t(avail), _t(gid), _t(req), _t(active), w)
+        _same_bits(locality.gang_topology_term(op), want)
 
 
 def test_term_on_a_packed_cluster_matches_jax():
@@ -218,11 +296,25 @@ def test_term_on_a_packed_cluster_matches_jax():
     want = jax_loc.gang_topology_term(np, gang_nodes, topo.meta, packed.node_avail, topo.pod_gang_id,
                                       packed.pod_req, packed.pod_valid, w)
     pods, meta, state = topology_to_device(topo, "cpu")
-    state["gang_nodes"].copy_(torch.from_numpy(gang_nodes))
-    got = locality.gang_topology_term(state["gang_nodes"], meta, torch.from_numpy(packed.node_avail),
-                                      pods["pod_gang_id"], torch.from_numpy(packed.pod_req),
-                                      torch.from_numpy(packed.pod_valid), w)
-    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    for k, v in _domain_state(gang_nodes, topo.meta).items():
+        state[k].copy_(_t(v))
+    op = locality.gang_round_operands(locality.gang_cycle_operands(meta), state, meta, _t(packed.node_avail),
+                                      pods["pod_gang_id"], _t(packed.pod_req), _t(packed.pod_valid), w)
+    _same_bits(locality.gang_topology_term(op), want)
+
+
+def test_cycle_operands_are_the_reference_ops():
+    """dom_col is each level's domain id shifted to its block; herd is
+    1 + 4·tb in float32, as the reference forms it."""
+    topo = _port_packed(GANGS).topology
+    _pods, meta, _state = topology_to_device(topo, "cpu")
+    cyc = locality.gang_cycle_operands(meta)
+    blocks = locality.domain_columns(meta)
+    assert blocks[0][0] == 0 and blocks[1][0] == blocks[0][1] and cyc["dom_col"].dtype == torch.int32
+    for lvl, (off, width) in enumerate(blocks):
+        np.testing.assert_array_equal(cyc["dom_col"][lvl].numpy(), topo.meta[f"dom_id_{lvl}"] + off)
+        want = np.float32(1.0) + np.float32(locality.HERD_SCALE) * topo.meta[f"gang_tb_{lvl}"]
+        _same_bits(cyc["herd"][:, off : off + width].contiguous(), want)
 
 
 def test_topology_to_device_builds_zero_state():
@@ -230,9 +322,10 @@ def test_topology_to_device_builds_zero_state():
     pods, meta, state = topology_to_device(topo, "cpu")
     assert torch.equal(pods["pod_gang_id"], torch.from_numpy(topo.pod_gang_id))
     assert sorted(meta) == sorted(topo.meta)
-    g = state["gang_nodes"]
-    assert g.shape == (topo.n_gangs + 1, topo.meta["dom_id_0"].shape[0] + 1) and g.dtype == torch.float32
-    assert not g.any()
+    dt = sum(topo.meta[f"gang_tb_{lvl}"].shape[1] for lvl in range(topo.meta["level_dist"].shape[0]))
+    assert sorted(state) == ["placed", "total"]
+    assert state["placed"].shape == (topo.n_gangs + 1, dt) and state["total"].shape == (topo.n_gangs + 1,)
+    assert all(v.dtype == torch.float32 and not v.any() for v in state.values())
     calls = []
     topology_to_device(topo, "cpu", put=lambda a: calls.append(a) or torch.from_numpy(a))
     assert len(calls) == 1 + len(topo.meta)  # pod and meta arrays; never the state
@@ -269,15 +362,21 @@ def _block_args(packed, lo, hi):
     return pod + [torch.arange(lo, hi, dtype=torch.int32)] + node
 
 
+def _round_term(packed, weight, lo=0, hi=64):
+    """The cycle-start GangTerm of ``packed`` with the gang ids of rows
+    [lo, hi)."""
+    pods, meta, state = topology_to_device(packed.topology, "cpu")
+    op = locality.gang_round_operands(locality.gang_cycle_operands(meta), state, meta, _t(packed.node_avail),
+                                      pods["pod_gang_id"], _t(packed.pod_req), _t(packed.pod_valid), weight)
+    return op._replace(gang_id=pods["pod_gang_id"][lo:hi])
+
+
 @pytest.mark.parametrize("constrained", [False, True])
 def test_choose_with_topo_on_cpu_is_plain_and_moves_gangs(constrained):
     packed = _port_packed(GANGS_CONSTRAINED if constrained else GANGS, constrained)
     args = _block_args(packed, 0, 64)
     w = PROFILES["throughput"].weights()
-    pods, meta, state = topology_to_device(packed.topology, "cpu")
-    term = locality.gang_topology_term(state["gang_nodes"], meta, args[10], pods["pod_gang_id"],
-                                       torch.from_numpy(packed.pod_req), torch.from_numpy(packed.pod_valid), w[6])
-    topo = (pods["pod_gang_id"][:64], term)
+    topo = _round_term(packed, w[6])
     launches = (choose_mod.LAUNCHES_TOPO, choose_mod.LAUNCHES_CONSTRAINED_TOPO)
     if constrained:
         from tpu_scheduler_torch.convert import constraints_to_device
@@ -301,18 +400,104 @@ def test_choose_with_topo_on_cpu_is_plain_and_moves_gangs(constrained):
     assert bool((want[0] != blind[0]).any())  # the term moved some pods
 
 
+def _tie_case(b=45, n=700, gangs=5):
+    """Every node identical, no jitter: every base score ties.  One level
+    of 4-node slices; gang g has one member placed in slice g and one in
+    slice 160 + g (nodes 640 + 4·g .. +3, another warp), so the term ties
+    the 8 nodes of those two slices at its maximum.  Node 4·g is invalid:
+    each gang's pods must pick 4·g + 1, the gangless pods node 0."""
+    z = lambda *s: torch.zeros(s, dtype=torch.float32)  # noqa: E731
+    req = torch.tensor([[100, 131072]] * b, dtype=torch.int32)
+    alloc = torch.tensor([[8000, 16777216]] * n, dtype=torch.int32)
+    avail = torch.tensor([[2000, 4194304]] * n, dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[[4 * g for g in range(1, gangs + 1)]] = False
+    args = [
+        req, z(b, 8), z(b), z(b, 8), z(b, 8), z(b), z(b, 8), z(b, 8),
+        torch.ones(b, dtype=torch.bool), torch.arange(b, dtype=torch.int32),
+        avail, alloc, valid, z(n, 8), z(n, 8), z(n, 8), z(n, 8), z(n, 8),
+    ]
+    d = 175 + 1  # domains 0..174 and the sentinel
+    dom = torch.arange(n, dtype=torch.int32) // 4
+    placed = z(gangs + 1, d)
+    for g in range(1, gangs + 1):
+        placed[g, g] = placed[g, 160 + g] = 1.0
+    gid = torch.arange(b, dtype=torch.int32) % (gangs + 1)
+    op = locality.GangTerm(gid, dom[None, :].contiguous(), torch.tensor([1.0]), placed, placed.sum(dim=1),
+                           torch.full((gangs + 1, 2), 100.0), torch.full((d, 2), 1e6), torch.ones((gangs + 1, d)),
+                           64.0)
+    return args, op
+
+
+def test_term_ties_resolve_to_the_lowest_index_as_jax():
+    args, op = _tie_case()
+    no_jitter = PROFILES["throughput"].weights().copy()
+    no_jitter[2] = 0.0
+    choice, has, _best = choose_mod.choose_block(*args, no_jitter, 0, topo=op)
+    assert bool(has.all())
+    want = torch.where(op.gang_id > 0, 4 * op.gang_id + 1, 0)
+    assert torch.equal(choice, want.to(torch.int32))
+    # The same term from the JAX package's per-node state.
+    n = args[10].shape[0]
+    gang_nodes = np.zeros((op.placed.shape[0], n + 1), np.float32)
+    for g in range(1, op.placed.shape[0]):
+        gang_nodes[g, [4 * g + 1, 640 + 4 * g + 1]] = 1.0
+    dom = op.dom_col[0].numpy()
+    onehot = np.zeros((op.placed.shape[1], n), np.float32)
+    onehot[dom, np.arange(n)] = 1.0
+    meta = {"level_dist": np.float32([1.0]), "dom_id_0": dom, "dom_onehot_0": onehot,
+            "gang_tb_0": np.zeros(op.herd.shape, np.float32)}
+    free = np.full((n, 2), 250_000, np.int32)  # every slice holds 1e6 of each
+    req = np.full((op.gang_id.shape[0], 2), 0, np.int32)
+    pod_gid = np.arange(op.placed.shape[0], dtype=np.int32)
+    req[: pod_gid.shape[0]] = 50
+    want_t = jax_loc.gang_topology_term(np, gang_nodes, meta, free, pod_gid, req[: pod_gid.shape[0]],
+                                        np.ones(pod_gid.shape[0], bool), np.float32(64.0))
+    _same_bits(locality.gang_topology_term(op), want_t)
+
+
 @pytest.mark.parametrize("bad", [-1, 99])
 def test_out_of_range_gang_id_raises(bad):
     packed = _port_packed(GANGS)
     args = _block_args(packed, 0, 16)
+    topo = _round_term(packed, 64.0, 0, 16)
     gid = torch.zeros(16, dtype=torch.int32)
     gid[5] = bad
-    term = torch.zeros((4, packed.padded_nodes), dtype=torch.float32)
     with pytest.raises(ValueError, match="pod_gang_id"):
-        choose_mod.choose_block(*args, PROFILES["default"].weights(), 0, topo=(gid, term))
+        choose_mod.choose_block(*args, PROFILES["default"].weights(), 0, topo=topo._replace(gang_id=gid))
+    g1 = topo.placed.shape[0]
     with pytest.raises(ValueError, match="pod_gang_id"):
-        choose_mod.check_gang_ids(gid, 4)
-    choose_mod.check_gang_ids(torch.clamp(gid, 0, 3), 4)
+        choose_mod.check_gang_ids(gid, g1)
+    choose_mod.check_gang_ids(torch.clamp(gid, 0, g1 - 1), g1)
+
+
+@pytest.mark.parametrize("bad", [-1, 10_000])
+def test_out_of_range_domain_column_raises(bad):
+    packed = _port_packed(GANGS)
+    args = _block_args(packed, 0, 16)
+    topo = _round_term(packed, 64.0, 0, 16)
+    dom_col = topo.dom_col.clone()
+    dom_col[1, 3] = bad
+    with pytest.raises(ValueError, match="dom_col"):
+        choose_mod.choose_block(*args, PROFILES["default"].weights(), 0, topo=topo._replace(dom_col=dom_col))
+    choose_mod.check_domain_columns(topo.dom_col, topo.placed.shape[1])
+
+
+def test_topo_operand_shapes_and_level_cap_are_checked():
+    """The launch-side checks (device-agnostic, so they run here): more
+    levels than the kernels take, and a state of the wrong shape."""
+    packed = _port_packed(GANGS)
+    topo = _round_term(packed, 64.0, 0, 16)
+    n, device = packed.padded_nodes, torch.device("cpu")
+    assert choose_mod._check_topo(topo, 16, n, device) is topo
+    lv = choose_mod.MAX_LEVELS + 1
+    deep = topo._replace(dom_col=topo.dom_col[:1].repeat(lv, 1), level_dist=torch.ones(lv))
+    with pytest.raises(ValueError, match="levels"):
+        choose_mod._check_topo(deep, 16, n, device)
+    with pytest.raises(ValueError, match="rem"):
+        choose_mod._check_topo(topo._replace(rem=topo.rem[:, :1].contiguous()), 16, n, device)
+    with pytest.raises(ValueError, match="pod_gang_id"):
+        choose_mod._check_topo(topo, 17, n, device)
 
 
 # --- cycles -----------------------------------------------------------------------

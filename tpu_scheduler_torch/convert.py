@@ -29,7 +29,7 @@ import torch
 from .api.objects import Node, Pod, PodDisruptionBudget
 from .ops.constraints import ConstraintSet
 from .ops.pack import PackedCluster
-from .topology.locality import TopologySet
+from .topology.locality import TopologySet, gang_state_zeros
 
 __all__ = [
     "cluster_from_manifests",
@@ -126,12 +126,11 @@ def topology_from_arrays(pod: dict, meta: dict, n_gangs: int, gang_names, compil
 def topology_to_device(topo: TopologySet, device: str | torch.device, put=None) -> tuple[dict, dict, dict]:
     """(pod, meta, state) dicts of torch tensors on ``device``: the gang ids
     ride the auction's pod dict (permuted, compacted and sliced with it),
-    the meta goes as it is, and the [G+1, N+1] float32 ``gang_nodes`` state
-    is made on the device with ``torch.zeros`` (at the full shape a host
-    upload would move hundreds of MB of zeros per cycle)."""
+    the meta goes as it is, and the round state — ``placed`` [G+1, Dt] and
+    ``total`` [G+1] float32, per (gang, domain) and per gang
+    (``locality.gang_state_zeros``) — is made on the device with
+    ``torch.zeros``, never uploaded."""
     up = _upload(device, put)
     pods = {k: up(v) for k, v in topo.pod_arrays().items()}
     meta = {k: up(v) for k, v in topo.meta_arrays().items()}
-    n = topo.meta["dom_id_0"].shape[0]
-    state = {"gang_nodes": torch.zeros((topo.n_gangs + 1, n + 1), dtype=torch.float32, device=device)}
-    return pods, meta, state
+    return pods, meta, gang_state_zeros(topo.meta, topo.n_gangs, device)

@@ -26,19 +26,35 @@
 //           − (2·w2)·(spd_pod·spl_node), + ppaw_pod·ppa_node
 //
 // choose_kernel<·, ·, true> adds the gang co-placement term of a topology
-// cycle: the round's [G+1, N] float32 tensor T (topology/locality.py
-// gang_topology_term) and the block's gang ids [B] int32; each pod's score
-// takes T[gid·N + n] as its LAST add, after every other term, before the
-// masked argmax, and `best` includes it.  The JAX package runs topology
-// cycles on its jnp tree instead of its Pallas kernel
-// (tpu_scheduler/ops/assign.py:229-233, the term at ops/score.py:141-150);
-// here the term is one more additive operand of the hand-written kernels.
-// The flag is a template parameter, so the launches without the term run
-// the instances they ran before, unchanged (a runtime branch in the
-// unrolled pod loop costs 8-12 %, see the jitter modes below).  A pod's
-// value is read only where the pod passed every predicate, coalesced
-// across the threads' nodes; gang members are adjacent in priority order,
-// so a tile's 8 pods read 1-3 rows and the repeated addresses hit L1.
+// cycle (topology/locality.py; the JAX package runs topology cycles on its
+// jnp tree instead of its Pallas kernel, tpu_scheduler/ops/assign.py:229-233,
+// the term tpu_scheduler/topology/locality.py:170-215, added at
+// ops/score.py:141-150).  The term of gang g at node n depends only on g and
+// n's domain at each level l, so the kernel computes it from small
+// per-(gang, domain) state instead of reading a dense [G+1, N] tensor: each
+// node's domain column per level, dom_col[l·N + n], the domain's free
+// cpu/memory dom_free[c], and per gang the placed counts placed[g·Dt + c],
+// the herd values herd[g·Dt + c], total[g] and the remaining demand rem[g]
+// (the last two staged with the tile).  In the reference's order, with correctly rounded
+// float ops:
+//   t = 0; per level: t = t − (16·d_l)·(total − same); t = t + d_l·(fits·herd)
+//   term = w·t, and +0.0 for gang 0
+// and the score takes it as its LAST add, after every other term, before
+// the masked argmax, and `best` includes it.  Gang members are adjacent in
+// priority order, so a tile's 8 pods hold 1-3 gangs: the tile's run starts
+// (a pod whose gang differs from the previous pod's; an inactive pod rides
+// the previous run) are one mask, the same for every thread, built after
+// staging; in the unrolled pod loop the term is computed at a run start
+// and reused by the rest of the run, with no divergence between the
+// block's threads (skipping a run none of whose pods passed at the node
+// measured 2 % slower: the branch diverges).
+// A run's reads are 4 per level (the node's column and its domain's
+// capacity, the gang's placed count and herd value), coalesced across the
+// threads' nodes (a warp's 32 nodes span 8 slices) and L1-resident across
+// the walk.  The flag is a template parameter, so the
+// launches without the term run the instances they ran before, unchanged
+// (a runtime branch in the unrolled pod loop costs 8-12 %, see the jitter
+// modes below).
 //
 // The two families without the term serve kernel #2b, the per-shard choose
 // of the sharded cycle (tpu_scheduler/parallel/sharded.py:261-270,
@@ -159,9 +175,15 @@
 // * The sign of zero: a negative weight against a zero count is −0.0; every
 //   sum starts at +0.0 and +0.0 + −0.0 = +0.0, so a sum never becomes −0.0
 //   and summing or skipping such a product gives equal bits.
-// * The gang term is one correctly rounded add, the reference's last; an
-//   out-of-range gang id would read outside T, so the wrapper checks the ids
-//   (ops/choose.check_gang_ids, once per cycle in assign_cycle).
+// * The gang term follows the reference tree op for op (__fsub_rn,
+//   __fmul_rn, __fadd_rn); fits·herd is a product, as the reference forms
+//   it; `same` and `total` are integer counts, equal to the reference's
+//   placed @ onehot.T in any order; gang 0's term is +0.0; and the term is
+//   added even where it is +0.0 (a −0.0 score plus +0.0 is +0.0).  An
+//   out-of-range gang id or domain column would read outside the state, so
+//   the wrapper checks them (ops/choose.check_gang_ids, check_domain_columns,
+//   once per cycle in assign_cycle), and the launcher refuses more than
+//   MAX_LEVELS levels.
 // * Feature presence is keyed on the operand WIDTHS (Ss > 0, Tp > 0; the
 //   level term always), never on a tile's live count: the plain version
 //   adds a term iff the feature is in the cycle, and skipping a +0.0 term
@@ -182,6 +204,8 @@
 #define TSCHED_ERR_SMEM 100001
 // The soft count becomes a float by exact bit arithmetic below this width.
 #define MAX_SOFT_WIDTH (1 << 23)
+// The topology levels the gang term takes (ops/choose.MAX_LEVELS).
+#define MAX_LEVELS 4
 
 static __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
@@ -220,8 +244,7 @@ struct ChooseArgs {
   const bool* valid;
   const uint32_t *labels, *taints, *node_aff, *node_pref, *taints_soft;
   const float *blk_pod, *blk_node, *sps_pod, *sps_node, *spd_pod, *spl_node, *ppaw_pod, *ppa_node;
-  const int32_t* gang_id;  // [B], with topo [G+1, N]; null without the gang term
-  const float* topo;
+  const int32_t* gang_id;  // [B]; null without the gang term
   int B, N, R, L, T, A, A2, Ts, Wb, Ss, S, Tp;
   float w_lr, w_ba, w_jit, w_pref, w_soft, w_topo, inv_jit;
   int jit_pow2;  // w_jit > 0 is a power of two and inv_jit its exact reciprocal
@@ -229,6 +252,16 @@ struct ChooseArgs {
   int32_t* choice;
   bool* has;
   float* best;
+  // The rest of the gang term, after every field the instances without it
+  // read (ahead of them, the struct's layout moved the register allocation
+  // of choose_kernel<true, true, false>): domain columns [Lv, N] int32,
+  // level distances [Lv], per (gang, domain) placed counts and herd values
+  // [G+1, Dt], per gang total [G+1] and remaining demand [G+1, 2], per
+  // domain free capacity [Dt, 2].
+  const int32_t* dom_col;
+  const float *level_dist, *placed, *total, *rem, *dom_free, *herd;
+  int Lv, Dt;
+  float w_gang;
 };
 
 static __host__ __device__ __forceinline__ int words_of(int width) { return (width + 31) / 32; }
@@ -254,6 +287,31 @@ static __device__ __forceinline__ void load_node(NodeRow& r, const ChooseArgs& a
     r.npref = a.A2 ? a.node_pref[n] : 0u;
     r.nsoft = a.Ts ? a.taints_soft[n] : 0u;
   }
+}
+
+// The gang term of gang g at node n, in the reference's op order (header);
+// tot and (rc, rm) are g's total and remaining demand, anchor[l] = 16·d_l.
+// The node's domain column and free capacity are read here, per level, from
+// L1 after the first run of the tile: held in registers across the pod loop
+// (loaded one step ahead with the node's other data, or once per node)
+// they made the instance spill and run 2-4 % slower (PERF.md).
+static __device__ __forceinline__ float gang_term(const ChooseArgs& a, int g, float tot, float rc, float rm,
+                                                  int n, const float* dist, const float* anchor) {
+  if (g == 0) return 0.0f;  // where(g > 0, w·t, 0): +0.0
+  const float* placed = a.placed + (size_t)g * a.Dt;
+  const float* herd = a.herd + (size_t)g * a.Dt;
+  float t = 0.0f;
+#pragma unroll
+  for (int l = 0; l < MAX_LEVELS; ++l) {
+    if (l < a.Lv) {
+      const int c = __ldg(a.dom_col + (size_t)l * a.N + n);
+      const float2 f = __ldg(reinterpret_cast<const float2*>(a.dom_free) + c);
+      t = __fsub_rn(t, __fmul_rn(anchor[l], __fsub_rn(tot, __ldg(placed + c))));
+      const float fits = (rc <= f.x && rm <= f.y) ? 1.0f : 0.0f;
+      t = __fadd_rn(t, __fmul_rn(dist[l], __fmul_rn(fits, __ldg(herd + c))));
+    }
+  }
+  return __fmul_rn(a.w_gang, t);
 }
 
 // Stage the tile's rows of a [B, width] operand into shared rows (row stride
@@ -342,7 +400,9 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
   __shared__ int s_need[PODS];  // selc as the integer count it must equal, −1 for none
   __shared__ float s_hasaff[PODS];
   __shared__ uint32_t s_rank[PODS];
-  __shared__ int s_gid[PODS];  // TOPO: the pod's row of T
+  __shared__ int s_gid[PODS];  // TOPO: the pod's gang (0 for an inactive pod)
+  __shared__ float s_gtot[PODS], s_grem[PODS][2];  // TOPO: its gang's total and remaining demand
+  __shared__ float s_dist[MAX_LEVELS], s_anchor[MAX_LEVELS];  // TOPO: d_l and 16·d_l
   __shared__ int s_active[PODS];
   __shared__ int s_nlive[4];
   __shared__ float red_score[WARPS][PODS];
@@ -413,9 +473,36 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
     s_need[p] = (c >= 0.0f && c < 16777216.0f && floorf(c) == c) ? (int)c : -1;
     s_hasaff[p] = in ? a.has_aff[p0 + p] : 0.0f;
     s_rank[p] = in ? (uint32_t)a.ranks[p0 + p] : 0u;
-    if constexpr (TOPO) s_gid[p] = in ? a.gang_id[p0 + p] : 0;
+    if constexpr (TOPO) {
+      const int g = in ? a.gang_id[p0 + p] : 0;
+      s_gid[p] = g;
+      s_gtot[p] = a.total[g];
+      s_grem[p][0] = a.rem[2 * g];
+      s_grem[p][1] = a.rem[2 * g + 1];
+    }
+  }
+  if constexpr (TOPO) {
+    if (threadIdx.x < a.Lv) {
+      const float d = a.level_dist[threadIdx.x];
+      s_dist[threadIdx.x] = d;
+      s_anchor[threadIdx.x] = __fmul_rn(16.0f, d);
+    }
   }
   __syncthreads();
+
+  // TOPO: the tile's run starts, one bit per pod whose gang differs from the
+  // previous pod's (pod 0 always; an inactive pod rides the previous run).
+  // The same for every thread of the block.
+  uint32_t starts = 0u;
+  if constexpr (TOPO) {
+    int prev = 0;
+#pragma unroll
+    for (int p = 0; p < PODS; ++p) {
+      const int g = s_active[p] ? s_gid[p] : prev;
+      if (p == 0 || g != prev) starts |= 1u << p;
+      prev = g;
+    }
+  }
 
   if constexpr (CONSTRAINED) {  // one warp per operand builds its live list
     if (warp == 0) build_live(live, &s_nlive[0], feat, WC, 0, a.Wb);
@@ -570,6 +657,7 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
       const uint32_t used_c = (uint32_t)cur.alloc_c - (uint32_t)cur.avail_c;
       const uint32_t used_m = (uint32_t)cur.alloc_m - (uint32_t)cur.avail_m;
       const uint32_t h_node = ((uint32_t)n + a.node_offset) * 2246822519u + a.salt * 3266489917u;
+      float gterm = 0.0f;  // TOPO: the term of the current run of pods, computed at its start
 
       // Every pod is scored (no branch between pods, so their chains
       // interleave); a pod that is not ok never updates its best.
@@ -592,8 +680,11 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
           s = __fsub_rn(s, __fmul_rn(__fmul_rn(2.0f, a.w_jit), c_spl[p]));
           if (a.Tp > 0) s = __fadd_rn(s, c_ppa[p]);
         }
-        if constexpr (TOPO)  // the gang term, last; read only for a feasible pod
-          s = __fadd_rn(s, ((ok >> p) & 1u) ? __ldg(a.topo + (size_t)s_gid[p] * N + n) : 0.0f);
+        if constexpr (TOPO) {  // the gang term, last
+          if ((starts >> p) & 1u)  // a run start: the same branch for every thread
+            gterm = gang_term(a, s_gid[p], s_gtot[p], s_grem[p][0], s_grem[p][1], n, s_dist, s_anchor);
+          s = __fadd_rn(s, gterm);
+        }
         // strict: an equal score later in the walk never replaces
         const bool take = ((ok >> p) & 1u) && s > bscore[p];
         bscore[p] = take ? s : bscore[p];
@@ -673,16 +764,30 @@ static int launch(const ChooseArgs& a, cudaStream_t stream) {
 template <bool CONSTRAINED>
 static int launch_widths(const ChooseArgs& a, cudaStream_t stream) {
   const bool one = a.L <= 32 && a.T <= 32 && a.A <= 32 && a.A2 <= 32 && a.Ts <= 32;
-  if (a.topo != nullptr)
+  if (a.gang_id != nullptr)
     return one ? launch<CONSTRAINED, true, true>(a, stream) : launch<CONSTRAINED, false, true>(a, stream);
   return one ? launch<CONSTRAINED, true, false>(a, stream) : launch<CONSTRAINED, false, false>(a, stream);
 }
 
 static int check_args(const ChooseArgs& a) {
-  if ((a.topo == nullptr) != (a.gang_id == nullptr) || a.R < 2 || a.N < 0 || a.L < 0 || a.T < 0 || a.A < 0 ||
-      a.A2 < 0 || a.Ts < 0 || a.Ts >= MAX_SOFT_WIDTH || a.Wb < 0 || a.Ss < 0 || a.S < 0 || a.Tp < 0)
+  if (a.R < 2 || a.N < 0 || a.L < 0 || a.T < 0 || a.A < 0 || a.A2 < 0 || a.Ts < 0 || a.Ts >= MAX_SOFT_WIDTH ||
+      a.Wb < 0 || a.Ss < 0 || a.S < 0 || a.Tp < 0)
     return (int)cudaErrorInvalidValue;
+  if (a.gang_id != nullptr) {  // the gang term: every operand, 1..MAX_LEVELS levels, a non-empty domain axis
+    if (!a.dom_col || !a.level_dist || !a.placed || !a.total || !a.rem || !a.dom_free || !a.herd || a.Lv < 1 ||
+        a.Lv > MAX_LEVELS || a.Dt < 1)
+      return (int)cudaErrorInvalidValue;
+  }
   return 0;
+}
+
+static void gang_args(ChooseArgs& a, const void* gang_id, const void* dom_col, const void* level_dist,
+                      const void* placed, const void* total, const void* rem, const void* dom_free, const void* herd,
+                      int Lv, int Dt, float w_gang) {
+  a.gang_id = (const int32_t*)gang_id, a.dom_col = (const int32_t*)dom_col;
+  a.level_dist = (const float*)level_dist, a.placed = (const float*)placed, a.total = (const float*)total;
+  a.rem = (const float*)rem, a.dom_free = (const float*)dom_free, a.herd = (const float*)herd;
+  a.Lv = Lv, a.Dt = Dt, a.w_gang = w_gang;
 }
 
 static ChooseArgs base_args(const void* req, const void* sel, const void* selc, const void* ntol, const void* aff,
@@ -710,8 +815,8 @@ extern "C" {
 
 // Both launchers launch on `stream`, allocate nothing and do not
 // synchronise.  The node bitmaps are the words of ops/choose.pack_node_words
-// ([ceil(W/32), N] int32 each).  `gang_id` [B] int32 and `topo` [G+1, N]
-// float32 carry the gang term, both null without it.  `jit_pow2` says that
+// ([ceil(W/32), N] int32 each).  The gang term's operands (ChooseArgs), Lv,
+// Dt and w_gang carry it, the pointers null without it.  `jit_pow2` says that
 // w_jit > 0 is a power of two and `inv_jit` its exact reciprocal.  They return
 // cudaGetLastError() after the launch (0 = launched) or TSCHED_ERR_SMEM.
 
@@ -719,15 +824,17 @@ int tsched_choose_launch(const void* req, const void* sel, const void* selc, con
                          const void* has_aff, const void* pref_w, const void* ntol_soft, const void* active,
                          const void* ranks, const void* avail, const void* alloc, const void* valid,
                          const void* labels, const void* taints, const void* node_aff, const void* node_pref,
-                         const void* taints_soft, const void* gang_id, const void* topo, int B, int N, int R,
-                         int L, int T, int A, int A2, int Ts, float w_lr, float w_ba, float w_jit, float w_pref,
-                         float w_soft, float inv_jit, int jit_pow2, uint32_t salt, uint32_t node_offset, void* choice,
+                         const void* taints_soft, const void* gang_id, const void* dom_col,
+                         const void* level_dist, const void* placed, const void* total, const void* rem,
+                         const void* dom_free, const void* herd, int B, int N, int R, int L, int T, int A, int A2,
+                         int Ts, int Lv, int Dt, float w_lr, float w_ba, float w_jit, float w_pref, float w_soft,
+                         float inv_jit, int jit_pow2, float w_gang, uint32_t salt, uint32_t node_offset, void* choice,
                          void* has, void* best, void* stream) {
   if (B <= 0) return 0;
   ChooseArgs a = base_args(req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks, avail, alloc,
                            valid, labels, taints, node_aff, node_pref, taints_soft, B, N, R, L, T, A, A2, Ts, w_lr,
                            w_ba, w_jit, w_pref, w_soft, inv_jit, jit_pow2, salt, node_offset, choice, has, best);
-  a.gang_id = (const int32_t*)gang_id, a.topo = (const float*)topo;
+  gang_args(a, gang_id, dom_col, level_dist, placed, total, rem, dom_free, herd, Lv, Dt, w_gang);
   const int bad = check_args(a);
   if (bad) return bad;
   return launch_widths<false>(a, (cudaStream_t)stream);
@@ -737,16 +844,18 @@ int tsched_choose_launch(const void* req, const void* sel, const void* selc, con
 // pod/node pairs [B, Wb]/[Wb, N] (blocked band), [B, Ss]/[Ss, N] (soft
 // spread), [B, S]/[S, N] (hard-spread level), [B, Tp]/[Tp, N] (preferred
 // inter-pod), the gang term as tsched_choose_launch takes it, and w_topo
-// (profile weight 5).
+// (profile weight 5) before w_gang.
 int tsched_choose_constrained_launch(
     const void* req, const void* sel, const void* selc, const void* ntol, const void* aff, const void* has_aff,
     const void* pref_w, const void* ntol_soft, const void* active, const void* ranks, const void* avail,
     const void* alloc, const void* valid, const void* labels, const void* taints, const void* node_aff,
     const void* node_pref, const void* taints_soft, const void* blk_pod, const void* blk_node, const void* sps_pod,
     const void* sps_node, const void* spd_pod, const void* spl_node, const void* ppaw_pod, const void* ppa_node,
-    const void* gang_id, const void* topo, int B, int N, int R, int L, int T, int A, int A2, int Ts, int Wb, int Ss,
-    int S, int Tp, float w_lr, float w_ba, float w_jit, float w_pref, float w_soft, float inv_jit, int jit_pow2,
-    float w_topo, uint32_t salt, uint32_t node_offset, void* choice, void* has, void* best, void* stream) {
+    const void* gang_id, const void* dom_col, const void* level_dist, const void* placed, const void* total,
+    const void* rem, const void* dom_free, const void* herd, int B, int N, int R, int L, int T, int A, int A2, int Ts,
+    int Wb, int Ss, int S, int Tp, int Lv, int Dt, float w_lr, float w_ba, float w_jit, float w_pref, float w_soft,
+    float inv_jit, int jit_pow2, float w_topo, float w_gang, uint32_t salt, uint32_t node_offset, void* choice,
+    void* has, void* best, void* stream) {
   if (B <= 0) return 0;
   ChooseArgs a = base_args(req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks, avail, alloc, valid,
                            labels, taints, node_aff, node_pref, taints_soft, B, N, R, L, T, A, A2, Ts, w_lr, w_ba,
@@ -755,7 +864,7 @@ int tsched_choose_constrained_launch(
   a.sps_node = (const float*)sps_node, a.spd_pod = (const float*)spd_pod, a.spl_node = (const float*)spl_node;
   a.ppaw_pod = (const float*)ppaw_pod, a.ppa_node = (const float*)ppa_node;
   a.Wb = Wb, a.Ss = Ss, a.S = S, a.Tp = Tp, a.w_topo = w_topo;
-  a.gang_id = (const int32_t*)gang_id, a.topo = (const float*)topo;
+  gang_args(a, gang_id, dom_col, level_dist, placed, total, rem, dom_free, herd, Lv, Dt, w_gang);
   const int bad = check_args(a);
   if (bad) return bad;
   return launch_widths<true>(a, (cudaStream_t)stream);

@@ -7,7 +7,9 @@ nothing when imported:
     python -m tpu_scheduler_torch.experiments.bench_wide_kernel
 
 and ``bench_choose_builds``, which times kernel #1 from several builds of
-``csrc/choose.cu`` in one call.
+``csrc/choose.cu`` in one call; ``bench_choose_trees`` and
+``bench_topology_trees`` hold this checkout's term-free kernels and its
+topology path against another checkout's in one process.
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ pending pods are assigned in a few auction rounds; each round:
      the card the hand-written kernels).  A constrained cycle first builds
      the round's blocked/penalty node masks from the domain state
      (ops/constraints.round_blocked_masks) and runs the constrained choose.
-     A topology cycle first builds the round's [G+1, N] gang term from the
-     placement counts (topology/locality.gang_topology_term), and the
-     choose adds each pod's gang row as its last score term.
+     A topology cycle first builds the round's small term inputs from the
+     per-(gang, domain) placement counts (the gangs' remaining demand and
+     the domains' free capacity, topology/locality.gang_round_operands),
+     and the choose computes each pod's gang term from them and adds it as
+     its last score term; no round builds a [G+1, N] term on the card.
   2. accept:  pods sit in (priority desc, FIFO) order; a stable sort by
      chosen node groups each node's claimants in priority order, and a
      segmented prefix sum of their requests — exact int64 clamped to
@@ -19,8 +21,8 @@ pending pods are assigned in a few auction rounds; each round:
      accepts the longest prefix that fits.  A constrained cycle then drops
      within-round conflicts (constraints.constraint_filter) and folds the
      survivors into the domain state (constraints.constraint_commit).  A
-     topology cycle folds the accepted gang members into its placement
-     counts (locality.gang_state_update).
+     topology cycle folds the accepted gang members into its per-domain
+     placement counts (locality.gang_state_update).
   3. commit:  accepted requests scatter-subtract from remaining capacity;
      pods with no feasible node drop out (capacity only shrinks in a cycle
      — except that a positive-affinity match placed this round can open
@@ -50,11 +52,12 @@ from dataclasses import dataclass
 
 import torch
 
-from ..topology.locality import gang_state_update, gang_topology_term
+from ..topology.locality import gang_cycle_operands, gang_round_operands, gang_state_update
 from .choose import (
     CONSTRAINT_POD_KEYS,
     NODE_WORD_KEYS,
     POD_BITMAP_KEYS,
+    check_domain_columns,
     check_gang_ids,
     check_pod_bitmaps,
     choose_block,
@@ -167,20 +170,20 @@ class _Constraints:
 
 def _choose(
     avail, ps: dict, n_active: int, nodes: dict, words: tuple, weights, block: int, salt: int, masks=None,
-    topo_t=None,
+    gang=None,
 ):
     """Per-pod best feasible node vs current capacity, blockwise over the
     compacted pods: only the first ceil(n_active / block) blocks run.
     ``words``: the cycle's node bitmap words (choose.pack_node_words);
     ``masks`` (a constrained round's node masks) selects the constrained
-    choose; ``topo_t`` (a topology round's [G+1, N] gang term) adds each
-    pod's gang row."""
+    choose; ``gang`` (a topology round's locality.GangTerm, its gang ids
+    None) adds each pod's gang term, with the block's gang ids."""
     p = ps["pod_req"].shape[0]
     node_args = (avail,) + tuple(nodes[k] for k in _NODE_KEYS)
 
     def run(lo, hi):
         pod_args = (ps[k][lo:hi] for k in _CHOOSE_KEYS)
-        topo = None if topo_t is None else (ps["pod_gang_id"][lo:hi], topo_t)
+        topo = None if gang is None else gang._replace(gang_id=ps["pod_gang_id"][lo:hi])
         if masks is None:
             return choose_block(*pod_args, *node_args, weights, salt, node_words=words, topo=topo)[:2]
         cons_pod = {k: ps[k][lo:hi] for k in CONSTRAINT_POD_KEYS}
@@ -242,18 +245,20 @@ def _round(
     """One auction round: choose, accept, (constraint filter and commit),
     (gang placement counts), commit capacity, compact.  Returns (avail, ps,
     n_active) — n_active read to the host; ``cons`` and the ``topo`` state
-    (``{"meta", "gang_nodes"}``) are updated in place."""
+    (``{"meta", "cycle", "state"}``: the meta, locality.gang_cycle_operands
+    and the per-domain counts) are updated in place."""
     n = avail.shape[0]
     masks = None
     if cons is not None:
         masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
-    topo_t = None
+    gang = None
     if topo is not None:
-        topo_t = gang_topology_term(
-            topo["gang_nodes"], topo["meta"], avail, ps["pod_gang_id"], ps["pod_req"], ps["active"], weights[6]
+        gang = gang_round_operands(
+            topo["cycle"], topo["state"], topo["meta"], avail, ps["pod_gang_id"], ps["pod_req"], ps["active"],
+            weights[6],
         )
-    choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, topo_t)
-    del topo_t
+    choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, gang)
+    del gang
     cand = ps["active"] & has
     ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
     claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
@@ -279,9 +284,9 @@ def _round(
         pa_hope = (ps["pod_pa_declares"].sum(dim=1) > 0) & new_match.any()
         active = active | (ps["active"] & ~has & pa_hope)
     if topo is not None:
-        # Non-claimants carry the sentinel column n, gangless pods row 0:
-        # neither is ever read back.
-        gang_state_update(topo["gang_nodes"], accepted, ch, ps["pod_gang_id"])
+        # Non-claimants carry the sentinel n and add 0.0; gangless pods add
+        # into row 0, never read back.
+        gang_state_update(topo["state"], topo["cycle"]["dom_col"], accepted, ch, ps["pod_gang_id"])
     ps["active"] = active
     ps = _compact(ps)
     # One host read per round: the active count, and the accepted count
@@ -319,22 +324,24 @@ def assign_cycle(
     constraint path; ``pods`` must then also carry the ConstraintSet
     pod_arrays, and the three flags say which optional features the cycle
     has (the JAX package's assign_cycle contract).  ``tmeta``/``tstate``
-    (TopologySet meta_arrays as tensors, and ``{"gang_nodes": [G+1, N+1]
-    float32 zeros}``, convert.topology_to_device) switch on the gang term;
-    ``pods`` must then also carry ``pod_gang_id``, and ``gang_nodes`` is
-    updated in place.  Returns (assigned [P]
+    (TopologySet meta_arrays as tensors, and the per-(gang, domain) zeros
+    ``{"placed": [G+1, Dt], "total": [G+1]}`` float32,
+    convert.topology_to_device) switch on the gang term; ``pods`` must then
+    also carry ``pod_gang_id``, and ``tstate`` is updated in place.  Returns (assigned [P]
     int32 — node index or −1, rounds int, remaining node_avail [N,R] int32,
     acc_round [P] int32 — the round each pod was accepted in or −1,
     rank_of [P] int32 — each pod's priority rank).  Every bitmap operand
     must be 0/1 (ValueError otherwise, before any round): the choose
     kernels read the node bitmaps as words, built here once per cycle.
-    Gang ids outside [0, G] raise ValueError, once per cycle."""
+    Gang ids outside [0, G], and domain ids outside the state's columns,
+    raise ValueError, once per cycle."""
     p_out = pods["pod_req"].shape[0]
     check_pod_bitmaps(*(pods[k] for k in POD_BITMAP_KEYS))
     topo = None
     if tmeta is not None:
-        topo = {"meta": tmeta, "gang_nodes": tstate["gang_nodes"]}
-        check_gang_ids(pods["pod_gang_id"], topo["gang_nodes"].shape[0])
+        topo = {"meta": tmeta, "cycle": gang_cycle_operands(tmeta), "state": tstate}
+        check_gang_ids(pods["pod_gang_id"], tstate["placed"].shape[0])
+        check_domain_columns(topo["cycle"]["dom_col"], tstate["placed"].shape[1])
     words = pack_node_words(*(nodes[k] for k in NODE_WORD_KEYS))
     perm, ps = _prepare_pods(pods, block)
     cons = None

@@ -12,13 +12,19 @@ Two dispatching wrappers, one per kernel of ``csrc/choose.cu``:
   preferred inter-pod score terms (replaces ``_make_choose_kernel(True)``).
 
 Both take the gang co-placement term of a topology cycle as an optional
-operand, ``topo=(pod_gang_id, T)``: the block's gang ids [B] int32 and the
-round's [G+1, N] float32 term (topology/locality.gang_topology_term), added
-to each pod's score last.  The JAX package runs topology cycles on its jnp
-tree (``tpu_scheduler/ops/assign.py:229-233``); here the term goes into the
-same kernels as one more operand, in instances of their own
-(``choose_kernel<·, ·, true>``), so launches without it are unchanged.
-Gang ids outside [0, G] raise ValueError (:func:`check_gang_ids`).
+operand, ``topo``: a ``topology.locality.GangTerm`` — the block's gang ids
+[B] int32 and the round's per-(gang, domain) state and inputs (placed
+counts, totals, remaining demand, domain free capacity, herd values, each
+node's domain columns, level distances, weight).  Each pod's term is added
+to its score last.  The JAX package runs topology cycles on its jnp tree
+(``tpu_scheduler/ops/assign.py:229-233``); here the term is computed inside
+the same kernels, in instances of their own (``choose_kernel<·, ·, true>``,
+so launches without it are unchanged), once per distinct gang of a pod
+tile and node; the plain version builds the dense [G+1, N] term
+(``locality.gang_topology_term``) and adds its rows.  Gang ids outside
+[0, G] and domain columns outside the state raise ValueError
+(:func:`check_gang_ids`, :func:`check_domain_columns`); so do more than
+MAX_LEVELS levels on the card.
 
 For tensors on the CPU each runs its plain torch version
 (:func:`choose_block_plain`, :func:`choose_block_constrained_plain`); for
@@ -68,6 +74,7 @@ import time
 import numpy as np
 import torch
 
+from ..topology.locality import GangTerm, gang_topology_term
 from ..utils.profiler import record_kernel_build
 from .constraints import blocked_block
 from .masks import feasibility_block
@@ -87,6 +94,7 @@ __all__ = [
     "build_library",
     "bitmap_words",
     "check_bitmaps",
+    "check_domain_columns",
     "check_gang_ids",
     "check_pod_bitmaps",
     "pack_node_words",
@@ -98,6 +106,7 @@ __all__ = [
     "LAUNCHES_CONSTRAINED",
     "LAUNCHES_TOPO",
     "LAUNCHES_CONSTRAINED_TOPO",
+    "MAX_LEVELS",
     "MAX_NODE_OFFSET",
 ]
 
@@ -131,6 +140,8 @@ _BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 _LIB_NAME = "libtpu_scheduler_torch_kernels.so"
 # Offsets at or above this are not exact in the JAX kernel's float32 slot.
 MAX_NODE_OFFSET = 1 << 24
+# The topology levels a kernel takes (csrc/choose.cu MAX_LEVELS).
+MAX_LEVELS = 4
 
 
 class KernelError(RuntimeError):
@@ -180,10 +191,10 @@ def bind_library(path: pathlib.Path) -> ctypes.CDLL:
     except OSError as e:
         raise KernelError(f"cannot load {path}: {e}") from e
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.tsched_choose_launch.argtypes = [ptr] * 20 + [i32] * 8 + [f32] * 6 + [i32] + [u32] * 2 + [ptr] * 4
+    lib.tsched_choose_launch.argtypes = [ptr] * 26 + [i32] * 10 + [f32] * 6 + [i32] + [f32] + [u32] * 2 + [ptr] * 4
     lib.tsched_choose_launch.restype = ctypes.c_int
     lib.tsched_choose_constrained_launch.argtypes = (
-        [ptr] * 28 + [i32] * 12 + [f32] * 6 + [i32] + [f32] + [u32] * 2 + [ptr] * 4
+        [ptr] * 34 + [i32] * 14 + [f32] * 6 + [i32] + [f32] * 2 + [u32] * 2 + [ptr] * 4
     )
     lib.tsched_choose_constrained_launch.restype = ctypes.c_int
     lib.tsched_error_string.argtypes = [ctypes.c_int]
@@ -243,11 +254,25 @@ def check_bitmaps(bitmaps: dict) -> None:
 
 def check_gang_ids(pod_gang_id: torch.Tensor, rows: int) -> None:
     """Raise ValueError unless every gang id lies in [0, ``rows``): the
-    kernels read row ``gid`` of the [rows, N] gang term unchecked.  One
+    kernels read row ``gid`` of the [rows, ·] gang state unchecked.  One
     host read."""
     if pod_gang_id.numel() and bool(((pod_gang_id < 0) | (pod_gang_id >= rows)).any()):
         bad = int(pod_gang_id[(pod_gang_id < 0) | (pod_gang_id >= rows)][0])
         raise ValueError(f"pod_gang_id: holds {bad}, outside the gang term's rows [0, {rows})")
+
+
+def check_domain_columns(dom_col: torch.Tensor, cols: int) -> None:
+    """Raise ValueError unless every node's domain column lies in [0,
+    ``cols``): the kernels read the [·, cols] gang state and the [cols, 2]
+    domain capacities at them unchecked.  One host read."""
+    if dom_col.numel() and bool(((dom_col < 0) | (dom_col >= cols)).any()):
+        bad = int(dom_col[(dom_col < 0) | (dom_col >= cols)][0])
+        raise ValueError(f"dom_col: holds {bad}, outside the gang state's columns [0, {cols})")
+
+
+def _check_topo_values(topo: GangTerm) -> None:
+    check_gang_ids(topo.gang_id, topo.placed.shape[0])
+    check_domain_columns(topo.dom_col, topo.placed.shape[1])
 
 
 def check_pod_bitmaps(sel, ntol, aff, ntol_soft) -> None:
@@ -304,7 +329,7 @@ def _plain(args, weights, salt, node_offset=0, blocked=None, score_terms=None, t
         m = m & ~blocked
     node_idx = torch.arange(avail.shape[0], device=req.device) + _check_offset(node_offset)
     if topo is not None:
-        score_terms = dict(score_terms or {}, pod_gang_id=topo[0], topo_gang_node=topo[1])
+        score_terms = dict(score_terms or {}, pod_gang_id=topo.gang_id, topo_gang_node=gang_topology_term(topo))
     sc = score_block(
         req, alloc, avail, w, ranks, node_idx,
         pod_pref_w=pref_w, node_pref=node_pref, pod_ntol_soft=ntol_soft, node_taints_soft=taints_soft, salt=salt,
@@ -475,25 +500,37 @@ def _words(args, node_words):
     return pack_node_words(*args[13:18])
 
 
-def _check_topo(topo, b: int, n: int, device: torch.device) -> tuple:
-    """Device, type, shape and contiguity of the gang term's operands."""
-    gid, t = topo
-    _check("pod_gang_id", gid, torch.int32, (b,), device)
-    _check("topo", t, torch.float32, (t.shape[0], n), device)
-    if t.shape[0] < 1:
+def _check_topo(topo: GangTerm, b: int, n: int, device: torch.device) -> GangTerm:
+    """Device, type, shape and contiguity of the gang term's operands, and
+    the level count the kernels take (1..MAX_LEVELS)."""
+    lv, (g1, dt) = topo.dom_col.shape[0], topo.placed.shape
+    if not 1 <= lv <= MAX_LEVELS:
+        raise ValueError(f"topo: {lv} topology levels; the kernels take 1 to {MAX_LEVELS}")
+    if g1 < 1:
         raise ValueError("topo: needs at least row 0 (the gangless pods' row)")
-    return gid, t
+    f32 = torch.float32
+    for name, t, dtype, shape in (
+        ("pod_gang_id", topo.gang_id, torch.int32, (b,)), ("dom_col", topo.dom_col, torch.int32, (lv, n)),
+        ("level_dist", topo.level_dist, f32, (lv,)), ("placed", topo.placed, f32, (g1, dt)),
+        ("total", topo.total, f32, (g1,)), ("rem", topo.rem, f32, (g1, 2)), ("dom_free", topo.dom_free, f32, (dt, 2)),
+        ("herd", topo.herd, f32, (g1, dt)),
+    ):
+        _check(name, t, dtype, shape, device)
+    if topo.dom_free.data_ptr() % 8:
+        raise ValueError("dom_free: not 8-byte aligned (the kernels read a domain's cpu and memory as one float2)")
+    return topo
 
 
 def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, salt, node_offset, device, b, topo):
     """Allocate the outputs and launch one kernel on the current stream;
     raises KernelError when the launch is refused.  The pointers are the
     13 pod and node operands before the node bitmaps, the node words, the
-    constraint operands ``ptrs``, then the gang ids and term of ``topo``
-    (null without it); then the sizes ``ints``, the five
-    weights, the jitter's exact reciprocal and its flag (pow2_reciprocal),
-    ``extra_floats``.  ``node_offset`` (checked to lie in [0, 2^24)) travels
-    as a c_uint32."""
+    constraint operands ``ptrs``, then the eight tensors of the GangTerm
+    ``topo`` (null without it); then the sizes ``ints`` and the gang
+    term's level and domain-column counts, the five weights, the jitter's
+    exact reciprocal and its flag (pow2_reciprocal), ``extra_floats`` and
+    the gang term's weight.  ``node_offset`` (checked to lie in [0, 2^24))
+    travels as a c_uint32."""
     choice = torch.empty((b,), dtype=torch.int32, device=device)
     has = torch.empty((b,), dtype=torch.bool, device=device)
     best = torch.empty((b,), dtype=torch.float32, device=device)
@@ -501,11 +538,17 @@ def _launch(fn, name: str, args, node_words, ptrs, ints, weights, extra_floats, 
         return choice, has, best
     w = np.asarray(weights, dtype=np.float32)
     inv = pow2_reciprocal(w[2])
+    if topo is None:
+        topo_ptrs, topo_ints, w_gang = (None,) * 8, (0, 0), 0.0
+    else:
+        topo_ptrs = tuple(t.data_ptr() for t in topo[:8])
+        topo_ints, w_gang = (topo.dom_col.shape[0], topo.placed.shape[1]), float(np.float32(topo.weight))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in args[:13]), *(t.data_ptr() for t in node_words), *(t.data_ptr() for t in ptrs),
-            *((None, None) if topo is None else (topo[0].data_ptr(), topo[1].data_ptr())), *ints, *(float(x) for x in w[:5]), 0.0 if inv is None else inv, int(inv is not None), *extra_floats,
+            *topo_ptrs, *ints, *topo_ints, *(float(x) for x in w[:5]), 0.0 if inv is None else inv,
+            int(inv is not None), *extra_floats, w_gang,
             int(salt) & 0xFFFFFFFF, node_offset, choice.data_ptr(), has.data_ptr(), best.data_ptr(), stream,
         )
     if err != 0:
@@ -532,10 +575,11 @@ def choose_block(
     0/1, else ValueError.  ``node_words``: :func:`pack_node_words` of the
     node bitmaps, built once by a caller that launches many blocks against
     one node set (its pod bitmaps then go unchecked here: the caller checks
-    them once, :func:`check_pod_bitmaps`, and :func:`check_gang_ids`);
-    built and checked here when None; either way they are checked against
-    the node bitmaps' shapes.  ``topo``: (pod_gang_id [B] int32, T [G+1,
-    N] float32 contiguous), the gang term of a topology cycle, added last.
+    them once, :func:`check_pod_bitmaps`, :func:`check_gang_ids` and
+    :func:`check_domain_columns`); built and checked here when None; either
+    way they are checked against the node bitmaps' shapes.  ``topo``: the
+    gang term of a topology cycle, a ``locality.GangTerm`` with the block's
+    gang ids, added last.
     Returns (choice [B] int32, local to the slice; has [B] bool; best [B]
     float32)."""
     global LAUNCHES, LAUNCHES_TOPO
@@ -544,7 +588,7 @@ def choose_block(
     if req.device.type not in ("cpu", "cuda"):
         raise ValueError(f"choose_block: unsupported device {req.device}")
     if topo is not None and node_words is None:
-        check_gang_ids(topo[0], topo[1].shape[0])
+        _check_topo_values(topo)
     node_words = _words(args, node_words)
     if req.device.type == "cpu":
         return _plain(args, weights, salt, node_offset, topo=topo)
@@ -582,7 +626,7 @@ def choose_block_constrained(
     if req.device.type not in ("cpu", "cuda"):
         raise ValueError(f"choose_block_constrained: unsupported device {req.device}")
     if topo is not None and node_words is None:
-        check_gang_ids(topo[0], topo[1].shape[0])
+        _check_topo_values(topo)
     node_words = _words(args, node_words)
     if req.device.type == "cpu":
         return choose_block_constrained_plain(*args, cons_pod, masks, weights, salt, node_offset, topo=topo)

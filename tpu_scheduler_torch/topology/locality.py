@@ -3,17 +3,16 @@
 
 A gang (an MPI-style training job's workers) is only as fast as its slowest
 link, so placement quality is communication performance.  This module turns
-the compiled topology (model.py) plus the cycle's gang membership into ONE
-per-round additive score tensor ``T[G+1, N]`` shared by every member of a
-gang; the choose adds the row of each pod's gang as its last score term
+the compiled topology (model.py) plus the cycle's gang membership into one
+per-round additive score term T[g, n] shared by every member of a gang; the
+choose adds the value of each pod's gang as its last score term
 (ops/score.py, and the choose kernels on the card).
 
 Three components, all per (gang, node), recomputed each auction round from
 the round-carried placement counts:
 
-  anchor   −w·Σ_l 16·d_l·(placed_total_g − same_l[g, n]) — the distance
-           from node n to every already-placed member of g, factored
-           through the per-level membership one-hots;
+  anchor   −w·Σ_l 16·d_l·(placed_total_g − same_l[g, dom_l(n)]) — the
+           distance from node n to every already-placed member of g;
   fit      +w·Σ_l d_l·fits_l[g, dom_l(n)] — the gang's remaining demand
            fits the node's level-l domain whole;
   herd     +w·Σ_l 4·d_l·fits_l·tb_l[g, dom_l(n)] — a per-(gang, domain)
@@ -21,39 +20,54 @@ the round-carried placement counts:
            converge on one fitting domain in the first round.
 
 ``w`` is the profile's ``gang_locality_weight`` (weights[6]).  Pods outside
-any gang ride row 0 of T, which is pinned to +0.0.
+any gang ride row 0, which is pinned to +0.0.
+
+Every input of T[g, n] is a per-(gang, domain) or per-gang value read at the
+node's domain, so the round state is per domain: ``placed`` [G+1, Dt], the
+placed-member count of each gang in each domain of every level (level l's
+D_l+1 columns, its padding sentinel last, start at Σ_{k<l} (D_k+1)), and
+``total`` [G+1].  The JAX package carries a [G+1, N+1] per-node count and
+forms ``same`` as ``placed @ onehot.T``; the counts are integers, so the
+per-domain sums are the same floats in any order.  On the card the choose
+kernels compute each pod's term from this state (:class:`GangTerm`); the
+dense [G+1, N] term, :func:`gang_topology_term`, is their plain version,
+used on the CPU and by the checks.
 
 ``pack_topology`` stays NumPy (host packing, the crc32 herd table bit for
-bit); ``gang_topology_term`` and ``gang_state_update`` are torch functions
-on one device.  Every float32 operation runs in the JAX package's order, one
-eager op at a time, so T equals the NumPy tree bit for bit:
+bit); the rest are torch functions on one device.  Every float32 operation
+runs in the JAX package's order, one eager op at a time, so T equals the
+NumPy tree bit for bit:
 
-* ``placed @ onehot.T`` sums integer counts (0/1 one-hots), exact in any
-  order; ``onehot @ free`` sums free capacities, exact whenever the sums
-  are (capacities in KiB that are multiples of a large power of two, as
-  every packed cluster here has them) — both are ``torch.matmul`` with
-  TF32 off;
-* the per-gang remaining demand adds its rows in pod order, as
-  ``np.add.at`` does (:func:`_add_rows`), so it rounds as the reference's
-  where a sum is inexact; the placement counts are 0/1 adds, exact in any
-  order.
+* ``onehot @ free`` sums free capacities, exact whenever the sums are
+  (capacities in KiB that are multiples of a large power of two, as every
+  packed cluster here has them) — ``torch.matmul`` with TF32 off;
+* the per-gang demand adds its rows in pod order, as ``np.add.at`` does
+  (:func:`_add_rows`), so it rounds as the reference's where a sum is
+  inexact; the placement counts are 0/1 adds, exact in any order.
 """
 
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
     "ANCHOR_SCALE",
+    "DENSE_TERMS_CUDA",
+    "GangTerm",
     "HERD_SCALE",
     "SCORING_KNOBS",
     "TopologySet",
+    "domain_columns",
+    "gang_cycle_operands",
     "gang_placement_stats",
+    "gang_round_operands",
     "gang_state_update",
+    "gang_state_zeros",
     "gang_topology_term",
     "pack_topology",
 ]
@@ -93,12 +107,16 @@ class TopologySet:
         return {"pod_gang_id": self.pod_gang_id}
 
     def state_arrays(self) -> dict:
-        """Round-start state: per-(gang, node) placed-member counts [G+1,
-        N+1].  Column N is the non-claimant sentinel, row 0 the no-gang
-        dump — both never read back.  The backends build it on the device
+        """Round-start state: per-(gang, domain) placed-member counts
+        ``placed`` [G+1, Dt] (every level's domains, sentinels included) and
+        per-gang totals ``total`` [G+1].  Row 0 is the no-gang dump, never
+        read back.  The backends build it on the device
         (``convert.topology_to_device``), never from these host zeros."""
-        n = self.meta["dom_id_0"].shape[0]
-        return {"gang_nodes": np.zeros((self.n_gangs + 1, n + 1), dtype=np.float32)}
+        dt = sum(w for _, w in domain_columns(self.meta))
+        return {
+            "placed": np.zeros((self.n_gangs + 1, dt), dtype=np.float32),
+            "total": np.zeros((self.n_gangs + 1,), dtype=np.float32),
+        }
 
 
 def _herd_tb(gang: str, level: int, dom: int) -> float:
@@ -165,67 +183,140 @@ def _add_rows(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch
     return out.index_add_(0, idx, vals)
 
 
-def gang_topology_term(gang_nodes, meta: dict, avail, pod_gang_id, pod_req, active, weight) -> torch.Tensor:
-    """The per-round [G+1, N] float32 additive score tensor (module
-    docstring), contiguous, on the tensors' device.
+class GangTerm(NamedTuple):
+    """The gang term's operands for one choose launch: every tensor on the
+    launch's device, float32 unless named otherwise.  ``gang_id`` [B] int32
+    is the block's gang ids (None in what :func:`gang_round_operands`
+    returns: ``ops/assign._choose`` fills it per block); ``dom_col`` [Lv, N]
+    int32 node n's column in the level-blocked domain axis (level l's D_l+1
+    columns start at Σ_{k<l} (D_k+1)); ``level_dist`` [Lv]; ``placed``
+    [G+1, Dt] the placed-member count per (gang, domain) and ``total``
+    [G+1] per gang; ``rem`` [G+1, 2] each gang's remaining cpu/memory
+    demand; ``dom_free`` [Dt, 2] each domain's free cpu/memory; ``herd``
+    [G+1, Dt] 1 + 4·tie-break; ``weight`` the profile's
+    gang_locality_weight (a host float)."""
 
-    ``gang_nodes`` is the round-carried [G+1, N+1] placed-member count (its
-    sentinel column is sliced off here); ``avail`` [N, R] int32 and
-    ``pod_req`` [P, R] int32 / ``active`` [P] bool / ``pod_gang_id`` [P]
-    int32 are the round's live capacity and pod rows; ``weight`` the
-    profile's gang_locality_weight (a float32 scalar or 0-d tensor).
-    ``meta``: TopologySet.meta_arrays as tensors on the same device."""
+    gang_id: torch.Tensor | None
+    dom_col: torch.Tensor
+    level_dist: torch.Tensor
+    placed: torch.Tensor
+    total: torch.Tensor
+    rem: torch.Tensor
+    dom_free: torch.Tensor
+    herd: torch.Tensor
+    weight: float
+
+
+def domain_columns(meta: dict) -> list[tuple[int, int]]:
+    """(first column, width D_l+1) of each level's block of the domain axis."""
+    cols, off = [], 0
+    for l_idx in range(meta["level_dist"].shape[0]):
+        width = meta[f"gang_tb_{l_idx}"].shape[1]
+        cols.append((off, width))
+        off += width
+    return cols
+
+
+def gang_cycle_operands(meta: dict) -> dict:
+    """Per cycle, on the meta's device: ``dom_col`` [Lv, N] int32 (each
+    node's level-l domain id shifted to its level's block) and ``herd``
+    [G+1, Dt] = 1 + 4·tb per level, the reference's float32 ops."""
+    blocks = domain_columns(meta)
+    dom_col = torch.stack([meta[f"dom_id_{l}"] + off for l, (off, _) in enumerate(blocks)])
+    herd = torch.cat([1.0 + HERD_SCALE * meta[f"gang_tb_{l}"] for l in range(len(blocks))], dim=1)
+    return {"dom_col": dom_col.to(torch.int32).contiguous(), "herd": herd.contiguous()}
+
+
+def gang_state_zeros(meta: dict, n_gangs: int, device) -> dict:
+    """Round-start state on ``device``: ``placed`` [G+1, Dt] and ``total``
+    [G+1] float32 zeros."""
+    dt = sum(w for _, w in domain_columns(meta))
+    return {
+        "placed": torch.zeros((n_gangs + 1, dt), dtype=torch.float32, device=device),
+        "total": torch.zeros((n_gangs + 1,), dtype=torch.float32, device=device),
+    }
+
+
+def gang_round_operands(cyc: dict, state: dict, meta: dict, avail, pod_gang_id, pod_req, active, weight) -> GangTerm:
+    """The round's small inputs of the term (``gang_id`` left None): the
+    per-gang remaining demand of the still-active pods, added in pod order
+    (:func:`_add_rows`), and each domain's free capacity,
+    ``onehot_l @ free`` per level as the reference computes it.  ``cyc``:
+    :func:`gang_cycle_operands`; ``state``: the placed counts; ``avail``
+    [N, R] int32, ``pod_req`` [P, R] int32, ``active`` [P] bool,
+    ``pod_gang_id`` [P] int32: the round's live rows."""
     f32 = torch.float32
     device = avail.device
     if device.type == "cuda":
         # The matmuls are exact only in full float32.
         torch.backends.cuda.matmul.allow_tf32 = False
-    n = avail.shape[0]
-    placed = gang_nodes[:, :n]  # [G+1, N] — drop the sentinel column
-    g1 = placed.shape[0]
-    level_dist = meta["level_dist"]
-    weight = torch.as_tensor(weight, dtype=f32, device=device)
+    g1 = state["total"].shape[0]
     # Remaining demand of each gang's still-active members (cpu, mem), in
     # pod order: float32 on purpose, a scoring heuristic.
     live_req = torch.where(active[:, None], pod_req[:, :2], 0).to(f32)  # [P, 2]
     rem = _add_rows(torch.zeros((g1, 2), dtype=f32, device=device), pod_gang_id.long(), live_req)
     free = torch.clamp(avail[:, :2], min=0).to(f32)  # [N, 2]
-    total = placed.sum(dim=1, keepdim=True)  # [G+1, 1]
+    dom_free = torch.cat([meta[f"dom_onehot_{l}"] @ free for l in range(meta["level_dist"].shape[0])])
+    return GangTerm(None, cyc["dom_col"], meta["level_dist"], state["placed"], state["total"], rem,
+                    dom_free, cyc["herd"], float(np.float32(weight)))
 
+
+# Calls of gang_topology_term on CUDA tensors: a topology cycle on the card
+# never builds the dense term, so a run can show that this stays 0.
+DENSE_TERMS_CUDA = 0
+
+
+def gang_topology_term(op: GangTerm) -> torch.Tensor:
+    """The dense [G+1, N] float32 term from the per-(gang, domain) state,
+    in the reference's op order (``tpu_scheduler/topology/locality.py``
+    :196-213): per level, ``t − (16·d_l)·(total − same)`` then
+    ``t + d_l·(fits·herd)``; then ``w·t``, row 0 pinned to +0.0.  ``same``
+    is ``placed`` gathered at each node's domain: integer counts, equal to
+    the reference's ``placed @ onehot.T`` in any order.  The plain version
+    of the kernels' term: the CPU path and the checks use it; a cycle on
+    the card never does (:data:`DENSE_TERMS_CUDA` counts the calls there)."""
+    global DENSE_TERMS_CUDA
+    if op.placed.device.type == "cuda":
+        DENSE_TERMS_CUDA += 1
+    f32 = torch.float32
+    g1, n = op.placed.shape[0], op.dom_col.shape[1]
+    fits = (op.rem[:, None, :] <= op.dom_free[None, :, :]).all(-1).to(f32)  # [G+1, Dt]
+    fit_herd = fits * op.herd
     # The [G+1, N] intermediates are updated in place (one buffer per term,
     # the same roundings as the reference's out-of-place tree).
-    t = torch.zeros((g1, n), dtype=f32, device=device)
-    for l_idx in range(level_dist.shape[0]):
-        d_l = level_dist[l_idx]
-        dom_id = meta[f"dom_id_{l_idx}"].long()
-        onehot = meta[f"dom_onehot_{l_idx}"]  # [D+1, N]
-        # anchor: (16·d_l)·(total − same), same = the same-level placed
-        # count per (gang, node).
-        x = (placed @ onehot.T)[:, dom_id]  # [G+1, N]
-        torch.sub(total, x, out=x)
+    t = torch.zeros((g1, n), dtype=f32, device=op.placed.device)
+    for l_idx in range(op.level_dist.shape[0]):
+        d_l = op.level_dist[l_idx]
+        cols = op.dom_col[l_idx].long()
+        x = op.placed[:, cols]  # same: the gang's members placed in the node's level-l domain
+        torch.sub(op.total[:, None], x, out=x)
         t.sub_(x.mul_(ANCHOR_SCALE * d_l))
-        # fit + herd: d_l·(fits·(1 + 4·tb))[:, dom_id] — remaining demand vs
-        # the node's level-l domain free capacity; the tie-break rides only
-        # on fitting domains.
-        dom_free = onehot @ free  # [D+1, 2]
-        fits = (rem[:, None, :] <= dom_free[None, :, :]).all(-1).to(f32)  # [G+1, D+1]
-        x = (fits * (1.0 + HERD_SCALE * meta[f"gang_tb_{l_idx}"]))[:, dom_id]
+        x = fit_herd[:, cols]
         t.add_(x.mul_(d_l))
         del x
     # Row 0 (no gang) pinned to +0.0: score-neutral for gangless pods.
-    t.mul_(weight)
+    t.mul_(torch.as_tensor(op.weight, dtype=f32, device=t.device))
     t[0] = 0.0
     return t
 
 
-def gang_state_update(gang_nodes, accepted, choice, pod_gang_id) -> torch.Tensor:
-    """Fold a round's accepted placements into the [G+1, N+1] per-(gang,
-    node) counts, IN PLACE (the state is per cycle and never a cached
-    upload), and return it.  ``choice`` may carry the non-claimant sentinel
-    N (lands in the sentinel column, never read back); gangless pods land
-    in row 0 (same)."""
-    gang_nodes.index_put_((pod_gang_id.long(), choice.long()), accepted.to(gang_nodes.dtype), accumulate=True)
-    return gang_nodes
+def gang_state_update(state: dict, dom_col, accepted, choice, pod_gang_id) -> dict:
+    """Fold a round's accepted placements into ``state`` (``placed`` per
+    (gang, domain) at every level, ``total`` per gang), IN PLACE (the state
+    is per cycle and never a cached upload), and return it.  ``choice``
+    may carry the non-claimant sentinel N: such a pod is never accepted,
+    so it adds 0.0 at a real column; gangless pods add into row 0, which
+    is never read back.  Counts are integers, exact in any order, so the
+    adds may run as atomics (``index_add_`` on CUDA)."""
+    n = dom_col.shape[1]
+    acc = accepted.to(torch.float32)
+    node = torch.where(choice < n, choice, 0).long()
+    gid = pod_gang_id.long()
+    lv, dt = dom_col.shape[0], state["placed"].shape[1]
+    flat = (gid[None, :] * dt + dom_col[:, node].long()).reshape(-1)  # [Lv * P] into placed's rows
+    state["placed"].view(-1).index_add_(0, flat, acc.repeat(lv))
+    state["total"].index_add_(0, gid, acc)
+    return state
 
 
 def gang_placement_stats(member_domains, level_dists) -> dict:
