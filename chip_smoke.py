@@ -79,8 +79,12 @@ bisection kernels) and, for each main path:
   (one "restore" escalation) and ends with the same bindings;
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
-  ``bench_wide_kernel.py`` (kernel #3) at their full shape, and each kernel
-  held bit for bit against its plain version.
+  ``bench_wide_kernel.py`` (kernel #3) at their full shape (the whole
+  call, and the launch alone on the prepared node side), and each kernel held
+  bit for bit against its plain version: remainders, ties, wrapping
+  capacities with ranks over the whole uint32 range, wide layouts whose
+  live count rows take one word or two, the full size; then the wrappers'
+  refusal of non-0/1 live count entries and of a non-finite pod_f32.
 
 Each phase prints one JSON line; any failure exits non-zero.  The last
 line is the device summary.  Exits 1 without a result when CUDA is not
@@ -948,12 +952,102 @@ def tie_parts_inputs(p: int, n: int, device) -> tuple:
     return tuple(t.to(device) for t in (req, sel, selc, ranks, info, labels))
 
 
-def bisect_phase(device) -> list[dict]:
+def wrap_parts_inputs(p: int, n: int, device, seed: int = 8) -> tuple:
+    """Kernel #4's inputs as the tests make them (``tests/
+    test_torch_bisect.py::_parts_inputs``): uint32 ranks over the whole
+    range and 16 nodes whose capacities are INT32_MAX, so the used sum
+    wraps."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(1, 1000, (p, 2), dtype=np.int32)
+    sel = (rng.random((p, 8)) < 0.2).astype(np.float32)
+    ranks = rng.integers(0, 2**32, (p, 1), dtype=np.uint32).view(np.int32)
+    info = np.concatenate([rng.integers(500, 100_000, (4, n), dtype=np.int32), np.ones((1, n), np.int32),
+                           np.zeros((3, n), np.int32)])
+    info[2:4, rng.choice(n, 16, replace=False)] = np.iinfo(np.int32).max
+    labels = (rng.random((8, n)) < 0.5).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (req, sel, sel.sum(-1, keepdims=True), ranks, info, labels))
+
+
+def wide_live_inputs(p: int, n: int, rows: list, device, seed: int) -> tuple:
+    """Kernel #3's wide layout with the count operand's live rows ``rows``
+    (as ``tests/test_torch_bisect.py::_wide_inputs`` makes rows 0-47): node
+    entries 0/1 at 60 %, the pods' columns of them at 4 %, the selector count
+    in column 40 (node row 40 zero unless live) and on 10 % of the pods one
+    more than any node gives, 20 % of the pods inactive, uint32 ranks over
+    the whole range, 16 nodes at INT32_MAX capacity (the used sum wraps)."""
+    rng = np.random.default_rng(seed)
+    f = bench_wide_kernel.F
+    node_f32 = np.zeros((f, n), np.float32)
+    node_f32[rows] = rng.random((len(rows), n)) < 0.6
+    pod_f32 = np.zeros((p, f), np.float32)
+    pod_f32[:, rows] = rng.random((p, len(rows))) < 0.04
+    if bisect_mod.WIDE_SELC_COL not in rows:
+        pod_f32[:, bisect_mod.WIDE_SELC_COL] = pod_f32.sum(-1) + (rng.random(p) < 0.1)
+    pod_i32 = np.zeros((p, 8), np.int32)
+    pod_i32[:, 0:2] = rng.integers(1, 1000, (p, 2))
+    pod_i32[:, 2] = rng.random(p) < 0.8
+    pod_i32[:, 3] = rng.integers(0, 2**32, p, dtype=np.uint32).view(np.int32)
+    info = np.concatenate([rng.integers(500, 100_000, (4, n), dtype=np.int32), np.ones((1, n), np.int32),
+                           np.zeros((3, n), np.int32)])
+    info[2:4, rng.choice(n, 16, replace=False)] = np.iinfo(np.int32).max
+    return tuple(torch.from_numpy(x).to(device) for x in (pod_i32, pod_f32, info, node_f32))
+
+
+def bisect_refusals(device) -> dict:
+    """Case (e): a value other than 0.0 or 1.0 in a live entry of a count
+    operand, or a non-finite pod_f32 value, must raise ValueError from the
+    wrapper on CUDA tensors before any launch; a non-0/1 value in a dead
+    column (column 50 here; the count column 40 holds counts in every case)
+    must not.  Exits if one is not refused."""
+    parts = bench_kernel_parts.make_inputs(64, 300, seed=9, device=device)
+    wide = bench_wide_kernel.make_inputs(64, 300, seed=9, device=device)
+    bad = {}
+    labels = parts[5].clone()
+    labels[3, 7] = 0.5
+    bad["labels_0.5"] = lambda: bisect_mod.choose_parts(*parts[:5], labels, variant=1)
+    sel = parts[1].clone()
+    sel[5, 2] = 2.0
+    bad["sel_2.0"] = lambda: bisect_mod.choose_parts(parts[0], sel, *parts[2:], variant=3)
+    pod_live = wide[1].clone()
+    pod_live[4, 3] = 2.0
+    bad["pod_f32_live_2.0"] = lambda: bisect_mod.choose_wide(wide[0], pod_live, *wide[2:])
+    pod_nan = wide[1].clone()
+    pod_nan[6, 50] = float("nan")
+    bad["pod_f32_dead_nan"] = lambda: bisect_mod.choose_wide(wide[0], pod_nan, *wide[2:])
+    node_bad = wide[3].clone()
+    node_bad[1, 11] = 3.0
+    bad["node_f32_live_3.0"] = lambda: bisect_mod.choose_wide(*wide[:3], node_bad)
+    before = list(bisect_mod.LAUNCHES_PARTS) + [bisect_mod.LAUNCHES_WIDE]
+    refused = {}
+    for name, call in bad.items():
+        try:
+            call()
+            refused[name] = False
+        except ValueError:
+            refused[name] = True
+    after = list(bisect_mod.LAUNCHES_PARTS) + [bisect_mod.LAUNCHES_WIDE]
+    pod_dead = wide[1].clone()
+    pod_dead[:, 50] = 0.5  # a dead column besides the count column's counts
+    dead_ok = torch.equal(bisect_mod.choose_wide(wide[0], pod_dead, *wide[2:]),
+                          bisect_mod.choose_wide_plain(wide[0], pod_dead, *wide[2:]))
+    rec = {"phase": "bisect_refusals", "refused": refused, "dead_column_accepted_and_equal": dead_ok,
+           "launches_of_refused_calls": sum(after) - sum(before)}
+    emit(rec)
+    if not all(refused.values()) or not dead_ok or rec["launches_of_refused_calls"] != 0:
+        raise SystemExit(f"bisection wrappers: a bad count operand was not refused, or a dead column was: {rec}")
+    return rec
+
+
+def bisect_phase(device, resources: dict) -> list[dict]:
     """Kernels #3 and #4: the experiments' entry points at full size with
     the launch counts set to 0 just before and read just after; then each
     kernel against its plain version, bit for bit, on a remainder case (P,
-    N multiples of no tile), a tie-heavy case and the full size, with the
-    plain version's time and the bound."""
+    N multiples of no tile), a tie-heavy case, wrapping capacities with
+    ranks over the whole uint32 range, wide layouts with 47, 22 (rows 0-7
+    and 50-63) and 64 live rows, count operands with no live row, and the
+    full size, with the plain version's time and the bound; then the
+    refusals of bad count operands.  ``resources``: the build's ptxas
+    lines by kernel."""
     bisect_mod.LAUNCHES_PARTS = [0, 0, 0, 0]
     bisect_mod.LAUNCHES_WIDE = 0
     parts = bench_kernel_parts.measure(device, reps=10)
@@ -965,10 +1059,19 @@ def bisect_phase(device) -> list[dict]:
 
     full_parts = bench_kernel_parts.make_inputs(device=device)
     full_wide = bench_wide_kernel.make_inputs(device=device)
+    no_40 = [r for r in range(48) if r != bisect_mod.WIDE_SELC_COL]
     cases = {
         "remainder_1003x2049": (bench_kernel_parts.make_inputs(1003, 2049, seed=3, device=device),
                                 bench_wide_kernel.make_inputs(1003, 2049, seed=3, device=device)),
-        "ties_v0_4099x3001": (tie_parts_inputs(4099, 3001, device), None),
+        "ties_4099x3001": (tie_parts_inputs(4099, 3001, device), None),
+        "wrap_ranks_1003x2049": (wrap_parts_inputs(1003, 2049, device), None),
+        "wide_47_live_1003x2049": (None, wide_live_inputs(1003, 2049, no_40, device, seed=4)),
+        "wide_rows_0-7_50-63_1003x2049": (None, wide_live_inputs(1003, 2049, list(range(8)) + list(range(50, 64)),
+                                                                 device, seed=5)),
+        "wide_64_live_517x1031": (None, wide_live_inputs(517, 1031, list(range(64)), device, seed=6)),
+        "no_live_count_rows_517x1031": (bench_kernel_parts.make_inputs(517, 1031, seed=10, device=device)[:5]
+                                        + (torch.zeros((8, 1031), device=device),),
+                                        wide_live_inputs(517, 1031, [], device, seed=10)),
         "full": (full_parts, full_wide),
     }
     records = []
@@ -981,7 +1084,7 @@ def bisect_phase(device) -> list[dict]:
                     continue
                 k_out, p_out = bisect_mod.choose_wide(*wi), bisect_mod.choose_wide_plain(*wi)
             else:
-                if case.startswith("ties") and variant not in (0, 2):
+                if pi is None:
                     continue
                 k_out = bisect_mod.choose_parts(*pi, variant=variant)
                 p_out = bisect_mod.choose_parts_plain(*pi, variant=variant)
@@ -991,21 +1094,24 @@ def bisect_phase(device) -> list[dict]:
         if variant == 4:
             p, n, k = full_wide[0].shape[0], full_wide[2].shape[1], full_wide[1].shape[1]
             nnz = int((full_wide[3] != 0).sum())
-            kernel_ms = wide["ms"]
+            timed = wide
             plain_ms = time_cuda(lambda: bisect_mod.choose_wide_plain(*full_wide), reps=2)
         else:
             p, n, k = full_parts[0].shape[0], full_parts[4].shape[1], full_parts[1].shape[1]
             nnz = int((full_parts[5] != 0).sum())
-            kernel_ms = parts[variant]["ms"]
+            timed = parts[variant]
             plain_ms = time_cuda(lambda: bisect_mod.choose_parts_plain(*full_parts, variant=variant), reps=2)  # noqa: B023
         bound_ms, bound_by = bisect_bound_ms(p, n, k, variant, nnz)
         rec = {"phase": "bisect_kernels", "kernel": name, "P": p, "N": n, "equal": equal, "max_abs_err": max_abs_err,
-               "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "gpair_per_s": p * n / kernel_ms / 1e6,
-               "launches": launches[variant]}
+               "ms": timed["ms"], "kernel_ms": timed["kernel_ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "gpair_per_s": p * n / timed["ms"] / 1e6, "launches": launches[variant],
+               "pods_per_tile": timed["pods_per_tile"],
+               "ptxas": {kn: r for kn, r in resources.items() if kn.startswith(f"bisect_kernel<{variant},")}}
         emit(rec)
         records.append(rec)
         if not all(equal.values()):
             raise SystemExit(f"bisection kernel {name}: kernel and plain disagree on {equal}")
+    bisect_refusals(device)
     return records
 
 
@@ -2572,7 +2678,7 @@ def main() -> int:
         emit(controller_http(smi, pathlib.Path(tmp)))
 
     # ---- the bisection kernels (experiments) -------------------------------
-    brecs = bisect_phase(device)
+    brecs = bisect_phase(device, resources)
 
     emit({"kernels": [
         {

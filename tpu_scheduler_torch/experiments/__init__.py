@@ -9,7 +9,10 @@ nothing when imported:
 and ``bench_choose_builds``, which times kernel #1 from several builds of
 ``csrc/choose.cu`` in one call; ``bench_choose_trees`` and
 ``bench_topology_trees`` hold this checkout's term-free kernels and its
-topology path against another checkout's in one process.
+topology path against another checkout's in one process;
+``bench_bisect_trees`` does so for the bisection kernels #3 and #4,
+``bench_bisect_tiles`` times them at other pods per tile and
+``bisect_sass`` counts their instructions a pair in the SASS.
 """
 
 from __future__ import annotations
@@ -45,18 +48,33 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _demangled(entry: str) -> str:
+    """A kernel templated on bool and integer values by its template form
+    (``_Z13choose_kernelILb0ELb1EEv…`` → ``choose_kernel<false,true>``,
+    ``_Z13bisect_kernelILi3ELi1ELi16EEv…`` → ``bisect_kernel<3,1,16>``);
+    any other entry as it is."""
+    m = re.match(r"_Z(\d+)", entry)
+    if not m:
+        return entry
+    name_end = m.end() + int(m[1])
+    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", entry[name_end:])
+    if not args:
+        return entry
+    values = []
+    for kind, neg, digits in re.findall(r"L([a-z])(n?)(\d+)E", args[1]):
+        values.append(("false", "true")[int(digits)] if kind == "b" else f"{'-' if neg else ''}{digits}")
+    return f"{entry[m.end():name_end]}<{','.join(values)}>"
+
+
 def ptxas_resources(log: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads"}} from ``nvcc
-    -Xptxas -v`` output; a kernel templated on bools is named as
-    ``choose_kernel<false,true>``, any other by its mangled name."""
+    -Xptxas -v`` output; a kernel templated on bool and integer values is
+    named as ``choose_kernel<false,true>`` or ``bisect_kernel<3,1,16>``, any
+    other by its mangled name."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            m = re.match(r"_Z\d+([A-Za-z_]\w*?)I((?:Lb\dE)+)E", entry)
-            if m:
-                flags = ",".join(("false", "true")[int(b)] for b in re.findall(r"Lb(\d)E", m[2]))
-                entry = f"{m[1]}<{flags}>"
+            entry = _demangled(line.split("'")[1])
             out[entry] = {}
         elif entry and "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)

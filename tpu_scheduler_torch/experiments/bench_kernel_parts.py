@@ -5,7 +5,9 @@ what eats the cycles — the counterpart of ``scripts/bench_kernel_parts.py``.
 
     python -m tpu_scheduler_torch.experiments.bench_kernel_parts [--reps N] [--seed S]
 
-Prints the card's name and power limit, then ms and Gpair/s per variant.
+Prints the card's name and power limit, then per variant the ms of a call
+(the bitmap check and node-side packing included), of a launch alone on
+prepared rows, Gpair/s and the pods per tile.
 The inputs come from a seeded ``torch.Generator`` (the script's
 distributions; not its numbers, which come from ``jax.random``).  Needs a
 CUDA device: without one it exits 1 and measures nothing.
@@ -18,7 +20,7 @@ import sys
 
 import torch
 
-from ..ops.bisect import choose_parts
+from ..ops.bisect import choose_parts, launch_prepared, pods_per_tile, prepare_parts
 from . import card, time_cuda
 
 __all__ = ["P", "N", "L", "NAMES", "make_inputs", "measure", "main"]
@@ -45,12 +47,17 @@ def make_inputs(p: int = P, n: int = N, l: int = L, seed: int = 0, device="cpu")
 
 
 def measure(device, p: int = P, n: int = N, reps: int = 10, seed: int = 0) -> list[dict]:
-    """One record per variant: ms per launch (CUDA events) and Gpair/s."""
+    """One record per variant: ms per call (CUDA events; the check and the
+    node-side packing included), ``kernel_ms`` per launch on the prepared node side,
+    Gpair/s of the call and the kernel's pods per tile."""
     inputs = make_inputs(p, n, seed=seed, device=device)
     recs = []
     for v, name in enumerate(NAMES):
         ms = time_cuda(lambda: choose_parts(*inputs, variant=v), reps)  # noqa: B023 — timed before the next v
-        recs.append({"variant": v, "name": name, "P": p, "N": n, "ms": ms, "gpair_per_s": p * n / ms / 1e6})
+        prep = prepare_parts(*inputs, variant=v)
+        kernel_ms = time_cuda(lambda: launch_prepared(prep), reps)  # noqa: B023
+        recs.append({"variant": v, "name": name, "P": p, "N": n, "ms": ms, "kernel_ms": kernel_ms,
+                     "gpair_per_s": p * n / ms / 1e6, "pods_per_tile": pods_per_tile(v)})
     return recs
 
 
@@ -64,7 +71,8 @@ def main(argv=None) -> int:
         return 1
     print(card(), flush=True)
     for r in measure(torch.device("cuda"), reps=args.reps, seed=args.seed):
-        print(f"variant {r['variant']} ({r['name']:12s}): {r['ms']:8.3f} ms  ({r['gpair_per_s']:.2f} Gpair/s)", flush=True)
+        print(f"variant {r['variant']} ({r['name']:12s}): {r['ms']:8.3f} ms a call, {r['kernel_ms']:8.3f} ms a launch "
+              f"({r['gpair_per_s']:.2f} Gpair/s, {r['pods_per_tile']} pods a tile)", flush=True)
     return 0
 
 

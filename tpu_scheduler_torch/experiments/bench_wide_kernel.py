@@ -5,7 +5,9 @@ of the JAX package's kernel work.
 
     python -m tpu_scheduler_torch.experiments.bench_wide_kernel [--reps N] [--seed S]
 
-Prints the card's name and power limit, then ms and Gpair/s.  The inputs
+Prints the card's name and power limit, then the ms of a call (the checks
+and node-side packing included), of a launch alone on the prepared node side, and
+Gpair/s.  The inputs
 come from a seeded ``torch.Generator`` (the script's layout and
 distributions).  Needs a CUDA device: without one it exits 1 and measures
 nothing.
@@ -18,7 +20,7 @@ import sys
 
 import torch
 
-from ..ops.bisect import WIDE_SELC_COL, choose_wide
+from ..ops.bisect import WIDE_SELC_COL, choose_wide, launch_prepared, pods_per_tile, prepare_wide
 from . import card, time_cuda
 
 __all__ = ["P", "N", "F", "make_inputs", "measure", "main"]
@@ -52,10 +54,15 @@ def make_inputs(p: int = P, n: int = N, f: int = F, seed: int = 0, device="cpu")
 
 
 def measure(device, p: int = P, n: int = N, reps: int = 10, seed: int = 0) -> dict:
-    """ms per launch (CUDA events) and Gpair/s."""
+    """ms per call (CUDA events; the checks and the node-side packing
+    included), ``kernel_ms`` per launch on the prepared node side, Gpair/s of the call
+    and the kernel's pods per tile."""
     inputs = make_inputs(p, n, seed=seed, device=device)
     ms = time_cuda(lambda: choose_wide(*inputs), reps)
-    return {"P": p, "N": n, "F": inputs[1].shape[1], "ms": ms, "gpair_per_s": p * n / ms / 1e6}
+    prep = prepare_wide(*inputs)
+    kernel_ms = time_cuda(lambda: launch_prepared(prep), reps)
+    return {"P": p, "N": n, "F": inputs[1].shape[1], "ms": ms, "kernel_ms": kernel_ms, "gpair_per_s": p * n / ms / 1e6,
+            "live_rows": len(prep.live), "pods_per_tile": pods_per_tile(4)}
 
 
 def main(argv=None) -> int:
@@ -68,7 +75,8 @@ def main(argv=None) -> int:
         return 1
     print(card(), flush=True)
     r = measure(torch.device("cuda"), reps=args.reps, seed=args.seed)
-    print(f"wide-operand kernel: {r['ms']:.3f} ms  ({r['gpair_per_s']:.2f} Gpair/s)", flush=True)
+    print(f"wide-operand kernel: {r['ms']:.3f} ms a call, {r['kernel_ms']:.3f} ms a launch ({r['gpair_per_s']:.2f} "
+          f"Gpair/s, {r['live_rows']} live rows, {r['pods_per_tile']} pods a tile)", flush=True)
     return 0
 
 
