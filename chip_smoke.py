@@ -77,6 +77,21 @@ bisection kernels) and, for each main path:
   settled and holds its bindings to an in-process Scheduler's; then a
   ``--checkpoint-dir`` run of one cycle and a restarted run that restores
   (one "restore" escalation) and ends with the same bindings;
+* simulator — ``sim`` drives the port's ``sim/harness.scenario_episode``
+  on the card: bench.py's sim rows at their own sizes (``sim_row``:
+  sim-smoke seed 0 through the harness's default backend;
+  ``sim_sweep_row``: sim-smoke and api-brownout-recovery, seeds 0-2;
+  ``latency_row``: the arrival-rate-sweep family at 5, 15 and 40 pods/s),
+  churn-steady-state (the delta gate: shadow parity, full-solve fraction
+  <= 0.10), slice-fragmented-cluster (the locality gate, kernel #1t),
+  steady-state (the profile and compile gates) and sim-smoke scaled ×25 to
+  5,000 nodes; each episode's card held against the same episode on the
+  CPU (two child processes beside the card runs, on cores of their own):
+  fingerprints equal, scorecards equal but for the compile block's
+  ``enabled``, both passing; a card-recorded trace replayed on the CPU and
+  a CPU-recorded one on the card; an out-of-scope scenario refused by its
+  ROADMAP item; one sim-smoke episode under torch.profiler (device idle
+  share, the controller's share of the wall);
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
   ``bench_wide_kernel.py`` (kernel #3) at their full shape (the whole
@@ -118,6 +133,7 @@ import tpu_scheduler_torch.ops.assign as assign_mod
 import tpu_scheduler_torch.ops.bisect as bisect_mod
 import tpu_scheduler_torch.ops.choose as choose_mod
 import tpu_scheduler_torch.parallel.sharded as sharded_mod
+import tpu_scheduler_torch.sim.harness as sim_harness
 from tpu_scheduler_torch.backends.cuda import CudaBackend
 from tpu_scheduler_torch.convert import constraints_to_device, to_device, topology_to_device
 from tpu_scheduler_torch.core.snapshot import ClusterSnapshot, node_net_available
@@ -145,6 +161,7 @@ from tpu_scheduler_torch.parallel.mesh import make_mesh
 from tpu_scheduler_torch.parallel.sharded import ShardedBackend
 from tpu_scheduler_torch.runtime.controller import Scheduler
 from tpu_scheduler_torch.runtime.fake_api import FakeApiServer
+from tpu_scheduler_torch.sim.scenarios import SCENARIOS, arrival_rate_variant
 from tpu_scheduler_torch.testing import make_node, make_pod, synth_cluster
 from tpu_scheduler_torch.topology.locality import _add_rows as locality_add_rows
 import tpu_scheduler_torch.topology.locality as locality_mod
@@ -180,7 +197,13 @@ CONS_FRACTIONS = dict(
 )
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2139,6 +2162,257 @@ def controller_http(smi: str, tmp: pathlib.Path) -> dict:
     return rec
 
 
+# ---- the simulator ---------------------------------------------------------
+
+# bench.py's sim rows at their own sizes (sim_row: sim-smoke seed 0;
+# sim_sweep_row: sim-smoke and api-brownout-recovery, seeds 0-2;
+# latency_row: the arrival-rate-sweep family at 5, 15 and 40 pods/s, seed
+# 0), the delta engine's gate scenario, a topology scenario, and
+# steady-state (whose pass holds the profile block's >= 90 % attribution
+# and the compile block's zero kernel builds after warm-up): (row, scenario
+# key, seed).
+SIM_EPISODES = (
+    ("sim_row", "sim-smoke", 0),
+    ("sim_sweep_row", "sim-smoke", 1),
+    ("sim_sweep_row", "sim-smoke", 2),
+    ("sim_sweep_row", "api-brownout-recovery", 0),
+    ("sim_sweep_row", "api-brownout-recovery", 1),
+    ("sim_sweep_row", "api-brownout-recovery", 2),
+    ("latency_row", "arrival-rate-5", 0),
+    ("latency_row", "arrival-rate-15", 0),
+    ("latency_row", "arrival-rate-40", 0),
+    ("delta_gate", "churn-steady-state", 0),
+    ("topology", "slice-fragmented-cluster", 0),
+    ("profile_gate", "steady-state", 0),
+)
+# sim-smoke at a real cluster size: 5,000 nodes, the upper bound of a
+# cluster in Kubernetes' "Considerations for large clusters".
+SIM_SCALE = 25
+SIM_SCALED = ("scaled", f"sim-smoke-x{SIM_SCALE}", 0)
+# Scorecard fields that may differ between a card run and the same run on
+# the CPU, each with its reason.
+SIM_CARD_VS_CPU = {
+    "/compile/enabled": "the card run counts its kernel builds (compile_listener_active); the CPU builds none",
+}
+
+
+def sim_scenario(key: str):
+    """The scenario a key names: a registered one, an arrival-rate-sweep
+    variant (``arrival-rate-<rate>``), or sim-smoke scaled ×k
+    (``sim-smoke-x<k>``: initial nodes, arrival rate, the burst and the node
+    churn rates ×k; the chaos window, the other fields and the seed as
+    registered)."""
+    if key in SCENARIOS:
+        return SCENARIOS[key]
+    if key.startswith("arrival-rate-"):
+        return arrival_rate_variant(float(key.rpartition("-")[2]))
+    k = int(key.rpartition("-x")[2])
+    base = SCENARIOS["sim-smoke"]
+    w = base.workload
+    return dataclasses.replace(base, name=key, description=f"sim-smoke x{k}", workload=dataclasses.replace(
+        w, initial_nodes=w.initial_nodes * k, arrival_rate=w.arrival_rate * k,
+        bursts=tuple((t, n * k) for t, n in w.bursts), node_flap_rate=w.node_flap_rate * k,
+        node_fail_rate=w.node_fail_rate * k, node_add_rate=w.node_add_rate * k))
+
+
+def sim_episode(key: str | None, seed: int, backend=None, record=None, replay=None) -> dict:
+    """One episode through ``sim.harness.scenario_episode`` (``backend``
+    None: the harness's default, ``CudaBackend()`` on the card): its card,
+    wall seconds, the seconds inside the controller's ``run_cycle`` (the
+    rest of the wall is the harness's own: op application and folding each
+    cycle, then the verdict), the verdict's seconds (the scorecard after the
+    last cycle), the device the scheduler ran on, and the API server's last
+    resourceVersion (the events the watches carried)."""
+    gen = sim_harness.scenario_episode(None if key is None else sim_scenario(key), seed=seed, backend=backend,
+                                       record=record, replay=replay)
+    t0 = time.perf_counter()
+    ctx = next(gen)
+    sched = ctx.fleet.primary
+    run_cycle, spent = sched.run_cycle, [0.0]
+
+    def timed_cycle():
+        t = time.perf_counter()
+        try:
+            return run_cycle()
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    sched.run_cycle = timed_cycle
+    try:
+        while True:
+            t_send, spent_before = time.perf_counter(), spent[0]
+            gen.send(None)
+    except StopIteration as stop:
+        card = stop.value
+    t_end = time.perf_counter()
+    return {"card": card, "wall_s": t_end - t0, "controller_s": spent[0],
+            "verdict_s": t_end - t_send - (spent[0] - spent_before), "device": sched.backend.device.type,
+            "api_events": ctx.api.list_pods_with_rv()[1]}
+
+
+def sim_cores() -> tuple[set, set]:
+    """(the card episodes' cores, the CPU references' cores): two cores for
+    the card's host-bound episodes and the rest for the two CPU children,
+    so that the two sides run at once without sharing a core; all cores
+    for both on a host with fewer than six."""
+    cores = sorted(os.sched_getaffinity(0))
+    return (set(cores[:2]), set(cores[2:])) if len(cores) >= 6 else (set(cores), set(cores))
+
+
+def sim_cpu_reference(which: str, trace_dir: str) -> None:
+    """The CPU half of the ``sim`` phase, in a child process without a
+    visible card, on :func:`sim_cores`' second set: ``small`` runs
+    :data:`SIM_EPISODES` (recording sim-smoke seed 0's trace under
+    ``trace_dir``), ``scaled`` the ×25 episode.  Prints one JSON line: each
+    episode's card, wall and controller seconds."""
+    logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
+    os.sched_setaffinity(0, sim_cores()[1])
+    torch.set_num_threads(4 if which == "scaled" else 2)
+    out = {}
+    for _row, key, seed in (SIM_EPISODES if which == "small" else (SIM_SCALED,)):
+        record = os.path.join(trace_dir, "cpu.jsonl") if (key, seed) == ("sim-smoke", 0) else None
+        run = sim_episode(key, seed, CudaBackend(device="cpu"), record=record)
+        out[f"{key}:{seed}"] = {k: run[k] for k in ("card", "wall_s", "controller_s", "verdict_s", "device")}
+    print(json.dumps(out), flush=True)
+
+
+def sim_diff(a, b, path: str = "") -> list:
+    """Paths where two scorecards differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [q for k in sorted(set(a) | set(b))
+                for q in ([f"{path}/{k}"] if k not in a or k not in b else sim_diff(a[k], b[k], f"{path}/{k}"))]
+    return [] if a == b else [path]
+
+
+def sim_phase(smi: str, tmp: pathlib.Path) -> dict:
+    """The port's simulator on the card: every episode of
+    :data:`SIM_EPISODES` and the ×25 episode, each held against the same
+    episode on the CPU (two child processes, run beside the card episodes
+    on cores of their own, :func:`sim_cores`):
+    fingerprints equal, scorecards equal outside :data:`SIM_CARD_VS_CPU`,
+    both passing; the delta gate and the locality gate; a card-recorded
+    trace replayed on the CPU and a CPU-recorded one on the card; the
+    harness's default backend on the card; an out-of-scope scenario refused
+    by its ROADMAP item; one sim-smoke episode under torch.profiler.
+    Returns the phase's kernel launches on the card (#1, #1t)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    root = pathlib.Path(__file__).resolve().parent
+    children, errs = {}, {}
+    for which in ("scaled", "small"):
+        errs[which] = tempfile.TemporaryFile("w+")
+        children[which] = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.sim_cpu_reference({which!r}, {str(tmp)!r})"],
+            cwd=root, stdout=subprocess.PIPE, stderr=errs[which], text=True, env=env,
+        )
+    card_cores, _ = sim_cores()
+    all_cores = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, card_cores)
+    try:
+        card_runs, launches = {}, {}
+        for row, key, seed in SIM_EPISODES + (SIM_SCALED,):
+            zero_launches()
+            backend = None if row == "sim_row" else CudaBackend()  # sim_row: the harness's default
+            record = str(tmp / "card.jsonl") if (key, seed) == ("sim-smoke", 0) else None
+            run = sim_episode(key, seed, backend, record=record)
+            launches[f"{key}:{seed}"] = read_launches()
+            if run["device"] != "cuda":
+                raise SystemExit(f"sim {key} seed {seed}: the scheduler ran on {run['device']}, not the card")
+            card_runs[f"{key}:{seed}"] = run
+        cpu_runs = {}
+        for which, child in children.items():
+            out, _ = child.communicate(timeout=900)
+            if child.returncode != 0:
+                errs[which].seek(0)
+                raise SystemExit(f"sim: the CPU run ({which}) failed ({child.returncode}): {errs[which].read()[-3000:]}")
+            cpu_runs.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        os.sched_setaffinity(0, all_cores)
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        for f in errs.values():
+            f.close()
+
+    totals = {"launches": 0, "launches_topo": 0, "launches_constrained": 0, "launches_constrained_topo": 0}
+    for row, key, seed in SIM_EPISODES + (SIM_SCALED,):
+        name = f"{key}:{seed}"
+        c, r, n = card_runs[name], cpu_runs[name], launches[name]
+        cc, rc = c["card"], r["card"]
+        for k in totals:
+            totals[k] += n[k]
+        differing = [q for q in sim_diff(cc, rc) if q not in SIM_CARD_VS_CPU]
+        rec = {"phase": "sim_episode", "row": row, "scenario": key, "seed": seed, "device": c["device"],
+               "wall_s": c["wall_s"], "cpu_wall_s": r["wall_s"], "cycles": cc["cycles"],
+               "cycles_per_s": cc["cycles"] / c["wall_s"], "virtual_s": cc["virtual_seconds"], "pass": cc["pass"],
+               "cpu_pass": rc["pass"], "controller_s": c["controller_s"],
+               "controller_share": c["controller_s"] / c["wall_s"], "verdict_s": c["verdict_s"],
+               "cpu_controller_s": r["controller_s"], "cpu_verdict_s": r["verdict_s"],
+               "launches_choose": n["launches"], "launches_choose_topology": n["launches_topo"],
+               "launches_constrained": n["launches_constrained"] + n["launches_constrained_topo"],
+               "bound": cc["pods"]["bound_total"], "p99_ttb_s": cc["slo"]["p99_time_to_bind_s"],
+               "full_solve_fraction": cc["incremental"]["full_solve_fraction"], "api_events": c["api_events"],
+               "fingerprint": cc["fingerprint"][:16], "fingerprint_equal": cc["fingerprint"] == rc["fingerprint"],
+               "differing_fields": differing, "nvidia_smi": smi}
+        emit(rec)
+        if not (rec["fingerprint_equal"] and not differing and cc["pass"] and rc["pass"]):
+            raise SystemExit(f"sim {name}: card and CPU differ ({differing}) or a verdict failed "
+                             f"(card pass {cc['pass']}, CPU pass {rc['pass']})")
+        if n["launches"] + n["launches_topo"] == 0:
+            raise SystemExit(f"sim {name}: the card episode launched no choose kernel ({n})")
+        if row == "delta_gate":
+            inc = cc["incremental"]
+            if not (inc["ok"] and inc["shadow_checks"] > 0 and inc["shadow_mismatches"] == 0
+                    and inc["full_solve_fraction"] <= 0.10):
+                raise SystemExit(f"sim {name}: the delta gate failed on the card: {inc}")
+        if row == "profile_gate" and not (cc["profile"]["coverage_ok"] and cc["compile"]["enabled"]
+                                         and cc["compile"]["ok"]):
+            raise SystemExit(f"sim {name}: the profile or compile gate failed on the card: "
+                             f"{cc['profile']['coverage_ok']}, {cc['compile']}")
+        if row == "topology":
+            loc = cc["locality"]
+            if not (loc["required"] and loc["gangs_scored"] > 0 and loc["cross_rack_gangs"] == 0):
+                raise SystemExit(f"sim {name}: the locality gate failed on the card: {loc}")
+            if n["launches_topo"] == 0:
+                raise SystemExit(f"sim {name}: the topology episode launched no #1t ({n})")
+
+    # Traces across devices: the card's recording replayed on the CPU, the
+    # CPU's on the card.
+    on_cpu = sim_episode(None, 0, CudaBackend(device="cpu"), replay=str(tmp / "card.jsonl"))
+    zero_launches()
+    on_card = sim_episode(None, 0, CudaBackend(), replay=str(tmp / "cpu.jsonl"))
+    replay_launches = read_launches()
+    recorded = card_runs["sim-smoke:0"]["card"]["fingerprint"]
+    replays = {"card_trace_on_cpu": on_cpu["card"]["fingerprint"] == recorded,
+               "cpu_trace_on_card": on_card["card"]["fingerprint"] == recorded}
+    emit({"phase": "sim_replay", **replays, "card_replay_wall_s": on_card["wall_s"],
+          "cpu_replay_wall_s": on_cpu["wall_s"], "launches": replay_launches, "nvidia_smi": smi})
+    if not all(replays.values()):
+        raise SystemExit(f"sim replay across devices diverged: {replays}")
+
+    # A scenario out of the port's scope is refused by its ROADMAP item.
+    try:
+        sim_harness.run_scenario("replica-kill-mid-cycle")
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    emit({"phase": "sim_refusal", "scenario": "replica-kill-mid-cycle", "message": refused})
+    if refused is None or "ROADMAP Queue 1 item 8" not in refused:
+        raise SystemExit(f"sim: replica-kill-mid-cycle was not refused by item 8 ({refused})")
+
+    # One sim-smoke episode under torch.profiler: the device's idle share.
+    zero_launches()
+    prof_run = {}
+    wall_ms, rows = profiled(lambda: prof_run.update(sim_episode("sim-smoke", 0, CudaBackend())))
+    split = device_split(wall_ms, rows, "choose_kernel")
+    emit({"phase": "sim_profile", "scenario": "sim-smoke", "seed": 0, **split,
+          "controller_share": prof_run["controller_s"] / prof_run["wall_s"], "launches": read_launches(),
+          "fingerprint_equal": prof_run["card"]["fingerprint"] == recorded, "nvidia_smi": smi})
+    if prof_run["card"]["fingerprint"] != recorded:
+        raise SystemExit("sim: the profiled sim-smoke episode departed from the unprofiled one")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing measured", file=sys.stderr)
@@ -2677,13 +2951,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         emit(controller_http(smi, pathlib.Path(tmp)))
 
+    # ---- the simulator over CudaBackend ------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        sim_launches = sim_phase(smi, pathlib.Path(tmp))
+    emit({"phase": "sim", "episodes": len(SIM_EPISODES) + 1, "seconds": time.perf_counter() - t0,
+          "launches": sim_launches, "nvidia_smi": smi})
+
     # ---- the bisection kernels (experiments) -------------------------------
     brecs = bisect_phase(device, resources)
 
     emit({"kernels": [
         {
             "name": "choose", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
-            "replaces": "tpu_scheduler/ops/pallas_choose.py:356", "launches": launches, "max_abs_err": max_abs_err,
+            "replaces": "tpu_scheduler/ops/pallas_choose.py:356", "launches": launches + sim_launches["launches"],
+            "max_abs_err": max_abs_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         },
         {
@@ -2709,7 +2991,8 @@ def main() -> int:
         {
             "name": "choose_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
-            "launches": tlaunches, "max_abs_err": topo_max_abs_err, "ms": topo_ms, "plain_ms": topo_plain_ms,
+            "launches": tlaunches + sim_launches["launches_topo"], "max_abs_err": topo_max_abs_err, "ms": topo_ms,
+            "plain_ms": topo_plain_ms,
             "bound_ms": topo_bound["bound_ms"], "bound_by": topo_bound["bound_by"], "library_ms": None,
         },
         {

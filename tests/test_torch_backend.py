@@ -143,7 +143,10 @@ def test_port_imports_no_jax():
     assert report["bad"] == []
     assert len(report["mods"]) >= 15
     for name in ("delta.engine", "delta.index", "delta.repack", "delta.state", "runtime.checkpoint",
-                 "runtime.http_api", "runtime.kubeconfig", "runtime.controller", "cli"):
+                 "runtime.http_api", "runtime.kubeconfig", "runtime.controller", "cli", "sim.chaos", "sim.cli",
+                 "sim.clock", "sim.harness", "sim.multi", "sim.scenarios", "sim.scorecard", "sim.trace",
+                 "sim.workload", "learn.objective", "rebalance.snapshot", "rebalance.solver", "fleet",
+                 "runtime.shards"):
         assert f"tpu_scheduler_torch.{name}" in report["mods"], name
 
 

@@ -430,7 +430,8 @@ def test_cli_delta_matches_jax_cli():
     assert '"delta": false' not in port_proc.stderr
 
 
-@pytest.mark.parametrize("flags", [["sim"], ["--shards", "2"], ["--rebalance"], ["--autoscale"], ["--distributed"]])
+@pytest.mark.parametrize("flags", [["sim", "fuzz"], ["--shards", "2"], ["--rebalance"], ["--autoscale"],
+                                   ["--distributed"]])
 def test_cli_refuses_unported_flags(flags):
     proc = _cli("tpu_scheduler_torch.cli", *flags, "--device", "cpu", "--nodes", "2", "--pods", "2")
     assert proc.returncode == 2

@@ -12,6 +12,8 @@ devices (``parallel.sharded.ShardedBackend``, topology-blind as in the JAX
 package); the choose kernel's bisection kernels (``ops/bisect.py``,
 ``csrc/bisect.cu``, driven by ``experiments/``); and the controller above
 them — ``runtime.controller.Scheduler`` with its reflector, in-process API
-server, resilience, metrics, events, tracing and profiler, full-wave cycles
-only — and its CLI, ``python -m tpu_scheduler_torch.cli``.
+server, resilience, metrics, events, tracing and profiler, through the
+delta engine by default — its CLI, ``python -m tpu_scheduler_torch.cli``,
+and the simulator above it (``sim/``: a seeded discrete-event harness of
+named scenarios, ``python -m tpu_scheduler_torch.cli sim``).
 """

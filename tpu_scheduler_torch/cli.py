@@ -19,6 +19,11 @@ restores scheduler-local state at start and saves it at exit.  There is
 no fallback: without CUDA, ``--device cuda`` fails with the backend's
 ``BackendUnavailable`` before any cycle.  Flags whose subsystem waits for
 a later item of the port (ROADMAP Queue 1) exit 2 naming the item.
+
+``sim`` runs the simulator (``sim/cli.py``):
+
+    python -m tpu_scheduler_torch.cli sim --scenario sim-smoke --seed 0
+    python -m tpu_scheduler_torch.cli sim --device cpu --scenario sim-smoke
 """
 
 from __future__ import annotations
@@ -388,8 +393,11 @@ def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "sim":
-        print("tpu-scheduler-torch: the simulator is not ported yet (ROADMAP Queue 1 item 6)", file=sys.stderr)
-        return 2
+        # The simulator (sim/): python -m tpu_scheduler_torch.cli sim
+        # --scenario NAME --seed N [--device cpu].
+        from .sim.cli import main as sim_main
+
+        return sim_main(argv[1:])
     parser = build_parser()
     args = parser.parse_args(argv)
     refused = unported_flags(args)

@@ -48,6 +48,7 @@ Tensors travel as dicts keyed by the PackedCluster ``device_arrays`` names.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -66,6 +67,9 @@ from .choose import (
 )
 from .constraints import augment_round_state, constraint_commit, constraint_filter, round_blocked_masks
 from .pack import INT32_MAX, STALL_ROUNDS
+from ..utils.tracing import span
+
+_NULL = contextlib.nullcontext()
 
 __all__ = ["accept_claims", "assign_cycle", "commit_claims", "split_device_arrays"]
 
@@ -246,54 +250,71 @@ def _round(
     (gang placement counts), commit capacity, compact.  Returns (avail, ps,
     n_active) — n_active read to the host; ``cons`` and the ``topo`` state
     (``{"meta", "cycle", "state"}``: the meta, locality.gang_cycle_operands
-    and the per-domain counts) are updated in place."""
-    n = avail.shape[0]
-    masks = None
-    if cons is not None:
-        masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
-    gang = None
-    if topo is not None:
-        gang = gang_round_operands(
-            topo["cycle"], topo["state"], topo["meta"], avail, ps["pod_gang_id"], ps["pod_req"], ps["active"],
-            weights[6],
-        )
-    choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, gang)
-    del gang
-    cand = ps["active"] & has
-    ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
-    claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
-    accepted = accept_claims(ch, claim, avail)
+    and the per-domain counts) are updated in place.
 
-    if cons is not None:
-        # Within-round conflicts are deferred (they stay active); the
-        # survivors fold into the domain state.
-        accepted = constraint_filter(accepted, choice, ps["ranks"], ps, cons.state, cons.meta, cons.hard_pa)
-        cons.state = constraint_commit(
-            accepted, choice, ps, cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa
-        )
+    Spans: each round opens ``round[NN]`` and, in a constrained or topology
+    cycle, its ``mask``/``score``/``choose`` split (``filter``, with the
+    ``aa``/``pa``/``spread`` families, and ``commit`` under ``choose``) —
+    the nesting of the JAX package's NativeBackend round loop, so an
+    attribution profile (and the sim scorecard's span census) reads the
+    same in both packages.  Inert without an active trace."""
+    with span(f"round[{rounds:02d}]"):
+        detail = cons is not None or topo is not None
+        n = avail.shape[0]
+        masks = None
+        gang = None
+        with span("mask") if detail else _NULL:
+            if cons is not None:
+                masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
+            if topo is not None:
+                gang = gang_round_operands(
+                    topo["cycle"], topo["state"], topo["meta"], avail, ps["pod_gang_id"], ps["pod_req"], ps["active"],
+                    weights[6],
+                )
+        with span("score") if detail else _NULL:
+            choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, gang)
+        del gang
+        with span("choose") if detail else _NULL:
+            cand = ps["active"] & has
+            ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
+            claim = torch.where(cand[:, None], ps["pod_req"], 0).to(torch.int64)
+            accepted = accept_claims(ch, claim, avail)
 
-    ps["assigned"] = torch.where(accepted, choice, ps["assigned"])
-    ps["acc_round"] = torch.where(accepted, rounds, ps["acc_round"])
-    avail = commit_claims(avail, ch, claim, accepted)
-    active = cand & ~accepted
-    if cons is not None and cons.hard_pa:
-        # A pod placed this round can activate a declarer's positive-affinity
-        # term and open nodes for it: blocked-everywhere declarers stay
-        # active while any term gained a match this round.
-        new_match = (ps["pod_pa_matched"] * accepted[:, None].to(torch.float32)).sum(dim=0) > 0
-        pa_hope = (ps["pod_pa_declares"].sum(dim=1) > 0) & new_match.any()
-        active = active | (ps["active"] & ~has & pa_hope)
-    if topo is not None:
-        # Non-claimants carry the sentinel n and add 0.0; gangless pods add
-        # into row 0, never read back.
-        gang_state_update(topo["state"], topo["cycle"]["dom_col"], accepted, ch, ps["pod_gang_id"])
-    ps["active"] = active
-    ps = _compact(ps)
-    # One host read per round: the active count, and the accepted count
-    # for the stall rule.
-    n_active, n_accepted = torch.stack([ps["active"].sum(), accepted.sum()]).tolist()
-    if cons is not None:
-        cons.stall = 0 if n_accepted else cons.stall + 1
+            if cons is not None:
+                # Within-round conflicts are deferred (they stay active); the
+                # survivors fold into the domain state.
+                with span("filter"):
+                    accepted = constraint_filter(
+                        accepted, choice, ps["ranks"], ps, cons.state, cons.meta, cons.hard_pa, spans=span
+                    )
+                with span("commit"):
+                    cons.state = constraint_commit(
+                        accepted, choice, ps, cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa
+                    )
+
+            ps["assigned"] = torch.where(accepted, choice, ps["assigned"])
+            ps["acc_round"] = torch.where(accepted, rounds, ps["acc_round"])
+            avail = commit_claims(avail, ch, claim, accepted)
+            active = cand & ~accepted
+            if cons is not None and cons.hard_pa:
+                # A pod placed this round can activate a declarer's
+                # positive-affinity term and open nodes for it:
+                # blocked-everywhere declarers stay active while any term
+                # gained a match this round.
+                new_match = (ps["pod_pa_matched"] * accepted[:, None].to(torch.float32)).sum(dim=0) > 0
+                pa_hope = (ps["pod_pa_declares"].sum(dim=1) > 0) & new_match.any()
+                active = active | (ps["active"] & ~has & pa_hope)
+            if topo is not None:
+                # Non-claimants carry the sentinel n and add 0.0; gangless
+                # pods add into row 0, never read back.
+                gang_state_update(topo["state"], topo["cycle"]["dom_col"], accepted, ch, ps["pod_gang_id"])
+            ps["active"] = active
+            ps = _compact(ps)
+            # One host read per round: the active count, and the accepted
+            # count for the stall rule.
+            n_active, n_accepted = torch.stack([ps["active"].sum(), accepted.sum()]).tolist()
+            if cons is not None:
+                cons.stall = 0 if n_accepted else cons.stall + 1
     return avail, ps, n_active
 
 

@@ -37,6 +37,7 @@ mantissa bits), which :func:`_exact` enforces.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,6 +59,14 @@ __all__ = [
     "constraint_commit",
     "RANK_INF",
 ]
+
+_NULL_SPAN_CTX = contextlib.nullcontext()
+
+
+def _null_span(_name):
+    """The filter's sub-span when no span factory is given: a shared no-op."""
+    return _NULL_SPAN_CTX
+
 
 # The "no rank" sentinel of the min-rank scatters and water-line mins: the
 # float32 value of the JAX package's np.float32(3.0e38), as a Python float
@@ -821,7 +830,7 @@ def _cell_rank_min_level(mass, nd, uses, base):
     return _cell_rank_scan(mass, nd, uses, out_fn)
 
 
-def constraint_filter(accepted, choice, ranks, ps: dict, state: dict, meta: dict, hard_pa: bool = True):
+def constraint_filter(accepted, choice, ranks, ps: dict, state: dict, meta: dict, hard_pa: bool = True, spans=None):
     """Within-round conflict resolution: the subset of ``accepted`` [P] that
     survives, pods in array order = priority-rank order.
 
@@ -838,7 +847,10 @@ def constraint_filter(accepted, choice, ranks, ps: dict, state: dict, meta: dict
 
     Only accepted rows can conflict, so the filter works on the exact
     accepted rows (gathered with ``torch.nonzero``) and scatters the
-    survivors back."""
+    survivors back.  ``spans`` (e.g. utils.tracing.span) opens the ``aa`` /
+    ``pa`` / ``spread`` sub-spans around the three families, as the JAX
+    package's filter does; the default opens none."""
+    sp_span = spans if spans is not None else _null_span
     gperm = torch.nonzero(accepted).squeeze(1)
     if gperm.numel() == 0:
         return accepted.clone()
@@ -869,62 +881,65 @@ def constraint_filter(accepted, choice, ranks, ps: dict, state: dict, meta: dict
     c_at = g_all[:, 2 * t + s_sp :]  # [A, S] own-cell round-start count
 
     # ---- anti-affinity ----------------------------------------------------
-    carr, matc = pw["pod_aa_carries"], pw["pod_aa_matched"]
-    if _dense_ok(nd.shape[0], t * d):
-        m3 = nd[:, None, :] * uses[None, :, :]  # [A,T,D] one-hot coarse cell under t
+    with sp_span("aa"):
+        carr, matc = pw["pod_aa_carries"], pw["pod_aa_matched"]
+        if _dense_ok(nd.shape[0], t * d):
+            m3 = nd[:, None, :] * uses[None, :, :]  # [A,T,D] one-hot coarse cell under t
 
-        def earlier_in_cell(v):  # "an earlier v-pod shares my coarse cell"
-            v3 = v[:, :, None] * m3
-            ec = _cumsum_rows(v3) - v3
-            return (ec * m3).sum(dim=2) > 0
+            def earlier_in_cell(v):  # "an earlier v-pod shares my coarse cell"
+                v3 = v[:, :, None] * m3
+                ec = _cumsum_rows(v3) - v3
+                return (ec * m3).sum(dim=2) > 0
 
-        fine = has_c == 0
-        min_c_fine = _row_scatter_min(n, choice_ws, torch.where((carr * fine) > 0, rank_f[:, None], RANK_INF))
-        min_m_fine = _row_scatter_min(n, choice_ws, torch.where((matc * fine) > 0, rank_f[:, None], RANK_INF))
-        earlier_c = earlier_in_cell(carr * has_c) | (fine & (rank_f[:, None] > min_c_fine[choice_ws]))
-        earlier_m = earlier_in_cell(matc * has_c) | (fine & (rank_f[:, None] > min_m_fine[choice_ws]))
-        bad_aa = ((matc > 0) & earlier_c) | ((carr > 0) & earlier_m)
-    else:
-        # One segment scatter-min over the (term, coarse domain ∪ node) cell
-        # space: carrier mins in [0, t·cells), matched mins offset by t·cells.
-        cells = d + n
-        cell = torch.where(has_c > 0, cc, d + choice_ws[:, None].to(_F32))
-        g = (torch.arange(t, dtype=_F32, device=ndc.device)[None, :] * cells + cell).to(torch.int32).to(torch.int64)
-        gf2 = torch.cat([g.reshape(-1), (g + t * cells).reshape(-1)])
-        vals2 = torch.cat([
-            torch.where(carr > 0, rank_f[:, None], RANK_INF).reshape(-1),
-            torch.where(matc > 0, rank_f[:, None], RANK_INF).reshape(-1),
-        ])
-        mins = _scatter_min(2 * t * cells, gf2, vals2)
-        bad_aa = ((matc > 0) & (rank_f[:, None] > mins[g])) | ((carr > 0) & (rank_f[:, None] > mins[g + t * cells]))
-    keep = ~bad_aa.any(dim=1)
+            fine = has_c == 0
+            min_c_fine = _row_scatter_min(n, choice_ws, torch.where((carr * fine) > 0, rank_f[:, None], RANK_INF))
+            min_m_fine = _row_scatter_min(n, choice_ws, torch.where((matc * fine) > 0, rank_f[:, None], RANK_INF))
+            earlier_c = earlier_in_cell(carr * has_c) | (fine & (rank_f[:, None] > min_c_fine[choice_ws]))
+            earlier_m = earlier_in_cell(matc * has_c) | (fine & (rank_f[:, None] > min_m_fine[choice_ws]))
+            bad_aa = ((matc > 0) & earlier_c) | ((carr > 0) & earlier_m)
+        else:
+            # One segment scatter-min over the (term, coarse domain ∪ node) cell
+            # space: carrier mins in [0, t·cells), matched mins offset by t·cells.
+            cells = d + n
+            cell = torch.where(has_c > 0, cc, d + choice_ws[:, None].to(_F32))
+            g = (torch.arange(t, dtype=_F32, device=ndc.device)[None, :] * cells + cell).to(torch.int32).to(torch.int64)
+            gf2 = torch.cat([g.reshape(-1), (g + t * cells).reshape(-1)])
+            vals2 = torch.cat([
+                torch.where(carr > 0, rank_f[:, None], RANK_INF).reshape(-1),
+                torch.where(matc > 0, rank_f[:, None], RANK_INF).reshape(-1),
+            ])
+            mins = _scatter_min(2 * t * cells, gf2, vals2)
+            bad_aa = ((matc > 0) & (rank_f[:, None] > mins[g])) | ((carr > 0) & (rank_f[:, None] > mins[g + t * cells]))
+        keep = ~bad_aa.any(dim=1)
 
     # ---- positive-affinity bootstrap --------------------------------------
     if hard_pa:
-        pa_m_acc = pw["pod_pa_matched"] * keep.to(_F32)[:, None]  # [A, Ta]
-        min_match_rank = torch.amin(torch.where(pa_m_acc > 0, rank_f[:, None], RANK_INF), dim=0)  # [Ta]
-        waived = pw["pod_pa_declares"] * pw["pod_pa_matched"] * state["pa_inactive"][None, :]
-        bad_pa = (waived > 0) & keep[:, None] & (rank_f[:, None] > min_match_rank[None, :])
-        keep = keep & ~bad_pa.any(dim=1)
+        with sp_span("pa"):
+            pa_m_acc = pw["pod_pa_matched"] * keep.to(_F32)[:, None]  # [A, Ta]
+            min_match_rank = torch.amin(torch.where(pa_m_acc > 0, rank_f[:, None], RANK_INF), dim=0)  # [Ta]
+            waived = pw["pod_pa_declares"] * pw["pod_pa_matched"] * state["pa_inactive"][None, :]
+            bad_pa = (waived > 0) & keep[:, None] & (rank_f[:, None] > min_match_rank[None, :])
+            keep = keep & ~bad_pa.any(dim=1)
 
     # ---- topology spread: rank-prefix admission + in-round cascade ---------
-    skew = meta["sp_skew"]  # [S]
-    keep_f = keep.to(_F32)
-    cand_m = keep_f[:, None] * pw["pod_sp_matched"] * in_cell  # [A, S] candidate matched mass
-    decl_cell = keep_f[:, None] * pw["pod_sp_declares"] * in_cell  # declarers on keyed nodes
-    # The cell passes run on the pack-time spread-domain selection only.
-    sel = meta["sp_dom_sel"]
-    nd_sp, uses_spc, sp0c = nd @ sel, uses_sp @ sel, sp0 @ sel
-    pre_all = _cell_rank_prefix(cand_m, nd_sp, uses_spc)
-    bound = c_at + pre_all + 1.0  # [A, S] count-after-placement upper bound
-    lo_p = torch.zeros_like(c_at) + state["sp_lo"][None, :]
-    admit = bound <= (skew[None, :] + lo_p)
-    for _ in range(SPREAD_CASCADE):
-        rejected = ((decl_cell > 0) & ~admit).any(dim=1)
-        committed_pod = keep_f * (1.0 - rejected.to(_F32))  # [A]
-        lo_p = _cell_rank_min_level(cand_m * committed_pod[:, None], nd_sp, uses_spc, sp0c)
-        admit = admit | (bound <= (skew[None, :] + lo_p))
-    keep = keep & ~((decl_cell > 0) & ~admit).any(dim=1)
+    with sp_span("spread"):
+        skew = meta["sp_skew"]  # [S]
+        keep_f = keep.to(_F32)
+        cand_m = keep_f[:, None] * pw["pod_sp_matched"] * in_cell  # [A, S] candidate matched mass
+        decl_cell = keep_f[:, None] * pw["pod_sp_declares"] * in_cell  # declarers on keyed nodes
+        # The cell passes run on the pack-time spread-domain selection only.
+        sel = meta["sp_dom_sel"]
+        nd_sp, uses_spc, sp0c = nd @ sel, uses_sp @ sel, sp0 @ sel
+        pre_all = _cell_rank_prefix(cand_m, nd_sp, uses_spc)
+        bound = c_at + pre_all + 1.0  # [A, S] count-after-placement upper bound
+        lo_p = torch.zeros_like(c_at) + state["sp_lo"][None, :]
+        admit = bound <= (skew[None, :] + lo_p)
+        for _ in range(SPREAD_CASCADE):
+            rejected = ((decl_cell > 0) & ~admit).any(dim=1)
+            committed_pod = keep_f * (1.0 - rejected.to(_F32))  # [A]
+            lo_p = _cell_rank_min_level(cand_m * committed_pod[:, None], nd_sp, uses_spc, sp0c)
+            admit = admit | (bound <= (skew[None, :] + lo_p))
+        keep = keep & ~((decl_cell > 0) & ~admit).any(dim=1)
 
     out = torch.zeros_like(accepted)
     out[gperm] = keep

@@ -354,8 +354,13 @@ class Scheduler:
         self.lease_name = lease_name
         self.lease_duration = lease_duration
         # One shard: the sharded control plane (runtime/shards.py of the JAX
-        # package) is refused above until its port item.
+        # package) is refused above until its port item.  The subsystems of
+        # later items read as absent, as the sim harness expects of a
+        # scheduler that runs without them.
         self.num_shards = 1
+        self.shard_set = None
+        self.rebalancer = None
+        self.autoscaler = None
         self.is_leader = not self.leader_elect
         # Takeover hygiene: set when leadership (or a shard) was newly
         # acquired; the next owned cycle revalidates the assumed-bind
@@ -2310,7 +2315,8 @@ class Scheduler:
                 # (A second "queue" interval: the rebuild + gang census cost
                 # accumulates into the same phase as the eligibility filter.)
                 with span("queue"):
-                    eligible_names = {full_name(p) for p in pending}
+                    eligible_order = [full_name(p) for p in pending]
+                    eligible_names = set(eligible_order)
                     if self._delta_plan is not None:
                         # Delta cycle: a shared-cache VIEW of the snapshot
                         # with pending preset to the dirty set — zero
@@ -2349,7 +2355,12 @@ class Scheduler:
                     if compiled_topo is not None:
                         cycle_snapshot.attach_topology(compiled_topo)
                     self._explain_snapshot = cycle_snapshot
-                    self.recorder.seen_many(eligible_names, self._cycle_tag)
+                    # In the pending list's order, not the set's: once a
+                    # cycle's new pods outgrow the recorder, the order
+                    # decides which timelines the LRU keeps, and a set's
+                    # order changes with the process's string-hash seed.
+                    # (The JAX controller passes the set.)
+                    self.recorder.seen_many(eligible_order, self._cycle_tag)
                 if self.policy == "batch":
                     bound, unsched, rounds = self._run_batch_cycle(cycle_snapshot, trace)
                 else:

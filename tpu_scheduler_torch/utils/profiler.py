@@ -41,6 +41,7 @@ serve the HTTP debug routes (``runtime/http_api.py``).
 from __future__ import annotations
 
 import threading
+import time
 
 from .tracing import Trace, current_trace
 
@@ -55,6 +56,8 @@ __all__ = [
     "ReplicaLatencyRegistry",
     "record_kernel_build",
     "compile_stats",
+    "compile_listener_active",
+    "span_cost_estimate",
     "record_transfer",
     "transfer_bytes_total",
 ]
@@ -325,6 +328,24 @@ class ProfileRing:
         }
 
 
+def span_cost_estimate(n: int = 4000) -> float:
+    """Median-of-3 microbench of one span enter/exit against a live Trace —
+    the calibration input of the overhead gate."""
+    from .tracing import span as _span
+
+    best = []
+    for _ in range(3):
+        tr = Trace()
+        with tr:
+            t0 = time.perf_counter()
+            for _i in range(n):
+                with _span("probe"):
+                    pass
+            best.append((time.perf_counter() - t0) / n)
+    best.sort()
+    return best[1]
+
+
 # -- multi-replica aggregation ------------------------------------------------
 
 
@@ -455,3 +476,14 @@ def compile_stats() -> dict:
     """Lifetime kernel builds and their seconds (``builds``, ``build_s``)."""
     with _build_lock:
         return dict(_build_stats)
+
+
+def compile_listener_active(backend=None) -> bool:
+    """Whether the kernel-build counter (``record_kernel_build``, read as
+    ``compile_stats()["builds"]``) counts the builds of a run over
+    ``backend`` — the sim scorecard ``compile`` block's ``enabled`` bit.
+    True when the backend runs on the card, whose first launches build the
+    kernels with nvcc; False on the CPU, where the plain versions run and
+    nothing is built, so the count is vacuously zero (as under the JAX
+    package's NativeBackend)."""
+    return getattr(getattr(backend, "device", None), "type", None) == "cuda"
