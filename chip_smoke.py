@@ -92,6 +92,23 @@ bisection kernels) and, for each main path:
   a CPU-recorded one on the card; an out-of-scope scenario refused by its
   ROADMAP item; one sim-smoke episode under torch.profiler (device idle
   share, the controller's share of the wall);
+* fleet — the sharded control plane and the multi-mesh fleet over
+  ``CudaBackend``, each phase against a CPU child run beside it:
+  ``multi_replica`` and ``multi_mesh`` are bench.py's ``multi_replica_row``
+  and ``multi_mesh_row`` at 8,192 × 512, K = 1, 2, 4 replicas over 4
+  lease-owned shards (bound, cycles and the virtual takeover equal to the
+  CPU's; a mesh rebind where K > 1); ``sim_multi`` the five multi-replica
+  scenarios at seed 0 (cards equal but for ``compile.enabled``); ``fuzz``
+  the corpus replay and a seed-0 campaign of 24 plans through ``sim fuzz``
+  (the run log byte-equal to the CPU's); ``fleet_e2e`` four replicas over
+  four shards at ``controller_e2e``'s 100k × 10k with the nodes in racks of
+  32, one FakeApiServer and one VirtualClock: ownership warmed up, the wave
+  settled, replica 0 crash-killed, the survivors' takeover with a mesh
+  rebind within 2 × the 5 s lease, no double bind, no node oversubscribed,
+  every binding feasible, each replica's launches, a survivor's cycle under
+  torch.profiler; ``kernel_vs_plain_fleet`` kernel #1 on a replica's
+  node-sliced operands from ``fleet_e2e`` and #1t on a sliced topology
+  cycle of cross-shard-gang-admission;
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
   ``bench_wide_kernel.py`` (kernel #3) at their full shape (the whole
@@ -1796,20 +1813,28 @@ def cli_phase(smi: str, expected_bound: int) -> dict:
 
 class RecordingBackend(CudaBackend):
     """``CudaBackend`` that notes the shape of every packed cluster it
-    solves and keeps the first one that ``keep(packed)`` accepts (the
-    operands of ``kernel_vs_plain_delta``); the solve is CudaBackend's."""
+    solves, counts the choose launches of its own solves (a fleet
+    replica's), and keeps the first packed cluster that ``keep(packed)``
+    accepts (the operands of ``kernel_vs_plain_delta`` and
+    ``kernel_vs_plain_fleet``); the solve is CudaBackend's."""
 
     def __init__(self, keep=None, **kw):
         super().__init__(**kw)
         self.keep = keep
         self.kept = None
         self.shapes: list = []
+        self.launches = {name.lower(): 0 for name in CHOOSE_COUNTERS}
 
     def assign(self, packed, profile):
         self.shapes.append((packed.padded_pods, packed.padded_nodes, len(packed.node_names)))
         if self.kept is None and self.keep is not None and self.keep(packed):
             self.kept = packed
-        return super().assign(packed, profile)
+        before = read_launches()
+        try:
+            return super().assign(packed, profile)
+        finally:
+            for k, v in read_launches().items():
+                self.launches[k] += v - before[k]
 
 
 def delta_row(sched, label: str, seconds: float, m, before: dict, node_axes: list) -> dict:
@@ -2392,13 +2417,13 @@ def sim_phase(smi: str, tmp: pathlib.Path) -> dict:
 
     # A scenario out of the port's scope is refused by its ROADMAP item.
     try:
-        sim_harness.run_scenario("replica-kill-mid-cycle")
+        sim_harness.run_scenario("rebalance-under-chaos")
         refused = None
     except NotImplementedError as e:
         refused = str(e)
-    emit({"phase": "sim_refusal", "scenario": "replica-kill-mid-cycle", "message": refused})
-    if refused is None or "ROADMAP Queue 1 item 8" not in refused:
-        raise SystemExit(f"sim: replica-kill-mid-cycle was not refused by item 8 ({refused})")
+    emit({"phase": "sim_refusal", "scenario": "rebalance-under-chaos", "message": refused})
+    if refused is None or "ROADMAP Queue 1 item 9" not in refused:
+        raise SystemExit(f"sim: rebalance-under-chaos was not refused by item 9 ({refused})")
 
     # One sim-smoke episode under torch.profiler: the device's idle share.
     zero_launches()
@@ -2411,6 +2436,495 @@ def sim_phase(smi: str, tmp: pathlib.Path) -> dict:
     if prof_run["card"]["fingerprint"] != recorded:
         raise SystemExit("sim: the profiled sim-smoke episode departed from the unprofiled one")
     return totals
+
+
+# ---- the sharded control plane and the fleet -------------------------------
+
+# bench.py's multi-replica rows and the fleet phase: 4 lease-owned shards,
+# 5 s leases, racks of 32 nodes (``multi_mesh_row``'s labelling).
+FLEET_SHARDS, FLEET_LEASE, FLEET_RACK = 4, 5.0, 32
+# The five scenarios with more than one replica.
+MULTI_SCENARIOS = ("replica-kill-mid-cycle", "mesh-rebind-on-takeover", "cross-shard-gang-admission",
+                   "replica-kill-during-brownout", "lease-brownout-during-takeover")
+# The pinned campaign of ``make fuzz-smoke``: seed 0, 24 plans.
+FUZZ_BUDGET = 24
+
+
+def rack_label(nodes) -> None:
+    """Racks of :data:`FLEET_RACK` contiguous nodes — what the fleet keyer
+    shards a cluster by."""
+    for i, node in enumerate(nodes):
+        node.metadata.labels[RACK_KEY] = f"rack-{i // FLEET_RACK}"
+
+
+def fleet_rebinds(scheds) -> int:
+    return sum(int(s.metrics.snapshot().get("scheduler_mesh_rebinds_total", 0)) for s in scheds)
+
+
+def multi_rows(device: str, pods: int = 8192, nodes: int = 512, seed: int = 0) -> dict:
+    """bench.py's ``multi_replica_row`` and ``multi_mesh_row`` on the port
+    over ``CudaBackend(device)``: K in {1, 2, 4} replicas (one backend each)
+    split :data:`FLEET_SHARDS` lease-owned shards of one FakeApiServer on a
+    VirtualClock and settle an 8,192 × 512 wave; ``multi_mesh`` labels the
+    nodes in racks and warms ownership up for 6 rounds before the wave
+    lands, so the topology keyer slices each replica's solve.  Then replica
+    0 is crash-killed and the virtual takeover latency (``multi_mesh``: with
+    a mesh rebind) is measured.  Settle wall, the critical path (the
+    slowest replica's accumulated cycle wall) and pods/s per K."""
+    from tpu_scheduler_torch.sim.clock import VirtualClock
+
+    out: dict = {"multi_replica": {}, "multi_mesh": {}}
+    for row in ("multi_replica", "multi_mesh"):
+        mesh_row = row == "multi_mesh"
+        k1_walls = []
+        for k in (1, 2, 4):
+            for _rep in range(2 if k == 1 else 1):
+                clock = VirtualClock()
+                api = FakeApiServer(clock=clock)
+                snap = synth_cluster(n_nodes=nodes, n_pending=pods, seed=seed)
+                if mesh_row:
+                    rack_label(snap.nodes)
+                    api.load(snap.nodes)
+                else:
+                    api.load(snap.nodes, snap.pods)
+                backends = [RecordingBackend(device=device) for _ in range(k)]
+                scheds = [Scheduler(api, backends[i], clock=clock, shards=FLEET_SHARDS if k > 1 else 1,
+                                    identity=f"bench-{'m' if mesh_row else 'r'}{i}", lease_duration=FLEET_LEASE)
+                          for i in range(k)]
+                if mesh_row:
+                    for _ in range(6):
+                        for s in scheds:
+                            s.run_cycle()
+                        clock.advance(1.0)
+                    for p in snap.pods:
+                        api.create_pod(p)
+                t0 = time.perf_counter()
+                cycles = 0
+                per_replica = [0.0] * k
+                while api.list_pods("status.phase=Pending") and cycles < 64:
+                    for i, s in enumerate(scheds):
+                        t1 = time.perf_counter()
+                        s.run_cycle()
+                        per_replica[i] += time.perf_counter() - t1
+                    clock.advance(1.0)
+                    cycles += 1
+                wall = time.perf_counter() - t0
+                critical = max(per_replica)
+                bound = api.binding_count
+                takeover_s, rebinds = None, 0
+                if k > 1:
+                    orphans = set(scheds[0].shard_set.owned)
+                    t_kill = clock.now
+                    survivors = scheds[1:]
+                    rebinds_before = fleet_rebinds(survivors)
+                    while clock.now - t_kill <= 4 * FLEET_LEASE:
+                        clock.advance(1.0)
+                        for s in survivors:
+                            s.run_cycle()
+                        owned = set().union(*(s.shard_set.owned for s in survivors))
+                        rebinds = fleet_rebinds(survivors) - rebinds_before
+                        if orphans <= owned and (rebinds > 0 or not mesh_row):
+                            takeover_s = round(clock.now - t_kill, 3)
+                            break
+                for s in scheds:
+                    s.close()
+                if k == 1:
+                    k1_walls.append(wall)
+                launches = {n: sum(b.launches[n] for b in backends) for n in backends[0].launches}
+                out[row][str(k)] = {
+                    "replicas": k, "shards": FLEET_SHARDS if k > 1 else 1, "settle_wall_seconds": wall,
+                    "critical_path_seconds": critical, "pods_per_second": bound / critical if critical else 0.0,
+                    "pods_per_second_sequential": bound / wall if wall else 0.0, "bound": bound, "cycles": cycles,
+                    "takeover_virtual_s": takeover_s, "takeover_bound_s": 2 * FLEET_LEASE, "mesh_rebinds": rebinds,
+                    "node_axes": sorted({shape[2] for b in backends for shape in b.shapes}), "launches": launches,
+                }
+        out[f"{row}_wall_seconds_min"] = min(k1_walls)
+    return out
+
+
+def sim_multi_cards(device: str, keep=None) -> dict:
+    """The five multi-replica scenarios at seed 0 over one
+    ``RecordingBackend(device)`` each (the replicas share it, as the
+    harness does): each card, wall seconds and choose launches, and the
+    first packed cluster of cross-shard-gang-admission that ``keep``
+    accepts."""
+    out, kept = {}, None
+    for name in MULTI_SCENARIOS:
+        backend = RecordingBackend(device=device, keep=keep if name == "cross-shard-gang-admission" else None)
+        t0 = time.perf_counter()
+        card = sim_harness.run_scenario(name, seed=0, backend=backend)
+        out[name] = {"card": card, "wall_s": time.perf_counter() - t0, "launches": backend.launches}
+        kept = kept or backend.kept
+    return {"cards": out, "kept": kept}
+
+
+def fuzz_command(device: str, runlog: str) -> list:
+    """``sim fuzz``: the corpus replay and the pinned seed-0 campaign."""
+    corpus = str(pathlib.Path(__file__).resolve().parent / "tests" / "fuzz_corpus")
+    return ["fuzz", "--device", device, "--budget", str(FUZZ_BUDGET), "--seed", "0", "--corpus", corpus,
+            "--runlog", runlog]
+
+
+def run_fuzz(device: str, runlog: str) -> tuple[int, float]:
+    """``sim fuzz`` through the port's sim CLI, its printed run log kept off
+    this script's output: exit code and seconds."""
+    import contextlib
+    import io
+
+    from tpu_scheduler_torch.sim.cli import main as sim_cli_main
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = sim_cli_main(fuzz_command(device, runlog))
+    return rc, time.perf_counter() - t0
+
+
+def off_card_cores() -> None:
+    """Pin this process (a CPU reference) off the card's two cores where
+    the host has six or more, with two torch threads."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) >= 6:
+        os.sched_setaffinity(0, set(cores[2:]))
+    torch.set_num_threads(2)
+
+
+def fleet_cpu_reference(which: str, tmp: str) -> None:
+    """A CPU half of the fleet phases, in a child process without a
+    visible card, over ``CudaBackend(device="cpu")``: ``rows`` runs
+    ``multi_rows`` and the five multi-replica scenarios, ``fuzz`` the fuzz
+    campaign (its run log under ``tmp``).  Each step is stamped on stderr;
+    prints one JSON line."""
+    logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
+    off_card_cores()
+    t0 = time.perf_counter()
+    if which == "rows":
+        rows = multi_rows("cpu")
+        print(f"fleet_cpu_reference: rows {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+        sims = sim_multi_cards("cpu")["cards"]
+        print(f"fleet_cpu_reference: sims {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+        out = {"rows": rows, "sims": {k: {"card": v["card"], "wall_s": v["wall_s"]} for k, v in sims.items()}}
+    else:
+        fuzz_rc, fuzz_s = run_fuzz("cpu", os.path.join(tmp, "cpu.jsonl"))
+        print(f"fleet_cpu_reference: fuzz {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+        out = {"fuzz_rc": fuzz_rc, "fuzz_s": fuzz_s}
+    print(json.dumps(out), flush=True)
+
+
+def multi_rows_check(card: dict, cpu: dict, smi: str) -> dict:
+    """``multi_replica`` and ``multi_mesh`` on the card against the CPU
+    child: bound, cycles and the virtual takeover equal; a mesh rebind
+    where K > 1 in ``multi_mesh``; every K launched kernel #1.  Returns
+    the launches of the card rows."""
+    totals = {name.lower(): 0 for name in CHOOSE_COUNTERS}
+    for row in ("multi_replica", "multi_mesh"):
+        for k, c in card[row].items():
+            r = cpu[row][k]
+            equal = all(c[f] == r[f] for f in ("bound", "cycles", "takeover_virtual_s"))
+            rec = {"phase": row, "K": int(k), **{f: c[f] for f in c if f != "launches"}, "launches": c["launches"],
+                   "cpu_settle_wall_seconds": r["settle_wall_seconds"], "equal_to_cpu": equal, "nvidia_smi": smi}
+            emit(rec)
+            for n, v in c["launches"].items():
+                totals[n] += v
+            if not equal:
+                raise SystemExit(f"{row} K={k}: card and CPU differ ({c}, {r})")
+            if c["launches"]["launches"] == 0:
+                raise SystemExit(f"{row} K={k}: no choose kernel launched ({c['launches']})")
+            if int(k) > 1 and (c["takeover_virtual_s"] is None or c["takeover_virtual_s"] > 2 * FLEET_LEASE):
+                raise SystemExit(f"{row} K={k}: takeover {c['takeover_virtual_s']} s over {2 * FLEET_LEASE} s")
+            if row == "multi_mesh" and int(k) > 1 and c["mesh_rebinds"] < 1:
+                raise SystemExit(f"multi_mesh K={k}: the takeover rebound no mesh")
+    return totals
+
+
+def bound_pods_feasible(api) -> int:
+    """Bound pods of the API's state that fail a node-local predicate
+    (selector, node affinity, cordon, taints) on their node."""
+    from tpu_scheduler_torch.core.predicates import NODE_LOCAL_PREDICATES
+
+    snap = ClusterSnapshot.build(api.list_nodes(), api.list_pods())
+    by_name = {n.name: n for n in snap.nodes}
+    bad = 0
+    for p in snap.pods:
+        node = by_name.get(p.spec.node_name) if p.spec is not None and p.spec.node_name else None
+        if node is not None and not all(pred(p, node, snap) for _reason, pred in NODE_LOCAL_PREDICATES):
+            bad += 1
+    return bad
+
+
+def fleet_e2e(smi: str, n_nodes: int = 10_000, n_pending: int = 100_000, n_bound: int = 20_000,
+              second_wave: int = 10_000) -> tuple[dict, object]:
+    """The slice at a size users run: ``synth_cluster(n_nodes=10_000,
+    n_pending=100_000, n_bound=20_000, seed=0)`` (``controller_e2e``'s
+    cluster) with every node in racks of 32, four replicas over four shards
+    (5 s leases) against one FakeApiServer on one VirtualClock, each over
+    its own ``CudaBackend`` on the one card.  Ownership warms up for 6
+    rounds (``multi_mesh_row``), the 100,000-pod wave lands and the fleet
+    cycles until a round binds nothing; then replica 0 is crash-killed and
+    the survivors cycle until they own its shards with a mesh rebind; a
+    last 10,000-pod wave (template seed 1) is solved by the survivors, one
+    cycle under torch.profiler.  Returns the record and one replica's
+    node-sliced packed cluster (``kernel_vs_plain_fleet``)."""
+    from tpu_scheduler_torch.sim.clock import VirtualClock
+
+    t0 = time.perf_counter()
+    snap = synth_cluster(n_nodes=n_nodes, n_pending=n_pending, n_bound=n_bound, seed=0)
+    rack_label(snap.nodes)
+    wave = [p for p in snap.pods if p.spec is None or p.spec.node_name is None]
+    clock = VirtualClock()
+    api = FakeApiServer(clock=clock)
+    api.load(snap.nodes, [p for p in snap.pods if p.spec is not None and p.spec.node_name])
+    profile = PROFILES["throughput"].with_(pod_block=8192, max_rounds=64)
+    sliced = lambda packed: packed.num_pods > 0 and len(packed.node_names) < n_nodes  # noqa: E731
+    backends = [RecordingBackend(keep=sliced if i == 1 else None) for i in range(4)]
+    scheds = [Scheduler(api, backends[i], profile=profile, clock=clock, shards=FLEET_SHARDS,
+                        identity=f"fleet-r{i}", lease_duration=FLEET_LEASE) for i in range(4)]
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(6):
+        for s in scheds:
+            s.run_cycle()
+        clock.advance(1.0)
+    warm_s = time.perf_counter() - t0
+    owned_warm = [sorted(s.shard_set.owned) for s in scheds]
+    for p in wave:
+        api.create_pod(p)
+    bound_before = sum(1 for p in api.list_pods() if p.spec is not None and p.spec.node_name)
+    bindings_before = api.binding_count
+    cuda_backend_mod.UPLOAD_BYTES = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    per_replica = [0.0] * 4
+    phases = [{"sync": [], "overlay": [], "queue": [], "pack": [], "solve": [], "bind": [], "wall": [], "bound": []}
+              for _ in range(4)]
+    rounds = 0
+    t0 = time.perf_counter()
+    while rounds < 20:
+        round_bound = 0
+        for i, s in enumerate(scheds):
+            t1 = time.perf_counter()
+            m = s.run_cycle()
+            w = time.perf_counter() - t1
+            per_replica[i] += w
+            for key, v in (("sync", m.sync_seconds), ("overlay", m.overlay_seconds), ("queue", m.queue_seconds),
+                           ("pack", m.pack_seconds), ("solve", m.solve_seconds), ("bind", m.bind_seconds),
+                           ("wall", w), ("bound", m.bound)):
+                phases[i][key].append(v)
+            round_bound += m.bound
+        clock.advance(1.0)
+        rounds += 1
+        if round_bound == 0:
+            break
+    settle_wall = time.perf_counter() - t0
+    upload_bytes = cuda_backend_mod.UPLOAD_BYTES
+    wave_launches = [dict(b.launches) for b in backends]
+    bound = sum(1 for p in api.list_pods() if p.spec is not None and p.spec.node_name) - bound_before
+    pending_left = len(api.list_pods("status.phase=Pending"))
+    bindings = api.binding_count - bindings_before
+    infos = [b.mesh_bindings_info() for b in backends]
+
+    # Crash-kill replica 0: it never cycles again and never releases a lease.
+    orphans = set(scheds[0].shard_set.owned)
+    survivors = scheds[1:]
+    t_kill = clock.now
+    rebinds_before = fleet_rebinds(survivors)
+    takeover_s = None
+    t0 = time.perf_counter()
+    while clock.now - t_kill <= 4 * FLEET_LEASE:
+        clock.advance(1.0)
+        for s in survivors:
+            s.run_cycle()
+        owned = set().union(*(s.shard_set.owned for s in survivors))
+        if orphans <= owned and fleet_rebinds(survivors) > rebinds_before:
+            takeover_s = clock.now - t_kill
+            break
+    takeover_wall = time.perf_counter() - t0
+    for s in survivors:  # the rebind's escalated full wave
+        s.run_cycle()
+    reasons = [dict(s.delta.full_solve_reasons) for s in survivors]
+    rebinds = fleet_rebinds(survivors) - rebinds_before
+
+    # A fresh 10,000-pod wave on the survivors; one cycle profiled.
+    for p in renamed(synth_cluster(n_nodes=n_nodes, n_pending=second_wave, n_bound=0, seed=1).pending_pods(), "w2"):
+        api.create_pod(p)
+    before = [dict(b.launches) for b in backends[1:]]
+    holder: list = []
+    wall_ms, dev_rows = profiled(lambda: holder.append(survivors[0].run_cycle()))
+    split = device_split(wall_ms, dev_rows, "choose_kernel")
+    for s in survivors[1:]:
+        s.run_cycle()
+    after_launches = [{k: b.launches[k] - before[i][k] for k in b.launches} for i, b in enumerate(backends[1:])]
+    peak_mem = torch.cuda.max_memory_allocated()
+    for s in survivors:
+        s.close()
+    bad_nodes = oversubscribed_nodes(api)
+    infeasible = bound_pods_feasible(api)
+    double = (api.binding_count - bindings_before) - (
+        sum(1 for p in api.list_pods() if p.spec is not None and p.spec.node_name) - bound_before)
+    med = statistics.median
+    rec = {
+        "phase": "fleet_e2e", "pods": len(wave), "nodes": n_nodes, "bound_pods": n_bound, "replicas": 4,
+        "shards": FLEET_SHARDS, "lease_s": FLEET_LEASE, "racks": -(-n_nodes // FLEET_RACK), "setup_s": setup_s,
+        "warmup_s": warm_s, "owned_after_warmup": owned_warm, "settle_rounds": rounds, "settle_wall_s": settle_wall,
+        "critical_path_s": max(per_replica), "per_replica_wall_s": per_replica,
+        "pods_per_second": bound / max(per_replica), "pods_per_second_sequential": bound / settle_wall,
+        "bound": bound, "pending_left": pending_left, "binding_posts": bindings,
+        "replica_phases_median_s": [{k: med(v) for k, v in ph.items() if k != "bound"} for ph in phases],
+        "replica_first_cycle_s": [{k: v[0] for k, v in ph.items()} for ph in phases],
+        "replica_node_axes": [sorted({shape[2] for shape in b.shapes}) for b in backends],
+        "upload_bytes": upload_bytes, "peak_mem_bytes": peak_mem, "wave_launches": wave_launches,
+        "takeover_virtual_s": takeover_s, "takeover_bound_s": 2 * FLEET_LEASE, "takeover_wall_s": takeover_wall,
+        "orphan_shards": sorted(orphans), "mesh_rebinds": rebinds, "survivor_full_solve_reasons": reasons,
+        "mesh_bindings": infos[1], "second_wave_launches": after_launches,
+        "profiled_cycle": dict(split, bound=holder[0].bound if holder else None, wall_s=wall_ms / 1e3),
+        "oversubscribed_nodes": bad_nodes, "infeasible_bindings": infeasible, "double_binds": double,
+        "nvidia_smi": smi,
+    }
+    if takeover_s is None or takeover_s > 2 * FLEET_LEASE:
+        raise SystemExit(f"fleet_e2e: takeover {takeover_s} s, bound {2 * FLEET_LEASE} s")
+    if rebinds < 1 or not any(r.get("mesh-rebind", 0) >= 1 for r in reasons):
+        raise SystemExit(f"fleet_e2e: no mesh rebind ({rebinds}) or no mesh-rebind full wave ({reasons})")
+    if bad_nodes or infeasible or double:
+        raise SystemExit(f"fleet_e2e: {bad_nodes} oversubscribed nodes, {infeasible} infeasible bindings, "
+                         f"{double} double binds")
+    if any(w["launches"] == 0 for w in wave_launches):
+        raise SystemExit(f"fleet_e2e: a replica launched no choose kernel in the wave ({wave_launches})")
+    if not all(info and all(not b["dedicated"] for b in info.values()) for info in infos):
+        raise SystemExit(f"fleet_e2e: mesh bindings are not the shared one-card set: {infos}")
+    if bound == 0 or backends[1].kept is None:
+        raise SystemExit("fleet_e2e: nothing bound, or no node-sliced solve was captured")
+    rec["launches"] = {k: sum(w[k] for w in wave_launches) + sum(a[k] for a in after_launches)
+                       for k in wave_launches[0]}
+    return rec, backends[1].kept
+
+
+def kernel_vs_plain_fleet(fleet_packed, gang_packed, profile, device) -> dict:
+    """Kernel #1 held bit for bit against its plain version on one fleet
+    replica's node-sliced operands (its owned pods against its N/K slice,
+    captured in ``fleet_e2e``); kernel #1t on a sliced topology cycle of
+    cross-shard-gang-admission (the gangs the fleet reserves peer shards
+    for), at the cycle-start and a mid-cycle gang state."""
+    arrays = to_device(fleet_packed, device)
+    b = min(8192, fleet_packed.padded_pods)
+    rec1, _ = compare("fleet_slice_block", block_args(arrays, 0, b), profile.weights(), salt=3,
+                      phase="kernel_vs_plain_fleet", kernel="choose", nodes_real=len(fleet_packed.node_names),
+                      active=int(fleet_packed.pod_valid[:b].sum()))
+    errs = {"choose": rec1["max_abs_err"], "choose_topology": 0.0}
+    if gang_packed is not None:
+        w = PROFILES["default"].weights()
+        for name, share in (("gang_slice_round0", 0.0), ("gang_slice_mid_cycle", 0.5)):
+            garrays, op = round_term(gang_packed, device, w, placed_share=share, seed=17)
+            gb = gang_packed.padded_pods
+            rec = compare_topology(name, block_args(garrays, 0, gb), w, 3, block_term(op, 0, gb),
+                                   phase="kernel_vs_plain_fleet", kernel="choose_topology",
+                                   nodes_real=len(gang_packed.node_names))
+            errs["choose_topology"] = max(errs["choose_topology"], rec["max_abs_err"])
+    return {"max_abs_err": errs, "topology": gang_packed is not None}
+
+
+def sim_multi_check(card: dict, cpu: dict, smi: str) -> dict:
+    """The five multi-replica scenarios on the card against the CPU child:
+    fingerprints equal, cards equal outside :data:`SIM_CARD_VS_CPU`, the
+    availability block enabled and passing.  Returns the card launches."""
+    totals = {name.lower(): 0 for name in CHOOSE_COUNTERS}
+    for name in MULTI_SCENARIOS:
+        c, r = card[name], cpu[name]
+        cc, rc = c["card"], r["card"]
+        differing = [q for q in sim_diff(cc, rc) if q not in SIM_CARD_VS_CPU]
+        av = cc["availability"]
+        rec = {"phase": "sim_multi", "scenario": name, "seed": 0, "wall_s": c["wall_s"], "cpu_wall_s": r["wall_s"],
+               "cycles": cc["cycles"], "replicas": av["replicas"], "shards": av["shards"], "kills": len(av["kills"]),
+               "max_takeover_latency_s": av["max_takeover_latency_s"], "takeover_bound_s": av["takeover_bound_s"],
+               "availability_ok": av["ok"], "pass": cc["pass"], "fingerprint": cc["fingerprint"][:16],
+               "fingerprint_equal": cc["fingerprint"] == rc["fingerprint"], "differing_fields": differing,
+               "launches": c["launches"], "nvidia_smi": smi}
+        emit(rec)
+        for n, v in c["launches"].items():
+            totals[n] += v
+        if not (rec["fingerprint_equal"] and not differing and cc["pass"] and av["enabled"] and av["ok"]):
+            raise SystemExit(f"sim_multi {name}: card and CPU differ ({differing}) or the verdict failed")
+        if c["launches"]["launches"] + c["launches"]["launches_topo"] == 0:
+            raise SystemExit(f"sim_multi {name}: no choose kernel launched on the card ({c['launches']})")
+    return totals
+
+
+def fuzz_check(rc: int, seconds: float, launches: dict, tmp: pathlib.Path, cpu: dict, smi: str) -> None:
+    """The card's fuzz run log against the CPU child's, byte for byte;
+    both exit 0 (corpus green, no violation)."""
+    card_log = (tmp / "card.jsonl").read_bytes()
+    cpu_log = (tmp / "cpu.jsonl").read_bytes()
+    lines = [json.loads(ln) for ln in card_log.decode().splitlines()]
+    summary = lines[-1]
+    rec = {"phase": "fuzz", "budget": FUZZ_BUDGET, "seed": 0, "rc": rc, "seconds": seconds,
+           "corpus_replayed": summary["corpus_replayed"], "corpus_ok": summary["corpus_ok"],
+           "plans_run": sum(1 for ln in lines if "plan" in ln and "fingerprint" in ln),
+           "plans_refused": summary["plans_refused"], "violations_found": summary["violations_found"],
+           "coverage_pairs": summary["coverage_pairs"], "runlog_bytes": len(card_log),
+           "runlog_equal_to_cpu": card_log == cpu_log, "cpu_rc": cpu["fuzz_rc"], "cpu_seconds": cpu["fuzz_s"],
+           "launches": launches, "nvidia_smi": smi}
+    emit(rec)
+    if rc != 0 or cpu["fuzz_rc"] != 0 or not rec["runlog_equal_to_cpu"] or not summary["corpus_ok"] \
+            or summary["violations_found"]:
+        raise SystemExit(f"fuzz: rc {rc}, run logs equal {rec['runlog_equal_to_cpu']}, summary {summary}")
+    if launches["launches"] + launches["launches_topo"] == 0:
+        raise SystemExit(f"fuzz: no choose kernel launched on the card ({launches})")
+
+
+def fleet_phases(smi: str, device, tmp: pathlib.Path) -> dict:
+    """The sharded control plane and the fleet on the card, each phase
+    against its CPU reference (two children started first, running beside
+    the card phases): ``multi_replica`` and ``multi_mesh``, ``sim_multi``,
+    ``fuzz``, ``fleet_e2e`` and ``kernel_vs_plain_fleet``.  Returns the
+    card launches of the phases' main paths per choose instance and the
+    fleet kernel check's error."""
+    children, errs = {}, {}
+    for which in ("rows", "fuzz"):
+        errs[which] = tempfile.TemporaryFile("w+")
+        children[which] = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.fleet_cpu_reference({which!r}, {str(tmp)!r})"],
+            cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=errs[which], text=True,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        )
+    cpu: dict = {}
+    try:
+        rows = multi_rows("cuda")
+        # A sliced topology cycle with two gangs or more: the 32-node
+        # fleet's solve against a replica's slice (a peer's reserved too).
+        gang_sliced = lambda packed: (packed.topology is not None  # noqa: E731
+                                      and packed.topology.n_gangs >= 2 and len(packed.node_names) < 32)
+        sims = sim_multi_cards("cuda", keep=gang_sliced)
+        zero_launches()
+        fuzz_rc, fuzz_s = run_fuzz("cuda", str(tmp / "card.jsonl"))
+        fuzz_launches = read_launches()
+        fleet_rec, fleet_packed = fleet_e2e(smi)
+        for which, child in children.items():
+            try:
+                out, _ = child.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+                out = None
+            errs[which].seek(0)
+            if child.returncode != 0 or out is None:
+                raise SystemExit(f"fleet: the CPU run ({which}) failed or timed out ({child.returncode}): "
+                                 f"{errs[which].read()[-3000:]}")
+            cpu.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        for f in errs.values():
+            f.close()
+    row_launches = multi_rows_check(rows, cpu["rows"], smi)
+    sim_launches = sim_multi_check(sims["cards"], cpu["sims"], smi)
+    fuzz_check(fuzz_rc, fuzz_s, fuzz_launches, tmp, cpu, smi)
+    emit(fleet_rec)
+    check = kernel_vs_plain_fleet(fleet_packed, sims["kept"], PROFILES["throughput"].with_(pod_block=8192),
+                                  device)
+    launches = {k: row_launches[k] + sim_launches[k] + fuzz_launches[k] + fleet_rec["launches"][k]
+                for k in row_launches}
+    emit({"phase": "fleet", "launches": launches, "kernel_vs_plain_fleet": check, "nvidia_smi": smi})
+    return {"launches": launches, "max_abs_err": check["max_abs_err"], "topology_checked": check["topology"]}
 
 
 def main() -> int:
@@ -2958,19 +3472,27 @@ def main() -> int:
     emit({"phase": "sim", "episodes": len(SIM_EPISODES) + 1, "seconds": time.perf_counter() - t0,
           "launches": sim_launches, "nvidia_smi": smi})
 
+    # ---- the sharded control plane and the fleet ---------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        fleet = fleet_phases(smi, device, pathlib.Path(tmp))
+    emit({"phase": "fleet_seconds", "seconds": time.perf_counter() - t0})
+
     # ---- the bisection kernels (experiments) -------------------------------
     brecs = bisect_phase(device, resources)
 
     emit({"kernels": [
         {
             "name": "choose", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
-            "replaces": "tpu_scheduler/ops/pallas_choose.py:356", "launches": launches + sim_launches["launches"],
-            "max_abs_err": max_abs_err,
+            "replaces": "tpu_scheduler/ops/pallas_choose.py:356",
+            "launches": launches + sim_launches["launches"] + fleet["launches"]["launches"],
+            "max_abs_err": max(max_abs_err, fleet["max_abs_err"]["choose"]),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         },
         {
             "name": "choose_constrained", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
-            "replaces": "tpu_scheduler/ops/pallas_choose.py:172", "launches": claunches,
+            "replaces": "tpu_scheduler/ops/pallas_choose.py:172",
+            "launches": claunches + fleet["launches"]["launches_constrained"],
             "max_abs_err": cons_max_abs_err, "ms": ctiming["ms"], "plain_ms": ctiming["plain_ms"],
             "bound_ms": ctiming["bound_ms"], "bound_by": ctiming["bound_by"], "library_ms": None,
         },
@@ -2991,14 +3513,16 @@ def main() -> int:
         {
             "name": "choose_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
-            "launches": tlaunches + sim_launches["launches_topo"], "max_abs_err": topo_max_abs_err, "ms": topo_ms,
+            "launches": tlaunches + sim_launches["launches_topo"] + fleet["launches"]["launches_topo"],
+            "max_abs_err": max(topo_max_abs_err, fleet["max_abs_err"]["choose_topology"]), "ms": topo_ms,
             "plain_ms": topo_plain_ms,
             "bound_ms": topo_bound["bound_ms"], "bound_by": topo_bound["bound_by"], "library_ms": None,
         },
         {
             "name": "choose_constrained_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
-            "launches": ctopo_launches, "max_abs_err": ctopo_max_abs_err, "ms": ctopo_ms,
+            "launches": ctopo_launches + fleet["launches"]["launches_constrained_topo"],
+            "max_abs_err": ctopo_max_abs_err, "ms": ctopo_ms,
             "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound["bound_ms"], "bound_by": ctopo_bound["bound_by"],
             "library_ms": None,
         },

@@ -146,7 +146,9 @@ def test_port_imports_no_jax():
                  "runtime.http_api", "runtime.kubeconfig", "runtime.controller", "cli", "sim.chaos", "sim.cli",
                  "sim.clock", "sim.harness", "sim.multi", "sim.scenarios", "sim.scorecard", "sim.trace",
                  "sim.workload", "learn.objective", "rebalance.snapshot", "rebalance.solver", "fleet",
-                 "runtime.shards"):
+                 "runtime.shards", "fleet.keyer", "fleet.reservation", "fleet.resize", "parallel.mesh",
+                 "sim.fuzz", "sim.fuzz.cli", "sim.fuzz.corpus", "sim.fuzz.coverage", "sim.fuzz.generate",
+                 "sim.fuzz.oracle", "sim.fuzz.plan", "sim.fuzz.shrink"):
         assert f"tpu_scheduler_torch.{name}" in report["mods"], name
 
 

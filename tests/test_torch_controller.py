@@ -347,7 +347,7 @@ def test_controller_matches_jax_controller(scenario, delta):
 def test_unported_options_are_refused_by_item():
     api = fake_api.FakeApiServer()
     backend = CudaBackend(device="cpu")
-    for kw, item in ((dict(shards=2), "item 8"), (dict(rebalance=True), "item 9"), (dict(autoscale=True), "item 9")):
+    for kw, item in ((dict(rebalance=True), "item 9"), (dict(autoscale=True), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             controller.Scheduler(api, backend, **kw)
     sched = controller.Scheduler(api, backend)
@@ -430,8 +430,30 @@ def test_cli_delta_matches_jax_cli():
     assert '"delta": false' not in port_proc.stderr
 
 
-@pytest.mark.parametrize("flags", [["sim", "fuzz"], ["--shards", "2"], ["--rebalance"], ["--autoscale"],
-                                   ["--distributed"]])
+@pytest.mark.parametrize("extra", [["--shards", "2"], ["--shards", "4", "--replica-id", "r0", "--no-delta"]])
+def test_cli_sharded_matches_jax_cli(extra):
+    """``--shards K``: the sharded control plane on one replica, against the
+    JAX CLI on the same flags — the same cycles, bound total, last
+    unschedulable count and shard counters."""
+    flags = ["--nodes", "50", "--pods", "200", "--workload", "mixed", "--log-level", "WARNING", *extra]
+    port = _summary(_cli("tpu_scheduler_torch.cli", "--device", "cpu", *flags))
+    jax = _summary(_cli("tpu_scheduler.cli", "--backend", "native", *flags))
+    for key in ("cycles", "bound_total", "unschedulable_last"):
+        assert port[key] == jax[key], key
+    for name in ("scheduler_shard_acquisitions_total", "scheduler_delta_cycles_total"):
+        assert port["counters"].get(name, 0) == jax["counters"].get(name, 0), name
+    assert port["counters"]["scheduler_shard_acquisitions_total"] == int(extra[1]) and port["bound_total"] > 0
+
+
+def test_cli_sharded_without_cuda_fails_before_any_cycle():
+    proc = _cli("tpu_scheduler_torch.cli", "--shards", "4", "--replica-id", "r0", "--nodes", "4", "--pods", "4",
+                env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 1
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert '"summary"' not in proc.stdout and '"cycle"' not in proc.stdout
+
+
+@pytest.mark.parametrize("flags", [["--rebalance"], ["--autoscale"], ["--distributed"]])
 def test_cli_refuses_unported_flags(flags):
     proc = _cli("tpu_scheduler_torch.cli", *flags, "--device", "cpu", "--nodes", "2", "--pods", "2")
     assert proc.returncode == 2

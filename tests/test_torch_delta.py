@@ -411,6 +411,29 @@ def sc_shadow(w):
     return s
 
 
+def sc_mesh_rebind(w):
+    """The fleet: two replicas split four rack-keyed shards (a node slice
+    each), replica a crashes without releasing its leases, and the
+    survivor's takeover rebinds the absorbed shards' meshes and escalates
+    one "mesh-rebind" full wave.  (The capacity audit reads the whole
+    cluster; a sliced replica's ledger holds its slice, so it is off.)"""
+    rack = "topology.tpu-scheduler/rack"
+    w.load([jt.make_node(f"n{i}", cpu="4", memory="8Gi", labels={rack: f"rack-{i // 2}"}) for i in range(8)],
+           [jt.make_pod(f"p{i}", cpu="1", memory="1Gi") for i in range(6)])
+    a = w.scheduler(shards=4, identity="replica-a", lease_duration=5.0, seed=1)
+    b = w.scheduler(shards=4, identity="replica-b", lease_duration=5.0, seed=2)
+    for _ in range(4):
+        w.cycle(a, audit=False)
+        w.cycle(b, audit=False)
+        w.clock.t += 1.0
+    for i in range(8):
+        w.create_pod(jt.make_pod(f"late{i}", cpu="1", memory="1Gi"))
+    for _ in range(9):
+        w.clock.t += 1.0
+        w.cycle(b, audit=False)
+    return b
+
+
 SCENARIOS = {
     "standing_verdict": (sc_standing_verdict, None),
     "unrelated_node_churn": (sc_unrelated_node_churn, None),
@@ -429,6 +452,7 @@ SCENARIOS = {
     "takeover": (sc_takeover, "takeover"),
     "restore": (sc_restore, "restore"),
     "shadow": (sc_shadow, None),
+    "mesh_rebind": (sc_mesh_rebind, "mesh-rebind"),
 }
 
 
@@ -466,10 +490,10 @@ def test_delta_controller_matches_jax(name, tmp_path):
 
 
 def test_every_escalation_reason_but_mesh_rebind_is_driven():
-    """The scenarios above cover the closed vocabulary; only the fleet
-    (not ported) raises "mesh-rebind"."""
+    """The scenarios above cover the closed vocabulary, "mesh-rebind" (the
+    fleet's takeover) included."""
     driven = {r for _fn, r in SCENARIOS.values() if r is not None} | {"cold"}
-    assert driven == set(ESCALATION_REASONS) - {"mesh-rebind"}
+    assert driven == set(ESCALATION_REASONS)
     with pytest.raises(ValueError):
         controller.Scheduler(fake_api.FakeApiServer(), CudaBackend(device="cpu")).delta.invalidate("bogus")
 

@@ -324,6 +324,39 @@ def test_cache_hits_misses_evicts_and_caps():
     assert id(keep[6]) in backend._dev_cache and id(keep[7]) not in backend._dev_cache
 
 
+def test_cache_eviction_inside_a_locked_put_does_not_deadlock():
+    """The cyclic garbage collector can run an upload's finalizer (the
+    eviction) on any allocation, also inside ``_put``'s locked section on
+    the same thread: the put finishes and the dead entry is gone.  (With a
+    non-reentrant lock the thread waited on itself forever; a ``sim fuzz``
+    campaign over one backend hung that way.)"""
+    import threading
+
+    class CollectingDict(dict):
+        def pop(self, *a):
+            gc.collect()  # the dead cycle's array dies here, under the lock
+            return super().pop(*a)
+
+    backend = CudaBackend(device="cpu")
+    backend._dev_cache = CollectingDict()
+    gc.disable()
+    try:
+        doomed = np.arange(16, dtype=np.int32)
+        backend._put(doomed)
+        cycle = [doomed]
+        cycle.append(cycle)  # reachable only through a reference cycle
+        del doomed, cycle
+        live = np.ones(8, dtype=np.int32)
+        done = threading.Event()
+        worker = threading.Thread(target=lambda: (backend._put(live), done.set()), daemon=True)
+        worker.start()
+        worker.join(timeout=30)
+        assert done.is_set(), "_put deadlocked on its own finalizer"
+        assert list(backend._dev_cache) == [id(live)]
+    finally:
+        gc.enable()
+
+
 def _labelled(kw):
     snap = testing.synth_cluster(**kw)
     for i, node in enumerate(snap.nodes):

@@ -73,11 +73,57 @@ class CudaBackend(SchedulingBackend):
         # entry when its host array dies; the stored weakref tells an entry
         # from a later array that reuses the id.  Most-recently-used order
         # with a cap: hot node tensors outlive churned pod tensors.  Locked:
-        # one backend may serve cycles from several threads.
+        # one backend may serve cycles from several threads.  Reentrant: the
+        # cyclic garbage collector can run a finalizer (``_evict``) on any
+        # allocation, also inside ``_put``'s locked section on the same
+        # thread, so every locked section tolerates an entry vanishing.
         self._dev_cache: dict[int, tuple[weakref.ref, torch.Tensor, weakref.finalize]] = {}
         self._dev_cache_cap = 512
-        self._put_lock = threading.Lock()
+        self._put_lock = threading.RLock()
         self._shards: dict[int, CudaBackend] = {}  # device index -> routed-shard backend
+        # Fleet mesh-per-replica bindings (parallel/mesh.MeshBinding), keyed
+        # by shard id.  Main-thread state: bound and released from the
+        # controller's shard-refresh path only.
+        self._mesh_bindings: dict[int, object] = {}
+
+    # -- fleet mesh bindings (fleet/) ---------------------------------------
+
+    def bind_shard_mesh(self, shard: int, num_shards: int):
+        """Bind one owned shard to this backend's device-slice mesh
+        (parallel/mesh.mesh_binding over this backend's device).  Idempotent
+        per (shard, K); a resize (new K) rebuilds the binding — the old
+        slice geometry is meaningless under the new shard map.  The solve's
+        device never changes: a binding describes where the shard's
+        tensors live, and this backend has one device."""
+        ent = self._mesh_bindings.get(int(shard))
+        if ent is not None and ent.num_shards == int(num_shards):
+            return ent
+        from ..parallel.mesh import mesh_binding
+
+        ent = mesh_binding(int(shard), int(num_shards), devices=[self.device])
+        self._mesh_bindings[int(shard)] = ent
+        return ent
+
+    def release_shard_mesh(self, shard: int) -> bool:
+        """Forget a lost shard's binding (the new owner builds its own)."""
+        return self._mesh_bindings.pop(int(shard), None) is not None
+
+    def mesh_bindings_info(self) -> dict:
+        """/debug/shards payload: per-shard devices + mesh shape + the
+        node-axis layout the slice's tensors follow (parallel/mesh.
+        node_sharding; ``devices`` and ``node_sharding`` read as the
+        parallel/mesh docstring says)."""
+        from ..parallel.mesh import node_sharding
+
+        return {
+            str(s): {
+                "devices": list(b.device_ids),
+                "mesh_shape": [int(b.mesh.shape["dp"]), int(b.mesh.shape["tp"])],
+                "dedicated": bool(b.dedicated),
+                "node_sharding": str(node_sharding(b)),
+            }
+            for s, b in sorted(self._mesh_bindings.items())
+        }
 
     def shard_for(self, index: int) -> "CudaBackend":
         """Per-pool shard backend of a routed cycle: round-robin the shards
@@ -97,7 +143,7 @@ class CudaBackend(SchedulingBackend):
         """Forget every cached upload (after a device failure the buffers
         may belong to a dead context)."""
         with self._put_lock:
-            for ent in self._dev_cache.values():
+            for ent in list(self._dev_cache.values()):
                 ent[2].detach()
             self._dev_cache.clear()
 
@@ -135,7 +181,9 @@ class CudaBackend(SchedulingBackend):
                 oldest = next(iter(self._dev_cache))
                 if oldest == key:
                     break
-                self._dev_cache.pop(oldest)[2].detach()
+                ent = self._dev_cache.pop(oldest, None)
+                if ent is not None:
+                    ent[2].detach()
         return buf
 
     def assign(self, packed: PackedCluster, profile: SchedulingProfile):

@@ -101,7 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--shards",
         type=int,
         default=1,
-        help="active-active sharded control plane; only 1 until it is ported (ROADMAP Queue 1 item 8)",
+        help="active-active sharded control plane: partition the pending set into K stable-hash shards, each owned "
+        "via its own tpu-scheduler-shard-<i> lease — run several replicas with the same K and they split the shards; "
+        "supersedes --leader-elect (runtime/shards.py)",
     )
     p.add_argument(
         "--replica-id",
@@ -252,7 +254,6 @@ def unported_flags(args) -> list[str]:
     ROADMAP Queue 1 item."""
     asked = [
         ("--distributed", args.distributed, "7"),
-        ("--shards > 1", args.shards > 1, "8"),
         ("--rebalance", args.rebalance, "9"),
         ("--autoscale", args.autoscale, "9"),
     ]
@@ -354,6 +355,7 @@ def make_scheduler(args, api, backend) -> Scheduler:
         identity=args.replica_id or args.identity,
         lease_name=args.lease_name,
         lease_duration=args.lease_duration,
+        shards=args.shards,
         events_buffer=args.events_buffer,
         breaker_config=breaker_config,
         flush_capacity=args.flush_capacity,

@@ -31,8 +31,9 @@ whether both placed exactly the same pod set — the
 invariant-equivalence contract (placements may differ only within the
 score tie-break freedom; the PLACED SET and the unschedulable set may not).
 
-Port: a copy of ``tpu_scheduler/delta/engine.py``.  ``"mesh-rebind"``
-stays in the vocabulary; only the fleet (not ported yet) raises it.
+Port: a copy of ``tpu_scheduler/delta/engine.py``.  ``"mesh-rebind"`` is
+raised by the fleet (the controller's mesh-binding sync after a takeover or
+a resize).
 """
 
 from __future__ import annotations

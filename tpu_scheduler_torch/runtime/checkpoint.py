@@ -20,10 +20,10 @@ clock is monotonic (not wall) time; metric counters ride along so
 
 Port: a copy of ``tpu_scheduler/runtime/checkpoint.py``.  The files are the
 same — the same JSON keys, the same ``.npz`` array names — so a checkpoint
-written by either package restores into the other.  The stable shard hash
-of the JAX package's ``runtime/shards.py`` is copied here
-(``shard_for_name``); the sharded control plane itself is not ported yet,
-so the port writes every entry under shard 0 and never a ``shard_map``.
+written by either package restores into the other.  A sharded scheduler
+groups its entries under their stable-hash shards (``runtime/shards.
+shard_for_name``), and a fleet that adopted a resized shard map writes the
+v5 ``shard_map``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -31,11 +31,11 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import zlib
 
 import numpy as np
 
 from ..ops.pack import PackedCluster
+from .shards import shard_for_name
 
 __all__ = ["save_scheduler", "restore_scheduler", "CHECKPOINT_VERSION"]
 
@@ -66,15 +66,6 @@ __all__ = ["save_scheduler", "restore_scheduler", "CHECKPOINT_VERSION"]
 #     wave doubles as the one-wave migration.
 CHECKPOINT_VERSION = 5
 
-
-def shard_for_name(key: str, num_shards: int) -> int:
-    """Stable shard index for an identity string (pod full name or gang
-    name) — ``runtime/shards.shard_for_name`` of the JAX package.  crc32,
-    not ``hash()``: the assignment must agree across replica processes and
-    survive restarts (PYTHONHASHSEED)."""
-    if num_shards <= 1:
-        return 0
-    return zlib.crc32(key.encode()) % num_shards
 
 _STATE_FILE = "state.json"
 _TENSORS_FILE = "node_tensors.npz"

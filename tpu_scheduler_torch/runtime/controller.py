@@ -32,11 +32,12 @@ the full wave it escalates to, the incremental repack and the topology
 attach, the constrained phase and its host-sequential fallback, gang
 admission and the cross-rack backstop, routed cycles, pipelined binds,
 preemption and PDBs, NoExecute eviction, the breaker and the deferred
-flush, leader election, and the SLO, latency and profile snapshots.  The
-subsystems of later port items are refused with ``NotImplementedError``:
-the sharded control plane and the fleet (``shards > 1``; ROADMAP Queue 1
-item 8), the rebalancer and the autoscaler (``rebalance``, ``autoscale``;
-item 9).
+flush, leader election, the sharded control plane and the multi-mesh
+fleet (``shards > 1``: per-shard leases, the topology keyer and node
+slicing, mesh bindings, cross-replica gang reservations, live resize), and
+the SLO, latency and profile snapshots.  The subsystems of a later port
+item are refused with ``NotImplementedError``: the rebalancer and the
+autoscaler (``rebalance``, ``autoscale``; ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -91,11 +92,10 @@ ATTEMPTS = 5  # reference main.rs:49
 REQUEUE_SECONDS = 300.0  # reference main.rs:124
 
 
-def _refuse_unported(shards, rebalance, autoscale) -> None:
+def _refuse_unported(rebalance, autoscale) -> None:
     """Refuse the options whose subsystem waits for a later item of the
     port (ROADMAP Queue 1), naming the item."""
     asked = [
-        ("shards > 1", int(shards) > 1, 8, "the sharded control plane and the fleet"),
         ("rebalance", rebalance is not None and rebalance is not False, 9, "the rebalancer"),
         ("autoscale", autoscale is not None and autoscale is not False, 9, "the autoscaler"),
     ]
@@ -217,7 +217,7 @@ class Scheduler:
     ):
         if policy not in ("batch", "sample"):
             raise ValueError(f"unknown policy {policy!r} (expected 'batch' or 'sample')")
-        _refuse_unported(shards, rebalance, autoscale)
+        _refuse_unported(rebalance, autoscale)
         self.api = api
         self.backend = backend
         self.profile = profile
@@ -353,15 +353,45 @@ class Scheduler:
         self.identity = identity or f"sched-{os.getpid()}-{id(self):x}"
         self.lease_name = lease_name
         self.lease_duration = lease_duration
-        # One shard: the sharded control plane (runtime/shards.py of the JAX
-        # package) is refused above until its port item.  The subsystems of
-        # later items read as absent, as the sim harness expects of a
-        # scheduler that runs without them.
-        self.num_shards = 1
-        self.shard_set = None
+        # Sharded control plane (runtime/shards.py): with shards > 1 the
+        # pending set partitions into K stable-hash shards, each owned via
+        # its own coordination Lease — any replica schedules any subset it
+        # holds.  Supersedes the single-leader election (both together would
+        # serialize the shards behind one lease again); renewal rides the
+        # cycle cadence, so cycle_interval must stay under lease_duration.
+        self.num_shards = int(shards)
+        self.sharded = self.num_shards > 1
+        if self.sharded:
+            from .shards import ShardSet
+
+            if leader_elect:
+                logger.warning("--shards supersedes --leader-elect; running sharded (per-shard leases)")
+                self.leader_elect = False
+            self.shard_set = ShardSet(api, self.num_shards, self.identity, lease_duration, clock)
+        else:
+            self.shard_set = None
+        # Multi-mesh fleet layer (fleet/): topology-keyed
+        # sharding, one device mesh per replica, cross-replica gang
+        # admission.  Engages only when sharded AND the cycle's compiled
+        # topology is non-degenerate; otherwise every piece below is a
+        # no-op and the flat-hash shards behave exactly as before.
+        self._fleet_keyer: tuple | None = None  # (compiled-topo, ShardKeyer) cache
+        self._mesh_shards: frozenset = frozenset()  # shards with live mesh bindings
+        self._mesh_engaged = False  # a first binding exists; later gains escalate
+        self._fleet_slice_backoff = False  # sliced cycle left unschedulables → widen once
+        self._fleet_sliced = False  # the running cycle solved a node slice
+        if self.sharded:
+            from ..fleet.reservation import GangReservationLedger
+
+            self._fleet_reservations = GangReservationLedger(api, self.identity, lease_duration, clock)
+        else:
+            self._fleet_reservations = None
+        self.is_leader = not self.leader_elect and not self.sharded
+        # The subsystems of a later item (the rebalancer, the autoscaler)
+        # read as absent, as the sim harness expects of a scheduler that
+        # runs without them.
         self.rebalancer = None
         self.autoscaler = None
-        self.is_leader = not self.leader_elect
         # Takeover hygiene: set when leadership (or a shard) was newly
         # acquired; the next owned cycle revalidates the assumed-bind
         # overlay against the reflector cache before it is applied.
@@ -2175,7 +2205,9 @@ class Scheduler:
         # takeover (new leadership / a newly acquired shard) must get to
         # revalidate stale assumed-bind state against the fresh
         # reflector cache before this cycle overlays it as bound.
-        if self.leader_elect:
+        if self.sharded:
+            self._refresh_shards()
+        elif self.leader_elect:
             was = self.is_leader
             try:
                 self.is_leader = self.api.acquire_lease(self.lease_name, self.identity, self.lease_duration)
@@ -2195,9 +2227,9 @@ class Scheduler:
             self._revalidate_overlays(snapshot)
             self._revalidate_pending = False
             if self.delta is not None:
-                # Fresh leadership: the previous owner's commits may
-                # predate our watch view — rebuild the SolveState from a
-                # full wave, never revalidate residuals.
+                # Fresh ownership (leadership or a shard): the previous
+                # owner's commits may predate our watch view — rebuild the
+                # SolveState from a full wave, never revalidate residuals.
                 self.delta.invalidate("takeover")
         # Degraded-mode bookkeeping: promote the breaker if its open
         # window elapsed, arm this cycle's half-open probe budget, then
@@ -2263,8 +2295,8 @@ class Scheduler:
             # first casualty on steady-state cycles).
             with span("overlay"):
                 snapshot = self._pre_cycle_overlay(snapshot)
-            if self.leader_elect and not self.is_leader:
-                # Standby (no lease): the reflector
+            if (self.leader_elect or self.sharded) and not self.is_leader:
+                # Standby (no lease / zero owned shards): the reflector
                 # cache above stays warm (fast takeover); scheduling belongs
                 # to the owners.  Local state (requeue backoffs) is NOT
                 # pruned on standby cycles — a transient lease failure must
@@ -2283,11 +2315,57 @@ class Scheduler:
                         )
                 with span("queue"):
                     pending_all = snapshot.pending_pods()
+                    full_pending_count = len(pending_all)
+                    solve_base = snapshot
+                    fleet_sliced = False
+                    if self.sharded:
+                        # Fleet keyer sync FIRST (fleet/): the
+                        # topology-keyed pod→shard map must be installed
+                        # before the ownership filter judges anything.
+                        self._fleet_sync(snapshot)
+                        # Shard filter: this replica solves only the pods
+                        # whose shard it owns (gang members key by gang
+                        # name, so a gang is never split across owners).
+                        pending_all = [p for p in pending_all if self.shard_set.owns_pod(p)]
+                        # Cross-replica gang admission: reserve peer slices
+                        # for owned gangs wider than this replica's slice,
+                        # commit reservations whose gang left pending.
+                        self._fleet_reservation_tick(snapshot, pending_all)
+                        # Node slicing: under topology keying the solve sees
+                        # only the owned (+ reserved) shards' contiguous
+                        # node columns — P/K pods against N/K nodes, the
+                        # multi-mesh scaling surface.  The sliced snapshot
+                        # is ALSO what the delta engine plans/commits
+                        # against: its packed node axis must match.
+                        allowed = self._fleet_node_filter(snapshot)
+                        if allowed is not None:
+                            fleet_sliced = True
+                            solve_base = ClusterSnapshot.build(
+                                [n for n in snapshot.nodes if n.name in allowed],
+                                [
+                                    p
+                                    for p in snapshot.pods
+                                    if p.status.phase != "Pending"
+                                    or is_pod_bound(p)
+                                    or self.shard_set.owns_pod(p)
+                                ],
+                            )
+                    self._fleet_sliced = fleet_sliced
                     pending = self._eligible(pending_all)
                     # Prune requeue backoffs for pods that no longer exist /
                     # are no longer pending (deleted, or bound out-of-band).
+                    # In sharded mode, only keys hashing into OWNED shards
+                    # are pruned against the (owned-filtered) pending set:
+                    # another replica's pods are absent here by construction,
+                    # and their rebuilt-on-takeover backoff state must
+                    # survive ownership moves (the watch DELETE stream above
+                    # prunes globally).
                     pending_names = {full_name(p) for p in pending_all}
-                    for gone in [k for k in self.requeue_at if k not in pending_names]:
+                    for gone in [
+                        k
+                        for k in self.requeue_at
+                        if k not in pending_names and (not self.sharded or self.shard_set.owns_name(k))
+                    ]:
                         del self.requeue_at[gone]
                 # Incremental engine (delta/): classify this cycle's watch
                 # deltas, close the invalidation set, and — on the delta
@@ -2298,8 +2376,12 @@ class Scheduler:
                 eligible_all = pending
                 if self.delta is not None:
                     with span("delta"):
+                        # NB: the plan/commit snapshot is solve_base — under
+                        # fleet node slicing the engine's packed node axis
+                        # is the SLICED one, and handing it the global
+                        # snapshot would bail every rebuild.
                         self._delta_plan = self.delta.plan(
-                            snapshot,
+                            solve_base,
                             pending,
                             pending_all,
                             self._packed,
@@ -2323,19 +2405,25 @@ class Scheduler:
                         # object copies, no O(all pods) rebuild (the
                         # filtered rebuild below is the full-wave path's
                         # cost, exactly what the delta cycle shrinks away).
-                        cycle_snapshot = self._reduced_view(snapshot, pending)
-                    elif len(pending) == len(pending_all):
-                        # Every pending pod is eligible (no requeue backoffs
-                        # in force): the filtered rebuild would reproduce the
-                        # snapshot verbatim, and at flagship scale one
-                        # ClusterSnapshot.build over 200k+ pods costs seconds.
-                        cycle_snapshot = snapshot
+                        cycle_snapshot = self._reduced_view(solve_base, pending)
+                    elif len(pending) == full_pending_count:
+                        # Every pending pod of the WHOLE cluster is eligible
+                        # (no requeue backoffs in force, no shard filtered
+                        # anything out — the comparison is against the
+                        # pre-filter count: a sharded replica reusing the raw
+                        # snapshot would solve other replicas' shards
+                        # straight into double-binds) — the filtered rebuild
+                        # would reproduce the snapshot verbatim, and at
+                        # flagship scale one ClusterSnapshot.build over 200k+
+                        # pods costs seconds.  (Under fleet node slicing
+                        # solve_base IS the sliced rebuild — still verbatim.)
+                        cycle_snapshot = solve_base
                     else:
                         cycle_snapshot = ClusterSnapshot.build(
-                            snapshot.nodes,
+                            solve_base.nodes,
                             [
                                 p
-                                for p in snapshot.pods
+                                for p in solve_base.pods
                                 if p.status.phase != "Pending" or is_pod_bound(p) or full_name(p) in eligible_names
                             ],
                         )
@@ -2376,7 +2464,7 @@ class Scheduler:
                         self._account_gangs(eligible_names, compiled_topo)
             else:
                 bound, unsched, rounds = 0, 0, 0
-            if not (self.leader_elect and not self.is_leader):
+            if not ((self.leader_elect or self.sharded) and not self.is_leader):
                 if self.delta is not None:
                     # Fold the cycle's outcome into the SolveState: delta
                     # cycles commit placements/verdicts incrementally; full
@@ -2387,7 +2475,7 @@ class Scheduler:
                         with span("commit"):
                             self.delta.commit(
                                 self._delta_plan,
-                                snapshot,
+                                solve_base,
                                 self._packed,
                                 self.reflector.node_set_signature(),
                                 self._cycle_placed,
@@ -2401,7 +2489,14 @@ class Scheduler:
                             and self._cycle_tag % self.delta_shadow_every == 0
                         ):
                             with span("shadow"):
-                                self._delta_shadow_check(snapshot, eligible_all, pending_all)
+                                self._delta_shadow_check(solve_base, eligible_all, pending_all)
+                if self.sharded:
+                    # Spillover backoff: a SLICED cycle that still left pods
+                    # unschedulable widens the next cycle to the full node
+                    # set (one cycle only — the flag re-arms each cycle), so
+                    # slice-capacity pressure degrades to the pre-fleet
+                    # behavior instead of wedging pods against N/K nodes.
+                    self._fleet_slice_backoff = bool(self._fleet_sliced and self._cycle_unschedulable)
                 # SLO burn bookkeeping (utils/profiler.SLO_TIERS): pods
                 # leaving the pending set observe their final time-in-queue;
                 # survivors drive the per-tier oldest-age/burn-rate gauges.
@@ -2610,7 +2705,7 @@ class Scheduler:
                     else:
                         sleep(daemon_interval)
             elif until_settled and m.bound == 0:
-                if self.leader_elect and not self.is_leader:
+                if (self.leader_elect or self.sharded) and not self.is_leader:
                     # A standby is never "settled" — it is waiting for
                     # leadership; idle a renewal interval and try again.
                     sleep(min(1.0, self.lease_duration / 3.0))
@@ -2656,15 +2751,268 @@ class Scheduler:
                 flush_tries = 0
         return out
 
+    def _refresh_shards(self) -> None:
+        """One shard-ownership round (runtime/shards.py): renew held shards,
+        absorb orphans up to the proportional target, release the excess.
+        An unreachable lease endpoint fails SAFE — this cycle schedules
+        nothing (the single-leader stance), while the in-memory ownership
+        ledger is left for the next successful round to reconcile."""
+        try:
+            delta = self.shard_set.refresh()
+        except (ApiError, OSError, http.client.HTTPException) as e:
+            logger.warning("shard lease refresh failed (%s); standing by", e)
+            self.is_leader = False
+            return
+        if delta.gained:
+            self.metrics.inc("scheduler_shard_acquisitions_total", len(delta.gained))
+            # Crash-safe takeover: the orphaned shard's state rebuilds from
+            # the reflector cache — stale assumed clones must not overlay.
+            self._revalidate_pending = True
+            self._cycle_notes.append(f"shards: acquired {sorted(delta.gained)}")
+            logger.info(
+                "acquired shard lease(s) %s (own %d/%d)", sorted(delta.gained), len(delta.owned), self.num_shards
+            )
+        if delta.lost:
+            self.metrics.inc("scheduler_shard_losses_total", len(delta.lost))
+            logger.warning("lost shard lease(s) %s to another replica", sorted(delta.lost))
+        if delta.released:
+            self.metrics.inc("scheduler_shard_releases_total", len(delta.released))
+            logger.info("released shard lease(s) %s (rebalance)", sorted(delta.released))
+        if (delta.lost or delta.released) and self.delta is not None:
+            # Shards moved away: their standing verdicts belong to the new
+            # owner's view now — drop the whole SolveState rather than
+            # serve stale skips if they ever move back.  (Gains already
+            # invalidate via the _revalidate_pending path.)
+            self.delta.invalidate("takeover")
+        if delta.resized:
+            # A published shard-map generation changed K under us: the keyer
+            # compiled for the old K is meaningless — drop it (the next
+            # cycle's fleet sync recompiles) and escalate, since every
+            # carried residual was laid out for the old partition.
+            self._fleet_keyer = None
+            self._cycle_notes.append(f"shards: adopted map generation {self.shard_set.map_generation} (K={self.num_shards} -> {self.shard_set.num_shards})")
+            self.num_shards = self.shard_set.num_shards
+            if self.delta is not None:
+                self.delta.invalidate("mesh-rebind")
+        self._sync_mesh_bindings(delta)
+        if self._fleet_reservations is not None:
+            # Reservation heartbeat rides the shard-refresh cadence; an
+            # expired row means the TTL already reclaimed it for the fleet.
+            self._fleet_reservations.renew()
+        self.metrics.set_gauge("scheduler_shards_owned", float(len(delta.owned)))
+        self.is_leader = bool(delta.owned)
+
+    # -- multi-mesh fleet (fleet/) ----------------------------
+
+    # shape: (self: obj, snapshot: obj) -> none
+    def _fleet_sync(self, snapshot: ClusterSnapshot) -> None:
+        """Compile (or refresh) the topology shard keyer for this cycle and
+        install it on the ShardSet BEFORE the ownership filter runs.
+
+        The keyer caches on the compiled-topology object identity (the same
+        key discipline as _compiled_topology): label churn replaces node
+        objects, which replaces the compiled topology, which recompiles the
+        domain map.  A keying change moves pods between shards mid-flight,
+        so it invalidates exactly like a takeover."""
+        compiled = self._compiled_topology(snapshot)
+        hit = self._fleet_keyer
+        if hit is None or hit[0] is not compiled:
+            from ..fleet.keyer import DomainShardMap, ShardKeyer
+
+            dm = DomainShardMap.compile(compiled, self.shard_set.num_shards)
+            keyer = ShardKeyer(self.shard_set.num_shards, dm)
+            prev = self.shard_set.keyer
+            self.shard_set.set_keyer(keyer)
+            self._fleet_keyer = (compiled, keyer)
+            if prev is not None and (prev.mode != keyer.mode or prev.domain_map != keyer.domain_map):
+                # The pod→shard map changed shape: standing ownership
+                # verdicts and assumed overlays were derived under the old
+                # keying — same hygiene as losing a shard to a takeover.
+                self._revalidate_pending = True
+                if self.delta is not None:
+                    self.delta.invalidate("takeover")
+            if keyer.mode == "topology":
+                self._cycle_notes.append(
+                    f"fleet: topology keyer over {len(dm.domains)} domains / K={keyer.num_shards}"
+                )
+        keyer = self.shard_set.keyer
+        dm = keyer.domain_map if keyer is not None else None
+        if dm is None:
+            return
+        # Domain-affinity gauge: of this replica's owned BOUND pods, the
+        # fraction sitting on a node inside their shard's topology slice
+        # (1.0 with no owned bound pods — nothing is misplaced).
+        total = aligned = 0
+        owned = self.shard_set.owned
+        for p in snapshot.pods:
+            node = p.spec.node_name if p.spec is not None else None
+            if not node:
+                continue
+            s = keyer.shard_of_pod(p)
+            if s not in owned:
+                continue
+            total += 1
+            if dm.node_shard.get(node) == s:
+                aligned += 1
+        self.metrics.set_gauge("scheduler_shard_domain_affinity", (aligned / total) if total else 1.0)
+
+    # shape: (self: obj, snapshot: obj, pending_owned: obj) -> none
+    def _fleet_reservation_tick(self, snapshot: ClusterSnapshot, pending_owned: list[Pod]) -> None:
+        """Cross-replica gang admission, the two-phase half that runs inside
+        the cycle: RESERVE peer shards for owned pending gangs wider than
+        this replica's topology slice, COMMIT (release) reservations whose
+        gang left the owned pending set — admitted, deleted, or re-keyed.
+
+        Width is judged by node count (one gang member per node is the
+        conservative packing bound this repo's gang workloads follow); a
+        reservation that still cannot admit simply expires or commits on the
+        next transition — never wedges capacity past its TTL."""
+        led = self._fleet_reservations
+        if led is None:
+            return
+        keyer = self.shard_set.keyer
+        dm = keyer.domain_map if keyer is not None else None
+        if dm is None:
+            # Hash mode spans no node columns — nothing to reserve against.
+            for gang in list(led.active()):
+                led.commit(gang)
+            return
+        gangs: dict[str, int] = {}
+        gang_members: dict[str, list[str]] = {}
+        for p in pending_owned:
+            if p.spec is not None and p.spec.gang:
+                gangs[p.spec.gang] = gangs.get(p.spec.gang, 0) + 1
+                gang_members.setdefault(p.spec.gang, []).append(full_name(p))
+        # Commit the reservations whose gang is done here (two-phase commit:
+        # the admission already happened in a previous cycle's solve).
+        for gang in list(led.active()):
+            if gang not in gangs:
+                led.commit(gang)
+        owned = self.shard_set.owned
+        own_nodes = len(keyer.node_set(owned))
+        kk = keyer.num_shards
+        for gang, size in sorted(gangs.items()):
+            if gang in led.active() or size <= own_nodes:
+                continue
+            # Walk shards outward from the gang's home shard until the
+            # cumulative slice is wide enough; peers = the span minus what
+            # this replica already owns.
+            home = keyer.shard_for_key(gang)
+            span: list[int] = []
+            width = 0
+            for i in range(kk):
+                s = (home + i) % kk
+                span.append(s)
+                width += len(dm.shard_nodes[s]) if s < len(dm.shard_nodes) else 0
+                if width >= size:
+                    break
+            peers = [s for s in span if s not in owned]
+            if not peers:
+                continue
+            if led.reserve(gang, peers):
+                self.metrics.inc("scheduler_gang_reservations_total")
+                for pf in gang_members.get(gang, ()):
+                    # The reservation-wait segment's open edge: members now
+                    # sit out the cross-shard two-phase hold.
+                    self.recorder.record(pf, "reservation-opened", self._cycle_tag, detail=f"peer shards {peers}")
+                self._cycle_notes.append(f"fleet: reserved shards {peers} for gang {gang} ({size} wide)")
+
+    # shape: (self: obj, snapshot: obj) -> obj
+    def _fleet_node_filter(self, snapshot: ClusterSnapshot):
+        """The node-name set this replica's solve should see — its owned
+        shards' topology slices plus any reserved peer slices — or None to
+        solve the full node set (hash keying, spillover backoff, or a slice
+        that already covers everything)."""
+        if not self.sharded or self._fleet_slice_backoff:
+            return None
+        keyer = self.shard_set.keyer
+        if keyer is None or keyer.domain_map is None:
+            return None
+        shards = set(self.shard_set.owned)
+        if self._fleet_reservations is not None:
+            shards |= self._fleet_reservations.active_shards()
+        allowed = keyer.node_set(shards)
+        if not allowed or len(allowed) >= len(snapshot.nodes):
+            return None
+        return allowed
+
+    # shape: (self: obj, delta: obj) -> none
+    def _sync_mesh_bindings(self, delta) -> None:
+        """Mesh-per-replica maintenance for one shard-refresh round: bind
+        gained shards onto this replica's device slice, release lost ones.
+        A gain AFTER the first binding existed is a takeover/rebalance
+        rebind — the carried residuals were laid out for the old slice, so
+        the delta engine escalates one "mesh-rebind" full wave."""
+        keyer = self.shard_set.keyer if self.shard_set is not None else None
+        if keyer is None or keyer.domain_map is None:
+            return
+        binder = getattr(self.backend, "bind_shard_mesh", None)
+        releaser = getattr(self.backend, "release_shard_mesh", None)
+        owned = frozenset(delta.owned)
+        gained = owned - self._mesh_shards
+        dropped = self._mesh_shards - owned
+        for s in sorted(dropped):
+            if releaser is not None:
+                try:
+                    releaser(s)
+                except Exception:
+                    logger.warning("mesh release failed for shard %d", s, exc_info=True)
+        for s in sorted(gained):
+            if binder is not None:
+                try:
+                    binder(s, keyer.num_shards)
+                except Exception:
+                    logger.warning("mesh bind failed for shard %d", s, exc_info=True)
+        self._mesh_shards = owned
+        if gained and self._mesh_engaged:
+            self.metrics.inc("scheduler_mesh_rebinds_total", len(gained))
+            self._cycle_notes.append(f"fleet: mesh rebind for shard(s) {sorted(gained)}")
+            if self.delta is not None:
+                self.delta.invalidate("mesh-rebind")
+        if owned:
+            self._mesh_engaged = True
+
+    # shape: (self: obj, count: int) -> bool
+    def resize_shards(self, count: int) -> bool:
+        """Publish a new shard count through the shard-map lease
+        (fleet/resize.py).  Coordinator-gated: only the shard-0
+        owner may publish (the rebalancer's tie-break), every replica adopts
+        on its next refresh round without restarting."""
+        if not self.sharded:
+            return False
+        return self.shard_set.publish_resize(int(count))
+
     def shards_snapshot(self) -> dict:
-        """The /debug/shards payload, in its unsharded form (the sharded
-        control plane waits for its port item)."""
-        return {
-            "enabled": False,
-            "num_shards": self.num_shards,
-            "replica_id": self.identity,
-            "perf": self.profile_ring.brief(),
+        """The /debug/shards payload.  Served from the HTTP thread; all
+        reads are GIL-atomic snapshots of main-thread state (the
+        resilience_snapshot stance)."""
+        if not self.sharded:
+            return {
+                "enabled": False,
+                "num_shards": self.num_shards,
+                "replica_id": self.identity,
+                "perf": self.profile_ring.brief(),
+            }
+        out = self.shard_set.debug(self.clock())
+        out["enabled"] = True
+        # The perf block: this replica's cycle quantiles, attribution
+        # coverage, and costliest phases (utils/profiler.ProfileRing) — so
+        # shard-ownership pages answer "is this owner slow" in place.
+        out["perf"] = self.profile_ring.brief()
+        # The fleet block (fleet/): keyer mode + per-shard
+        # topology domains ride shard_set.debug above; here the mesh
+        # bindings (device-level from the backend when it has them, the
+        # logical ledger otherwise) and the gang-reservation ledger.
+        info = getattr(self.backend, "mesh_bindings_info", None)
+        fleet: dict = {
+            "mesh_shards": sorted(self._mesh_shards),
+            "mesh_bindings": info() if info is not None else None,
+            "slice_backoff": self._fleet_slice_backoff,
         }
+        if self._fleet_reservations is not None:
+            fleet["reservations"] = self._fleet_reservations.debug()
+        out["fleet"] = fleet
+        return out
 
     def _ensure_renewal_thread(self) -> None:
         """Kube-style background lease renewal at TTL/3: a cycle longer than
@@ -2781,7 +3129,7 @@ class Scheduler:
 
         return {
             "replica": self.identity,
-            "shards_owned": None,
+            "shards_owned": sorted(self.shard_set.owned) if self.shard_set is not None else None,
             "profile": self.profile_ring.snapshot(),
             "compile": compile_stats(),
             "device_transfer_bytes": transfer_bytes_total(),
@@ -2847,6 +3195,16 @@ class Scheduler:
         if self._bind_queue is not None:
             self._bind_queue.put(None)  # worker-loop shutdown sentinel
             self._bind_queue = None
+        if self._fleet_reservations is not None:
+            # Hand reservations back before the shard leases: a clean
+            # shutdown must never leave peers waiting out a gang TTL.
+            self._fleet_reservations.release_all()
+        if self.sharded and self.shard_set.owned:
+            try:
+                self.shard_set.release_all()
+            except (ApiError, OSError, http.client.HTTPException):
+                pass  # the shard leases expire on their own
+            self.is_leader = False
         if self.leader_elect and self.is_leader:
             try:
                 self.api.release_lease(self.lease_name, self.identity)

@@ -18,16 +18,15 @@ Modules (each a copy of its JAX twin unless said otherwise):
   • ``scorecard`` — the invariants I1–I4 plus virtual-time SLOs, one JSON
                     verdict
   • ``scenarios`` — the named scenario registry (all 25)
-  • ``multi``     — the replica harness on its single-replica path; more
-                    replicas wait for ROADMAP Queue 1 item 8
-  • ``harness``   — the discrete-event loop; runs the 12 single-replica
-                    scenarios without rebalancer or autoscaler and refuses
-                    the rest by name and item
+  • ``multi``     — the replica harness: N replicas over lease-owned
+                    shards, the kill schedule and the takeover verdict
+  • ``harness``   — the discrete-event loop; runs the 17 scenarios
+                    without rebalancer or autoscaler and refuses the rest
+                    by name and item (ROADMAP Queue 1 item 9)
+  • ``fuzz``      — the coverage-guided chaos fuzzer over fault plans
+                    (two replicas over four shards per base workload)
   • ``cli``       — ``python -m tpu_scheduler_torch.cli sim --scenario X
-                    --seed N [--device cpu]``
-
-The chaos fuzzer (``sim/fuzz/``) waits for item 8: every fuzz base
-workload runs two replicas over four shards.
+                    --seed N [--device cpu]`` and ``sim fuzz``
 """
 
 from .chaos import ChaosApiServer, ChaosConfig, ChaosWindow

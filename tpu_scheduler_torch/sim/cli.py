@@ -6,8 +6,9 @@ Runs one named scenario to its scorecard JSON (stdout, one line) over
 without CUDA the default exits 1 with ``BackendUnavailable``'s message).
 Exit codes: 0 = verdict passed, 1 = verdict failed (invariant violation,
 lost or double-bound pods) or no card, 2 = refused (a scenario, or the
-``fuzz`` and ``train`` subcommands, waiting for a later ROADMAP Queue 1
-item), 3 = a ``--replay`` run diverged from its recorded fingerprint.
+``train`` subcommand, waiting for a later ROADMAP Queue 1 item), 3 = a
+``--replay`` run diverged from its recorded fingerprint.  ``sim fuzz``
+runs the chaos fuzzer (``sim/fuzz/cli.py``).
 
 Port of ``tpu_scheduler/sim/cli.py``: ``--device {cuda,cpu}`` takes the
 place of ``--backend {native,tpu}``; every other flag is the same.
@@ -28,7 +29,6 @@ __all__ = ["main"]
 
 # Subcommands of the JAX sim CLI whose subsystem waits for a later item.
 _UNPORTED_SUBCOMMANDS = {
-    "fuzz": (8, "the chaos fuzzer (its base workloads run 2 replicas over 4 shards)"),
     "train": (9, "policy training"),
 }
 
@@ -59,6 +59,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    if argv and argv[0] == "fuzz":
+        # Coverage-guided chaos fuzzing (sim/fuzz): seeded fault-plan
+        # search + corpus replay, byte-identical per seed:
+        #   python -m tpu_scheduler_torch.cli sim fuzz --budget 200 --seed 0
+        from .fuzz.cli import main as fuzz_main
+
+        return fuzz_main(argv[1:])
     if argv and argv[0] in _UNPORTED_SUBCOMMANDS:
         item, what = _UNPORTED_SUBCOMMANDS[argv[0]]
         print(f"tpu-scheduler-torch sim {argv[0]}: {what} is not ported yet (ROADMAP Queue 1 item {item})",

@@ -26,10 +26,11 @@ test is the port's ``Scheduler``, and the default backend is
 without CUDA it raises ``BackendUnavailable``, and a run on the CPU must ask
 for ``CudaBackend(device="cpu")``.  The cycles are bit-equal to the JAX
 package's NumPy oracle, so an episode's fingerprint and scorecard are the
-JAX sim's over NativeBackend.  It runs the single-replica scenarios without
-rebalancer or autoscaler; ``multi.refuse_unported`` names the ROADMAP item
-each other scenario waits for.  Their verdict blocks keep their schema and
-read as the JAX harness reads them with the subsystem off.
+JAX sim's over NativeBackend.  It runs every scenario without rebalancer or
+autoscaler, with one replica or several; ``multi.refuse_unported`` names the
+ROADMAP item (9) each other scenario waits for.  The rebalance and
+elasticity blocks keep their schema and read as the JAX harness reads them
+with the subsystem off.
 """
 
 from __future__ import annotations
@@ -638,8 +639,9 @@ def scenario_episode(
     profile = profile if profile is not None else DEFAULT_PROFILE
     if sc.preemption and not profile.preemption:
         profile = profile.with_(preemption=True)
-    # The one replica is constructed exactly as the JAX harness's
-    # single-replica path does (same rng label, no shard machinery).
+    # One harness regardless of replica count: replicas == 1 constructs the
+    # scheduler exactly as the single-replica path always did (same rng
+    # label, no shard machinery), so pre-sharding fingerprints hold.
     fleet = MultiReplicaHarness(sc, seed, clock, chaos, backend, profile, events_buffer, topology)
 
     writer = TraceWriter(record) if record else None

@@ -10,9 +10,8 @@ All durations/rates are VIRTUAL seconds — a 2-minute scenario costs wall
 clock proportional to the scheduling work, not the simulated time.
 
 Port: a copy of ``tpu_scheduler/sim/scenarios.py``: all 25 scenarios, as
-data.  The port's harness runs the 12 with one replica and neither
-rebalancer nor autoscaler, and refuses the rest by name
-(``sim/harness.py``, ``unported_reason``).
+data.  The port's harness runs the 17 without rebalancer or autoscaler
+and refuses the rest by name (``sim/multi.py``, ``refuse_unported``).
 """
 
 from __future__ import annotations
