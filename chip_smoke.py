@@ -89,9 +89,8 @@ bisection kernels) and, for each main path:
   CPU (two child processes beside the card runs, on cores of their own):
   fingerprints equal, scorecards equal but for the compile block's
   ``enabled``, both passing; a card-recorded trace replayed on the CPU and
-  a CPU-recorded one on the card; an out-of-scope scenario refused by its
-  ROADMAP item; one sim-smoke episode under torch.profiler (device idle
-  share, the controller's share of the wall);
+  a CPU-recorded one on the card; one sim-smoke episode under
+  torch.profiler (device idle share, the controller's share of the wall);
 * fleet — the sharded control plane and the multi-mesh fleet over
   ``CudaBackend``, each phase against a CPU child run beside it:
   ``multi_replica`` and ``multi_mesh`` are bench.py's ``multi_replica_row``
@@ -100,7 +99,8 @@ bisection kernels) and, for each main path:
   CPU's; a mesh rebind where K > 1); ``sim_multi`` the five multi-replica
   scenarios at seed 0 (cards equal but for ``compile.enabled``); ``fuzz``
   the corpus replay and a seed-0 campaign of 24 plans through ``sim fuzz``
-  (the run log byte-equal to the CPU's); ``fleet_e2e`` four replicas over
+  (the run log byte-equal to the CPU's; plans on the ``elastic`` base, the
+  autoscaler's, run like the rest); ``fleet_e2e`` four replicas over
   four shards at ``controller_e2e``'s 100k × 10k with the nodes in racks of
   32, one FakeApiServer and one VirtualClock: ownership warmed up, the wave
   settled, replica 0 crash-killed, the survivors' takeover with a mesh
@@ -109,6 +109,28 @@ bisection kernels) and, for each main path:
   torch.profiler; ``kernel_vs_plain_fleet`` kernel #1 on a replica's
   node-sliced operands from ``fleet_e2e`` and #1t on a sliced topology
   cycle of cross-shard-gang-admission;
+* rebalancer, autoscaler, learned policy — each phase against a CPU child
+  run beside it where it names one: ``rebalance_row`` is bench.py's
+  ``rebalance_row`` (8,192 bound pods round-robin on 512 nodes, seed 0,
+  ``RebalanceConfig(every=1, batch=256, max_plan=1024, max_pending=512)``,
+  until two ``no-gain`` skips; migrations, drained nodes, packing before
+  and after, cycles, churn and the final placements equal to the CPU's;
+  solve and cycle walls, phases, one cycle's idle share); ``rebalance_e2e``
+  the flagship's cluster fragmented (100,000 pods bound round-robin on
+  10,000 nodes), 8 ticked cycles (4 solves of up to 256 migrations): the
+  solve walls, the re-placement cycles through #1, no node newly
+  oversubscribed, no orphaned or infeasible migration, no preemption, #1
+  held against its plain version at the first re-placement block;
+  ``sim_item9`` the 3 rebalancer, 4 autoscaler scenarios and
+  rebalance-under-chaos at seed 0 (cards equal but for
+  ``compile.enabled``); ``policy`` bench.py's ``policy_row`` (the tuned
+  artifact against the default on its provenance scenarios at the first
+  held-out seed, objectives equal to the CPU's; the delta cycle at
+  10,000 × 1,000 under each profile, ``policy_latency_ratio``; #1t held
+  against its plain version on a train-smoke cycle under the tuned
+  weights); ``train`` ``sim train`` on train-smoke (2 generations of 4,
+  2 worker threads), its artifact byte-equal to the CPU's and, but for
+  the echoed ``workers``, to a one-worker run on the card;
 * bisection — the experiments ``tpu_scheduler_torch/experiments/
   bench_kernel_parts.py`` (kernel #4, every variant) and
   ``bench_wide_kernel.py`` (kernel #3) at their full shape (the whole
@@ -1537,16 +1559,23 @@ def read_launches() -> dict:
     return {name.lower(): getattr(choose_mod, name) for name in CHOOSE_COUNTERS}
 
 
-def oversubscribed_nodes(api) -> int:
-    """Nodes of the API's state whose bound pods request more than the node
-    allocates on some resource."""
+def oversubscribed_set(api) -> set:
+    """Names of the nodes whose bound pods request more than the node
+    allocates on some resource.  ``synth_cluster``'s round-robin binding
+    starts some nodes so; a run must add none."""
     snap = ClusterSnapshot.build(api.list_nodes(), api.list_pods())
-    bad = 0
+    out = set()
     for node in snap.nodes:
         net = node_net_available(snap, node)
         if net.cpu < 0 or net.memory < 0 or any(v < 0 for v in (net.extended or {}).values()):
-            bad += 1
-    return bad
+            out.add(node.name)
+    return out
+
+
+def oversubscribed_nodes(api) -> int:
+    """Nodes of the API's state whose bound pods request more than the node
+    allocates on some resource."""
+    return len(oversubscribed_set(api))
 
 
 def renamed(pods: list, prefix: str) -> list:
@@ -2317,8 +2346,8 @@ def sim_phase(smi: str, tmp: pathlib.Path) -> dict:
     fingerprints equal, scorecards equal outside :data:`SIM_CARD_VS_CPU`,
     both passing; the delta gate and the locality gate; a card-recorded
     trace replayed on the CPU and a CPU-recorded one on the card; the
-    harness's default backend on the card; an out-of-scope scenario refused
-    by its ROADMAP item; one sim-smoke episode under torch.profiler.
+    harness's default backend on the card; one sim-smoke episode under
+    torch.profiler.
     Returns the phase's kernel launches on the card (#1, #1t)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     root = pathlib.Path(__file__).resolve().parent
@@ -2414,16 +2443,6 @@ def sim_phase(smi: str, tmp: pathlib.Path) -> dict:
           "cpu_replay_wall_s": on_cpu["wall_s"], "launches": replay_launches, "nvidia_smi": smi})
     if not all(replays.values()):
         raise SystemExit(f"sim replay across devices diverged: {replays}")
-
-    # A scenario out of the port's scope is refused by its ROADMAP item.
-    try:
-        sim_harness.run_scenario("rebalance-under-chaos")
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    emit({"phase": "sim_refusal", "scenario": "rebalance-under-chaos", "message": refused})
-    if refused is None or "ROADMAP Queue 1 item 9" not in refused:
-        raise SystemExit(f"sim: rebalance-under-chaos was not refused by item 9 ({refused})")
 
     # One sim-smoke episode under torch.profiler: the device's idle share.
     zero_launches()
@@ -2857,13 +2876,15 @@ def fuzz_check(rc: int, seconds: float, launches: dict, tmp: pathlib.Path, cpu: 
     rec = {"phase": "fuzz", "budget": FUZZ_BUDGET, "seed": 0, "rc": rc, "seconds": seconds,
            "corpus_replayed": summary["corpus_replayed"], "corpus_ok": summary["corpus_ok"],
            "plans_run": sum(1 for ln in lines if "plan" in ln and "fingerprint" in ln),
-           "plans_refused": summary["plans_refused"], "violations_found": summary["violations_found"],
+           "plans_refused": sum(1 for ln in lines if "refused" in ln),
+           "plans_elastic": sum(1 for ln in lines if ln.get("base") == "elastic"),
+           "violations_found": summary["violations_found"],
            "coverage_pairs": summary["coverage_pairs"], "runlog_bytes": len(card_log),
            "runlog_equal_to_cpu": card_log == cpu_log, "cpu_rc": cpu["fuzz_rc"], "cpu_seconds": cpu["fuzz_s"],
            "launches": launches, "nvidia_smi": smi}
     emit(rec)
     if rc != 0 or cpu["fuzz_rc"] != 0 or not rec["runlog_equal_to_cpu"] or not summary["corpus_ok"] \
-            or summary["violations_found"]:
+            or summary["violations_found"] or rec["plans_refused"] or not rec["plans_elastic"]:
         raise SystemExit(f"fuzz: rc {rc}, run logs equal {rec['runlog_equal_to_cpu']}, summary {summary}")
     if launches["launches"] + launches["launches_topo"] == 0:
         raise SystemExit(f"fuzz: no choose kernel launched on the card ({launches})")
@@ -2925,6 +2946,496 @@ def fleet_phases(smi: str, device, tmp: pathlib.Path) -> dict:
                 for k in row_launches}
     emit({"phase": "fleet", "launches": launches, "kernel_vs_plain_fleet": check, "nvidia_smi": smi})
     return {"launches": launches, "max_abs_err": check["max_abs_err"], "topology_checked": check["topology"]}
+
+
+# ---- the rebalancer, the autoscaler and the learned policy -----------------
+
+# The scenarios of the rebalancer (3), the autoscaler (4) and both under
+# chaos with two replicas.
+ITEM9_SCENARIOS = ("defrag-smoke", "fragmentation-long-horizon", "autoscaler-backlog-whatif", "diurnal-traffic",
+                   "flash-crowd-provisioning-lag", "spot-reclaim-storm", "quota-capped-surge",
+                   "rebalance-under-chaos")
+# bench.py's profile: throughput at its pod block and round cap.
+BENCH_PROFILE = PROFILES["throughput"].with_(pod_block=8192, max_rounds=64)
+# The checked-in tuned artifact the policy phase holds against the default.
+TUNED_ARTIFACT = pathlib.Path(__file__).resolve().parent / "tpu_scheduler_torch" / "learn" / "profiles" / "tuned.json"
+# ``sim train`` at a small budget: 2 generations of 4 candidates on
+# train-smoke, train seeds 0-1, held-out seeds 101-102 (the defaults).
+TRAIN_ARGS = ("--scenario-set", "train-smoke", "--seed", "0", "--generations", "2", "--population", "4")
+REBALANCE_RESULT_FIELDS = ("migrations", "nodes_drained", "efficiency_before", "efficiency_after",
+                           "stranded_before", "stranded_after", "cycles", "preemption_churn", "placement_digest")
+
+
+def track_unbinds(sched) -> list:
+    """Wrap the scheduler's migration unbind so that every pod it unbinds
+    is listed (full names) in the returned list."""
+    unbound: list = []
+    unbind = sched._unbind
+
+    def recorded(pod_full: str, node_name: str) -> bool:
+        ok = unbind(pod_full, node_name)
+        if ok:
+            unbound.append(pod_full)
+        return ok
+
+    sched._unbind = recorded
+    return unbound
+
+
+def migration_audit(api, unbound: list, over_before: set) -> dict:
+    """Where the migrated pods ended: orphaned (gone), still pending, or on
+    a node that is oversubscribed; and the oversubscribed nodes the run
+    added to those it started with."""
+    from tpu_scheduler_torch.api.objects import full_name, is_pod_bound
+
+    by_name = {full_name(p): p for p in api.list_pods()}
+    over_after = oversubscribed_set(api)
+    moved = [by_name[pf] for pf in unbound if pf in by_name and is_pod_bound(by_name[pf])]
+    return {
+        "unbound_pods": len(unbound), "orphaned_migrations": sum(1 for pf in unbound if pf not in by_name),
+        "still_pending": sum(1 for pf in unbound if pf in by_name and not is_pod_bound(by_name[pf])),
+        "rebound_onto_oversubscribed": sum(1 for p in moved if p.spec.node_name in over_after),
+        "oversubscribed_at_start": len(over_before), "oversubscribed_at_end": len(over_after),
+        "oversubscribed_added": len(over_after - over_before),
+    }
+
+
+def placement_digest(api) -> str:
+    """A digest of the API's pod -> node map."""
+    import hashlib
+
+    pairs = sorted((p.metadata.name, p.spec.node_name or "") for p in api.list_pods() if p.spec is not None)
+    return hashlib.sha256(json.dumps(pairs).encode()).hexdigest()[:16]
+
+
+def cycle_phases_of(m) -> dict:
+    """A cycle's ``CycleMetrics`` phase seconds by phase name."""
+    from tpu_scheduler_torch.utils.metrics import cycle_phases
+
+    return {ph: getattr(m, f"{ph}_seconds") for ph in cycle_phases()}
+
+
+def rebalance_row(device: str) -> dict:
+    """bench.py's ``rebalance_row`` on the port over ``CudaBackend(device)``:
+    ``synth_cluster(n_nodes=512, n_pending=0, n_bound=8_192, seed=0)``
+    (round-robin bound, so every node is lightly filled) in a FakeApiServer,
+    a Scheduler with ``RebalanceConfig(every=1, batch=256, max_plan=1024,
+    max_pending=512)`` (inline solve) run until two ``no-gain`` skips, at
+    most 80 cycles.  The scheduler's clock is a VirtualClock advanced 1 s a
+    cycle, so the SLO burn the throttle reads is the same on every device.
+    On the card the second cycle (the first re-placement, and a tick) runs
+    under torch.profiler.  Packing before and after, migrations, drained
+    nodes, cycles, preemption churn, the final placements' digest; solve
+    and cycle walls with the cycles' phases, #1 launches."""
+    from tpu_scheduler_torch.rebalance import RebalanceConfig, RebalanceSnapshot, packing_stats
+    from tpu_scheduler_torch.sim.clock import VirtualClock
+
+    base = synth_cluster(n_nodes=512, n_pending=0, n_bound=8192, seed=0)
+    api = FakeApiServer()
+    api.load(base.nodes, base.pods)
+    rs0 = RebalanceSnapshot.build(ClusterSnapshot.build(api.list_nodes(), api.list_pods()))
+    before = packing_stats(rs0.alloc, rs0.used)
+    over_before = oversubscribed_set(api)
+    clock = VirtualClock()
+    backend = RecordingBackend(device=device)
+    sched = Scheduler(api, backend, profile=BENCH_PROFILE, requeue_seconds=0.0, clock=clock,
+                      rebalance=RebalanceConfig(every=1, batch=256, max_plan=1024, max_pending=512))
+    unbound = track_unbinds(sched)
+    idle, walls, phases, split = 0, [], [], None
+    try:
+        for cycle in range(80):
+            holder: list = []
+            t0 = time.perf_counter()
+            if cycle == 1 and device == "cuda":
+                wall_ms, rows = profiled(lambda: holder.append(sched.run_cycle()))
+                split = device_split(wall_ms, rows, "choose_kernel")
+            else:
+                holder.append(sched.run_cycle())
+            walls.append(time.perf_counter() - t0)
+            phases.append(cycle_phases_of(holder[0]))
+            clock.advance(1.0)
+            s = sched.rebalancer.stats()
+            if s["skips"].get("no-gain", 0) > idle:
+                idle = s["skips"]["no-gain"]
+                if idle >= 2:
+                    break  # two dry solves: the drain converged
+        s = sched.rebalancer.stats()
+        solve_walls = list(sched.rebalancer.solve_walls)
+        counters = sched.metrics.snapshot()
+    finally:
+        sched.close()
+    rs1 = RebalanceSnapshot.build(ClusterSnapshot.build(api.list_nodes(), api.list_pods()))
+    after = packing_stats(rs1.alloc, rs1.used)
+    return {
+        "shape": "8192x512", "migrations": s["executed"], "nodes_drained": s["nodes_drained"],
+        "efficiency_before": before["efficiency"], "efficiency_after": after["efficiency"],
+        "stranded_before": before["stranded_frac"], "stranded_after": after["stranded_frac"],
+        "cycles": len(walls), "preemption_churn": int(counters.get("scheduler_preemption_victims_total", 0)),
+        "placement_digest": placement_digest(api), "solves": s["solves"], "skips": s["skips"],
+        "solve_walls_s": solve_walls, "cycle_walls_s": walls, "cycle_wall_total_s": sum(walls),
+        "phases_median_s": {ph: statistics.median(p[ph] for p in phases) for ph in phases[0]},
+        "phases_total_s": {ph: sum(p[ph] for p in phases) for ph in phases[0]},
+        **migration_audit(api, unbound, over_before), "launches": backend.launches, "profiled_cycle": split,
+    }
+
+
+def rebalance_e2e(smi: str, device, nodes: int = 10_000, bound: int = 100_000) -> tuple[dict, float]:
+    """The rebalancer at the flagship's cluster, on the card:
+    ``synth_cluster(n_nodes=10_000, n_pending=0, n_bound=100_000, seed=0)``
+    (round-robin bound: every node fragmented) in a FakeApiServer, a
+    Scheduler with ``RebalanceConfig(every=1, batch=256)`` on a VirtualClock
+    (1 s a cycle), 8 cycles, each ending in a tick.  A tick reconciles
+    against the cycle's starting snapshot, so the ticks alternate: one
+    solves and unbinds up to 256 pods, the next cycle re-places them
+    through the delta engine and its tick stands down (``inflight``) — 4
+    solves.  The fourth cycle (a re-placement) runs under torch.profiler.  Checks: no node oversubscribed that was not at the
+    start (the round-robin binding starts some so) and no migrated pod
+    re-bound onto one, every unbound pod re-bound (no orphan, none left
+    pending), preemption churn 0, every binding feasible, the drained
+    nodes cordoned.  #1 is held against its plain
+    version at the first re-placement cycle's block.  Returns the record
+    and that check's error."""
+    from tpu_scheduler_torch.rebalance import REBALANCE_CORDON_LABEL, RebalanceConfig
+    from tpu_scheduler_torch.sim.clock import VirtualClock
+
+    t0 = time.perf_counter()
+    base = synth_cluster(n_nodes=nodes, n_pending=0, n_bound=bound, seed=0)
+    api = FakeApiServer()
+    api.load(base.nodes, base.pods)
+    over_before = oversubscribed_set(api)
+    setup_s = time.perf_counter() - t0
+    clock = VirtualClock()
+    backend = RecordingBackend(device=device.type, keep=lambda packed: int(packed.pod_valid.sum()) > 0)
+    sched = Scheduler(api, backend, profile=BENCH_PROFILE, requeue_seconds=0.0, clock=clock,
+                      rebalance=RebalanceConfig(every=1, batch=256))
+    rebalancer = sched.rebalancer
+    unbound = track_unbinds(sched)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rows, split = [], None
+    try:
+        for cycle in range(8):
+            cuda_backend_mod.UPLOAD_BYTES = 0
+            before = read_launches()
+            holder: list = []
+            solves_before = len(rebalancer.solve_walls)
+            c0 = time.perf_counter()
+            if cycle == 3:
+                wall_ms, dev_rows = profiled(lambda: holder.append(sched.run_cycle()))
+                split = device_split(wall_ms, dev_rows, "choose_kernel")
+            else:
+                holder.append(sched.run_cycle())
+            m = holder[0]
+            launches = {k: v - before[k] for k, v in read_launches().items()}
+            row = {"cycle": cycle, "wall_s": time.perf_counter() - c0, **{f"{k}_s": v for k, v in
+                                                                          cycle_phases_of(m).items()},
+                   "pending": m.pending, "replaced": m.bound, "unschedulable": m.unschedulable,
+                   "solve_wall_s": rebalancer.solve_walls[solves_before:], "upload_bytes": cuda_backend_mod.UPLOAD_BYTES,
+                   "choose_launches": launches, "migrations_total": rebalancer.executed}
+            rows.append(row)
+            if m.pending and m.solve_seconds > 0 and launches["launches"] == 0:
+                raise SystemExit(f"rebalance_e2e: cycle {cycle} re-placed {m.pending} pods without kernel #1")
+            clock.advance(1.0)
+        peak_mem = torch.cuda.max_memory_allocated()
+        stats = rebalancer.stats()
+        counters = sched.metrics.snapshot()
+    finally:
+        sched.close()
+    drained = sorted(n.name for n in api.list_nodes() if (n.metadata.labels or {}).get(REBALANCE_CORDON_LABEL))
+    cordoned = all(n.spec is not None and n.spec.unschedulable for n in api.list_nodes() if n.name in set(drained))
+    rec = {
+        "phase": "rebalance_e2e", "nodes": nodes, "bound_pods": bound, "setup_s": setup_s, "ticks": stats["ticks"],
+        "solves": stats["solves"], "migrations": stats["executed"], "completed": stats["completed"],
+        "nodes_drained": stats["nodes_drained"], "drained_labeled": len(drained), "last_plan": stats["last_plan"],
+        "skips": stats["skips"], "solve_walls_s": list(rebalancer.solve_walls),
+        "replaced_through_choose": sum(r["replaced"] for r in rows[1:]), "cycles": rows,
+        "choose_launches": read_launches(), "peak_mem_bytes": peak_mem, "profiled_cycle": split,
+        **migration_audit(api, unbound, over_before), "infeasible_bindings": bound_pods_feasible(api),
+        "preemption_churn": int(counters.get("scheduler_preemption_victims_total", 0)),
+        "backend_fallbacks": counters.get("scheduler_backend_fallbacks_total", 0), "nvidia_smi": smi,
+    }
+    emit(rec)
+    if rec["oversubscribed_added"] or rec["rebound_onto_oversubscribed"] or rec["orphaned_migrations"] \
+            or rec["still_pending"] or rec["infeasible_bindings"] or rec["preemption_churn"] \
+            or rec["backend_fallbacks"] or not cordoned:
+        raise SystemExit(f"rebalance_e2e: a check failed ({rec}, cordoned {cordoned})")
+    if rec["migrations"] == 0 or rec["solves"] != 4 or rec["choose_launches"]["launches"] == 0:
+        raise SystemExit(f"rebalance_e2e: {rec['solves']} solves, {rec['migrations']} migrations, "
+                         f"launches {rec['choose_launches']}")
+    if backend.kept is None:
+        raise SystemExit("rebalance_e2e: no re-placement solve was captured")
+    arrays = to_device(backend.kept, device)
+    b = min(8192, backend.kept.padded_pods)
+    crec, _ = compare("rebalance_replace_block", block_args(arrays, 0, b), BENCH_PROFILE.weights(), salt=1,
+                      phase="kernel_vs_plain_rebalance", kernel="choose", nodes_real=len(backend.kept.node_names),
+                      active=int(backend.kept.pod_valid[:b].sum()))
+    return rec, crec["max_abs_err"]
+
+
+def sim_item9_cards(device: str) -> dict:
+    """The 8 scenarios of :data:`ITEM9_SCENARIOS` at seed 0 over
+    ``CudaBackend(device)``: each card, wall, controller and verdict
+    seconds, and the choose launches."""
+    out = {}
+    for name in ITEM9_SCENARIOS:
+        zero_launches()
+        run = sim_episode(name, 0, CudaBackend(device=device))
+        out[name] = {k: run[k] for k in ("card", "wall_s", "controller_s", "verdict_s", "device")}
+        out[name]["launches"] = read_launches()
+    return out
+
+
+def policy_objectives(device: str) -> dict:
+    """bench.py's ``policy_row`` objectives on the port: each provenance
+    scenario of the checked-in tuned artifact on its first held-out seed,
+    under the tuned and the default profile, over ``CudaBackend(device)``:
+    per-scenario objectives, their means, and whether every gate passed
+    under the tuned weights; the choose launches."""
+    from tpu_scheduler_torch.learn.distill import load_profile
+    from tpu_scheduler_torch.learn.objective import OBJECTIVE_VERSION
+
+    prov = json.loads(TUNED_ARTIFACT.read_text())["provenance"]
+    if prov["objective_version"] != OBJECTIVE_VERSION:
+        raise SystemExit(f"policy: the artifact was trained against objective v{prov['objective_version']}")
+    tuned = load_profile(str(TUNED_ARTIFACT))
+    scenarios = tuple(prov["search"]["scenarios"])
+    hseed = int(prov["search"]["held_out_seeds"][0])
+    per, gates_green = {}, True
+    zero_launches()
+    for name in scenarios:
+        ct = sim_harness.run_scenario(name, seed=hseed, profile=tuned, backend=CudaBackend(device=device))
+        cd = sim_harness.run_scenario(name, seed=hseed, backend=CudaBackend(device=device))
+        per[name] = {"tuned": ct["policy"]["objective"], "default": cd["policy"]["objective"]}
+        gates_green = gates_green and bool(ct["pass"])
+    t = round(sum(v["tuned"] for v in per.values()) / len(per), 6)
+    d = round(sum(v["default"] for v in per.values()) / len(per), 6)
+    return {"held_out_seed": hseed, "scenarios": per, "objective_tuned": t, "objective_default": d,
+            "objective_delta": round(t - d, 6), "gates_green_under_tuned": gates_green, "launches": read_launches()}
+
+
+def policy_latency(profile, pods: int = 10_000, nodes: int = 1_000, seed: int = 0, cycles: int = 6) -> dict:
+    """bench.py's ``incremental_row`` at ``policy_row``'s shape on the card:
+    a cold full wave over ``synth_cluster(nodes, pods, 2 * nodes bound,
+    seed)``, then ``cycles`` steady delta cycles of pods/100 fresh pods and
+    3 bursts of pods/10 (template seed + 1, renamed; as many bound pods
+    retired), all off the clock but the cycle."""
+    base = synth_cluster(n_nodes=nodes, n_pending=pods, n_bound=2 * nodes, seed=seed)
+    api = FakeApiServer()
+    api.load(base.nodes, base.pods)
+    sched = Scheduler(api, CudaBackend(), profile=profile, requeue_seconds=0.0)
+    wave = synth_cluster(n_nodes=nodes, n_pending=pods, n_bound=0, seed=seed + 1).pending_pods()
+    pool = [p for p in base.pods if p.spec is not None and p.spec.node_name is None]
+    state = {"prev": [], "retire_from": 0, "w": 0}
+    before = read_launches()
+
+    def churn_cycle(n: int) -> float:
+        state["w"] += 1
+        for p in state["prev"] + pool[state["retire_from"]:state["retire_from"] + n]:
+            api.delete_pod(p.metadata.namespace or "default", p.metadata.name)
+        state["retire_from"] += n
+        state["prev"] = renamed(wave[:n], f"i{state['w']}")
+        for p in state["prev"]:
+            api.create_pod(p)
+        t0 = time.perf_counter()
+        sched.run_cycle()
+        return time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        sched.run_cycle()
+        cold = time.perf_counter() - t0
+        steady = [churn_cycle(max(1, pods // 100)) for _ in range(cycles)]
+        burst = [churn_cycle(max(1, pods // 10)) for _ in range(3)]
+    finally:
+        sched.close()
+    return {"shape": f"{pods}x{nodes}", "cold_s": cold, "steady_s": steady, "burst_s": burst,
+            "delta_cycle_seconds_min": min(steady), "delta_cycle_seconds": statistics.median(steady),
+            "launches": {k: v - before[k] for k, v in read_launches().items()}}
+
+
+def train_run(device: str, workers: int, out: str) -> dict:
+    """``sim train`` (:data:`TRAIN_ARGS`) through the port's sim CLI on
+    ``device`` with ``workers`` threads: exit code, seconds, the artifact's
+    bytes (text) and the report line."""
+    import contextlib
+    import io
+
+    from tpu_scheduler_torch.sim.cli import main as sim_cli_main
+
+    buf, errbuf = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(errbuf):
+        rc = sim_cli_main(["train", *TRAIN_ARGS, "--device", device, "--workers", str(workers), "--out", out])
+    seconds = time.perf_counter() - t0
+    report = json.loads(buf.getvalue().strip().splitlines()[-1]) if rc == 0 else None
+    return {"rc": rc, "seconds": seconds, "artifact": pathlib.Path(out).read_text() if rc == 0 else None,
+            "report": report, "stderr": errbuf.getvalue()[-2000:]}
+
+
+def item9_cpu_reference(tmp: str) -> None:
+    """The CPU half of the item-9 phases, in a child process without a
+    visible card, over ``CudaBackend(device="cpu")``: ``rebalance_row``,
+    the 8 scenarios, the policy objectives and ``sim train`` with 2
+    workers (its artifact under ``tmp``).  Each step is stamped on stderr;
+    prints one JSON line."""
+    logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
+    off_card_cores()
+    t0 = time.perf_counter()
+    out = {"rebalance_row": rebalance_row("cpu")}
+    print(f"item9_cpu_reference: rebalance_row {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    out["sims"] = sim_item9_cards("cpu")
+    print(f"item9_cpu_reference: sims {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    out["policy"] = policy_objectives("cpu")
+    print(f"item9_cpu_reference: policy {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    out["train"] = train_run("cpu", 2, os.path.join(tmp, "train_cpu.json"))
+    print(f"item9_cpu_reference: train {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    print(json.dumps(out), flush=True)
+
+
+def without_workers(artifact: str) -> dict:
+    """A profile artifact with its provenance's ``search.workers`` taken
+    out: the one field a run with another thread count writes differently."""
+    doc = json.loads(artifact)
+    doc["provenance"]["search"].pop("workers")
+    return doc
+
+
+def item9_phases(smi: str, device, tmp: pathlib.Path) -> dict:
+    """The rebalancer, the autoscaler and the learned policy on the card,
+    each phase against its CPU reference where it names one (one child,
+    started first, running beside the card phases): ``rebalance_row``,
+    ``rebalance_e2e`` (card only), ``sim_item9``, ``policy`` and
+    ``train``.  Returns the card launches of the phases' main paths per
+    choose instance and the kernel checks' errors."""
+    errf = tempfile.TemporaryFile("w+")
+    child = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.item9_cpu_reference({str(tmp)!r})"],
+        cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=errf, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+    totals = {name.lower(): 0 for name in CHOOSE_COUNTERS}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            totals[k] += v
+
+    try:
+        t0 = time.perf_counter()
+        row = rebalance_row("cuda")
+        row_s = time.perf_counter() - t0
+        e2e_rec, e2e_err = rebalance_e2e(smi, device)
+        add(e2e_rec["choose_launches"])
+        torch.cuda.empty_cache()
+        sims = sim_item9_cards("cuda")
+        objectives = policy_objectives("cuda")
+        add(objectives["launches"])
+        tuned = json.loads(TUNED_ARTIFACT.read_text())
+        from tpu_scheduler_torch.learn.distill import load_profile
+        from tpu_scheduler_torch.models.profiles import DEFAULT_PROFILE
+
+        tuned_profile = load_profile(str(TUNED_ARTIFACT))
+        lat_tuned = policy_latency(tuned_profile)
+        lat_default = policy_latency(DEFAULT_PROFILE)
+        add(lat_tuned["launches"])
+        add(lat_default["launches"])
+        # #1t under the tuned weights, on a train-smoke cycle with gangs.
+        gang_backend = RecordingBackend(keep=lambda packed: packed.topology is not None
+                                        and packed.topology.n_gangs >= 2)
+        zero_launches()
+        sim_harness.run_scenario("train-smoke", seed=0, profile=tuned_profile, backend=gang_backend)
+        add(read_launches())
+        if gang_backend.kept is None:
+            raise SystemExit("policy: no train-smoke cycle with gangs was captured")
+        w = tuned_profile.weights()
+        gp = gang_backend.kept
+        topo_err = 0.0
+        for name, share in (("train_smoke_tuned_round0", 0.0), ("train_smoke_tuned_mid_cycle", 0.5)):
+            garrays, op = round_term(gp, device, w, placed_share=share, seed=19)
+            rec = compare_topology(name, block_args(garrays, 0, gp.padded_pods), w, 3,
+                                   block_term(op, 0, gp.padded_pods), phase="kernel_vs_plain_policy",
+                                   kernel="choose_topology", nodes_real=len(gp.node_names))
+            topo_err = max(topo_err, rec["max_abs_err"])
+        zero_launches()
+        train2 = train_run("cuda", 2, str(tmp / "train_card_w2.json"))
+        train_launches = read_launches()
+        train1 = train_run("cuda", 1, str(tmp / "train_card_w1.json"))
+        add(train_launches)
+        out, _ = child.communicate(timeout=900)
+        errf.seek(0)
+        if child.returncode != 0:
+            raise SystemExit(f"item9: the CPU run failed ({child.returncode}): {errf.read()[-3000:]}")
+        cpu = json.loads(out.strip().splitlines()[-1])
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        errf.close()
+
+    # rebalance_row: the card against the CPU.
+    ref = cpu["rebalance_row"]
+    equal = {f: row[f] == ref[f] for f in REBALANCE_RESULT_FIELDS}
+    add(row["launches"])
+    emit({"phase": "rebalance_row", **{k: v for k, v in row.items() if k != "launches"},
+          "launches": row["launches"], "seconds": row_s, "cpu_cycle_wall_total_s": ref["cycle_wall_total_s"],
+          "cpu_solve_walls_s": ref["solve_walls_s"], "equal_to_cpu": equal, "nvidia_smi": smi})
+    if not all(equal.values()) or row["preemption_churn"] or row["oversubscribed_added"] \
+            or row["rebound_onto_oversubscribed"] or row["orphaned_migrations"] or row["launches"]["launches"] == 0 \
+            or row["migrations"] == 0:
+        raise SystemExit(f"rebalance_row: card and CPU differ ({equal}), or a check failed: {row}")
+
+    # The 8 scenarios: the card against the CPU.
+    for name in ITEM9_SCENARIOS:
+        c, r = sims[name], cpu["sims"][name]
+        cc, rc = c["card"], r["card"]
+        differing = [q for q in sim_diff(cc, rc) if q not in SIM_CARD_VS_CPU]
+        n = c["launches"]
+        add(n)
+        el, rb = cc["elasticity"], cc["rebalance"]
+        emit({"phase": "sim_item9", "scenario": name, "seed": 0, "device": c["device"], "wall_s": c["wall_s"],
+              "cpu_wall_s": r["wall_s"], "cycles": cc["cycles"], "controller_s": c["controller_s"],
+              "controller_share": c["controller_s"] / c["wall_s"], "verdict_s": c["verdict_s"],
+              "cpu_controller_s": r["controller_s"], "pass": cc["pass"], "cpu_pass": rc["pass"],
+              "migrations": rb["migrations"], "packing_efficiency": rb["packing_efficiency"],
+              "scale_ups": el["scale_ups"], "scale_downs": el["scale_downs"], "reclaims": el["reclaims"],
+              "reclaim_orphans": el["reclaim_orphans"], "joint_objective": el["joint_objective"],
+              "launches_choose": n["launches"], "launches_choose_topology": n["launches_topo"],
+              "launches_constrained": n["launches_constrained"] + n["launches_constrained_topo"],
+              "fingerprint": cc["fingerprint"][:16], "fingerprint_equal": cc["fingerprint"] == rc["fingerprint"],
+              "differing_fields": differing, "nvidia_smi": smi})
+        if c["device"] != "cuda" or differing or cc["fingerprint"] != rc["fingerprint"] or not cc["pass"]:
+            raise SystemExit(f"sim_item9 {name}: card and CPU differ ({differing}) or the verdict failed")
+        if n["launches"] + n["launches_topo"] + n["launches_constrained"] == 0:
+            raise SystemExit(f"sim_item9 {name}: the card episode launched no choose kernel ({n})")
+
+    # policy: objectives equal to the CPU's, the latency ratio on the card.
+    pref = cpu["policy"]
+    obj_equal = all(objectives[k] == pref[k] for k in ("scenarios", "objective_tuned", "objective_default",
+                                                         "gates_green_under_tuned"))
+    ratio = lat_tuned["delta_cycle_seconds_min"] / lat_default["delta_cycle_seconds_min"]
+    emit({"phase": "policy", **objectives, "cpu_objectives_equal": obj_equal, "latency_tuned": lat_tuned,
+          "latency_default": lat_default, "policy_latency_ratio": ratio, "tuned_name": tuned["profile"]["name"],
+          "kernel_vs_plain_topology_max_abs_err": topo_err, "nvidia_smi": smi})
+    if not obj_equal or not objectives["gates_green_under_tuned"]:
+        raise SystemExit(f"policy: objectives differ from the CPU's ({objectives['scenarios']} vs "
+                         f"{pref['scenarios']}) or a gate failed under the tuned weights")
+    if lat_tuned["launches"]["launches"] == 0 or lat_default["launches"]["launches"] == 0:
+        raise SystemExit("policy: a latency run launched kernel #1 no time")
+
+    # train: the card's artifact against the CPU's and the one-worker run's.
+    ctrain = cpu["train"]
+    same_cpu = train2["rc"] == 0 and ctrain["rc"] == 0 and train2["artifact"] == ctrain["artifact"]
+    same_w1 = train1["rc"] == 0 and without_workers(train1["artifact"]) == without_workers(train2["artifact"])
+    emit({"phase": "train", "args": list(TRAIN_ARGS), "rc": train2["rc"], "seconds_workers_2": train2["seconds"],
+          "seconds_workers_1": train1["seconds"], "cpu_seconds_workers_2": ctrain["seconds"],
+          "report": train2["report"], "artifact_bytes": len(train2["artifact"] or ""),
+          "artifact_equal_to_cpu": same_cpu, "artifact_equal_to_workers_1": same_w1, "launches": train_launches,
+          "nvidia_smi": smi})
+    if not (same_cpu and same_w1):
+        raise SystemExit(f"train: artifacts differ (CPU {same_cpu}, workers 1 {same_w1}): {train2['stderr']}")
+    if train_launches["launches"] + train_launches["launches_topo"] == 0:
+        raise SystemExit(f"train: the card run launched no choose kernel ({train_launches})")
+    emit({"phase": "item9", "launches": totals, "nvidia_smi": smi})
+    return {"launches": totals, "max_abs_err": {"choose": e2e_err, "choose_topology": topo_err}}
 
 
 def main() -> int:
@@ -3478,6 +3989,12 @@ def main() -> int:
         fleet = fleet_phases(smi, device, pathlib.Path(tmp))
     emit({"phase": "fleet_seconds", "seconds": time.perf_counter() - t0})
 
+    # ---- the rebalancer, the autoscaler and the learned policy -------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        item9 = item9_phases(smi, device, pathlib.Path(tmp))
+    emit({"phase": "item9_seconds", "seconds": time.perf_counter() - t0})
+
     # ---- the bisection kernels (experiments) -------------------------------
     brecs = bisect_phase(device, resources)
 
@@ -3485,14 +4002,16 @@ def main() -> int:
         {
             "name": "choose", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/pallas_choose.py:356",
-            "launches": launches + sim_launches["launches"] + fleet["launches"]["launches"],
-            "max_abs_err": max(max_abs_err, fleet["max_abs_err"]["choose"]),
+            "launches": launches + sim_launches["launches"] + fleet["launches"]["launches"]
+            + item9["launches"]["launches"],
+            "max_abs_err": max(max_abs_err, fleet["max_abs_err"]["choose"], item9["max_abs_err"]["choose"]),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         },
         {
             "name": "choose_constrained", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/pallas_choose.py:172",
-            "launches": claunches + fleet["launches"]["launches_constrained"],
+            "launches": claunches + fleet["launches"]["launches_constrained"]
+            + item9["launches"]["launches_constrained"],
             "max_abs_err": cons_max_abs_err, "ms": ctiming["ms"], "plain_ms": ctiming["plain_ms"],
             "bound_ms": ctiming["bound_ms"], "bound_by": ctiming["bound_by"], "library_ms": None,
         },
@@ -3513,15 +4032,18 @@ def main() -> int:
         {
             "name": "choose_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
-            "launches": tlaunches + sim_launches["launches_topo"] + fleet["launches"]["launches_topo"],
-            "max_abs_err": max(topo_max_abs_err, fleet["max_abs_err"]["choose_topology"]), "ms": topo_ms,
+            "launches": tlaunches + sim_launches["launches_topo"] + fleet["launches"]["launches_topo"]
+            + item9["launches"]["launches_topo"],
+            "max_abs_err": max(topo_max_abs_err, fleet["max_abs_err"]["choose_topology"],
+                               item9["max_abs_err"]["choose_topology"]), "ms": topo_ms,
             "plain_ms": topo_plain_ms,
             "bound_ms": topo_bound["bound_ms"], "bound_by": topo_bound["bound_by"], "library_ms": None,
         },
         {
             "name": "choose_constrained_topology", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
             "replaces": "tpu_scheduler/ops/assign.py:229-233 + tpu_scheduler/ops/score.py:141-150",
-            "launches": ctopo_launches + fleet["launches"]["launches_constrained_topo"],
+            "launches": ctopo_launches + fleet["launches"]["launches_constrained_topo"]
+            + item9["launches"]["launches_constrained_topo"],
             "max_abs_err": ctopo_max_abs_err, "ms": ctopo_ms,
             "plain_ms": ctopo_plain_ms, "bound_ms": ctopo_bound["bound_ms"], "bound_by": ctopo_bound["bound_by"],
             "library_ms": None,

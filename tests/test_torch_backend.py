@@ -148,7 +148,9 @@ def test_port_imports_no_jax():
                  "sim.workload", "learn.objective", "rebalance.snapshot", "rebalance.solver", "fleet",
                  "runtime.shards", "fleet.keyer", "fleet.reservation", "fleet.resize", "parallel.mesh",
                  "sim.fuzz", "sim.fuzz.cli", "sim.fuzz.corpus", "sim.fuzz.coverage", "sim.fuzz.generate",
-                 "sim.fuzz.oracle", "sim.fuzz.plan", "sim.fuzz.shrink"):
+                 "sim.fuzz.oracle", "sim.fuzz.plan", "sim.fuzz.shrink", "rebalance.planner", "rebalance.executor",
+                 "rebalance.whatif", "autoscale", "autoscale.policy", "autoscale.provider", "autoscale.controller",
+                 "learn.env", "learn.search", "learn.distill", "learn.cli"):
         assert f"tpu_scheduler_torch.{name}" in report["mods"], name
 
 

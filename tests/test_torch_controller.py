@@ -9,8 +9,9 @@ exactly: the per-cycle pending / bound / unschedulable / rounds, the final
 pod → node map, the counters (less seconds, bytes and kernel builds), the
 requeue deadlines and the timeline event kinds of a few pods.  The NumPy
 oracle is what the port follows bit for bit.  Then the CLI: the port's
-``--device cpu`` run against the JAX CLI's ``--backend native`` run, the
-flags it refuses, and its refusal to run on the CPU unless asked."""
+``--device cpu`` run against the JAX CLI's ``--backend native`` run (with
+``--rebalance`` and ``--autoscale`` too, and their debug routes), the flag
+it refuses, and its refusal to run on the CPU unless asked."""
 
 import json
 import os
@@ -344,14 +345,31 @@ def test_controller_matches_jax_controller(scenario, delta):
         assert any(name in final[0] and final[0][name] > 0 for final in port["finals"]), (name, counters)
 
 
-def test_unported_options_are_refused_by_item():
-    api = fake_api.FakeApiServer()
-    backend = CudaBackend(device="cpu")
-    for kw, item in ((dict(rebalance=True), "item 9"), (dict(autoscale=True), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            controller.Scheduler(api, backend, **kw)
-    sched = controller.Scheduler(api, backend)
-    assert sched.shards_snapshot()["enabled"] is False
+def test_rebalance_and_autoscale_options_build_the_tiers():
+    """``rebalance=True`` builds a rebalancer with the default config;
+    ``autoscale`` needs a provider, as in the JAX controller; the sample
+    policy builds neither; the debug payloads match the JAX controller's."""
+    import tpu_scheduler.autoscale as jax_autoscale
+    import tpu_scheduler_torch.autoscale as autoscale
+
+    def observe(pk_controller, pk_fake_api, pk_autoscale, backend):
+        api = pk_fake_api.FakeApiServer()
+        out = []
+        for kw in (dict(rebalance=True), dict(autoscale=True), dict(rebalance=True, policy="sample")):
+            sched = pk_controller.Scheduler(api, backend, **kw)
+            out.append((sched.rebalancer is not None, sched.autoscaler is not None, sched.rebalance_snapshot(),
+                        sched.autoscale_snapshot(), sched.shards_snapshot()["enabled"]))
+        provider = pk_autoscale.SimCloudProvider(api, clock=lambda: 0.0, rng=random.Random(0))
+        sched = pk_controller.Scheduler(api, backend, autoscale=True, autoscale_provider=provider)
+        sched.run_cycle()
+        out.append((sched.autoscaler is not None, sched.autoscale_snapshot()))
+        sched.close()
+        return out
+
+    port = observe(controller, fake_api, autoscale, CudaBackend(device="cpu"))
+    jax = observe(jax_controller, jax_fake_api, jax_autoscale, NativeBackend())
+    assert port == jax
+    assert port[0][0] and not port[1][1] and not port[2][0] and port[3][0]
 
 
 def test_backend_failure_propagates_without_a_fallback():
@@ -453,7 +471,103 @@ def test_cli_sharded_without_cuda_fails_before_any_cycle():
     assert '"summary"' not in proc.stdout and '"cycle"' not in proc.stdout
 
 
-@pytest.mark.parametrize("flags", [["--rebalance"], ["--autoscale"], ["--distributed"]])
+def _keys(obj):
+    """The key structure of a JSON payload (dicts by key, lists by their
+    first element's)."""
+    if isinstance(obj, dict):
+        return {k: _keys(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_keys(obj[0])] if obj else []
+    return type(obj).__name__
+
+
+@pytest.mark.parametrize("extra", [["--rebalance", "--rebalance-every", "1", "--rebalance-batch", "4"],
+                                   ["--autoscale"]])
+def test_cli_rebalance_and_autoscale_match_jax_cli(extra):
+    """``--rebalance`` (a background solve worker) and ``--autoscale`` (the
+    simulated provider, a background plan worker) on both CLIs: the same
+    cycles, bound total and last unschedulable count.  Which tick consumes
+    a worker's plan depends on its timing, so the tier's own counters are
+    not held here (the inline tiers are, in ``tests/test_torch_rebalance.py``
+    and ``tests/test_torch_autoscale.py``)."""
+    flags = ["--nodes", "50", "--pods", "200", "--bound-pods", "100", "--log-level", "WARNING", *extra]
+    port = _summary(_cli("tpu_scheduler_torch.cli", "--device", "cpu", *flags))
+    jax = _summary(_cli("tpu_scheduler.cli", "--backend", "native", *flags))
+    for key in ("cycles", "bound_total", "unschedulable_last"):
+        assert port[key] == jax[key], key
+    assert port["bound_total"] > 0
+
+
+def test_cli_debug_rebalance_and_autoscale_routes_match_jax(tmp_path):
+    """The CLI's wiring in process: ``make_scheduler`` and ``start_http``
+    with ``--rebalance --autoscale --catalog-file`` serve ``/debug/
+    rebalance`` and ``/debug/autoscale`` with the key structure of the JAX
+    CLI's scheduler (the same configs: background workers, a provider over
+    the in-process API seeded with ``--seed``, the file's catalog) after
+    three cycles; both workers are joined by ``close``.  Against a remote
+    cluster the CLI keeps the autoscaler off with the JAX CLI's stderr
+    line."""
+    import contextlib
+    import io
+    import time
+    import urllib.request
+
+    import tpu_scheduler.autoscale as jax_autoscale
+    import tpu_scheduler.rebalance as jax_rebalance
+    import tpu_scheduler.runtime.http_api as jax_http_api
+    import tpu_scheduler_torch.cli as port_cli
+
+    catalog = tmp_path / "catalog.json"
+    catalog.write_text(json.dumps([{"name": "x-8", "cpu": 8, "mem_gi": 32, "hourly_cost": 1.5, "spot": True}]))
+    argv = ["--nodes", "30", "--pods", "120", "--bound-pods", "60", "--rebalance", "--rebalance-every", "1",
+            "--autoscale", "--catalog-file", str(catalog), "--http-port", "0"]
+    args = port_cli.build_parser().parse_args(argv)
+    api = port_cli.synthetic_api(args)
+    sched = port_cli.make_scheduler(args, api, CudaBackend(device="cpu"))
+    srv = port_cli.start_http(args, api, sched)
+    jargs = dict(n_nodes=30, n_pending=120, n_bound=60, seed=args.seed)
+    japi = jax_fake_api.FakeApiServer()
+    jsnap = jax_testing.synth_cluster(**jargs)
+    japi.load(jsnap.nodes, jsnap.pods)
+    jsched = jax_controller.Scheduler(
+        japi, NativeBackend(),
+        rebalance=jax_rebalance.RebalanceConfig(every=1, batch=args.rebalance_batch, background=True),
+        autoscale=jax_autoscale.AutoscaleConfig(background=True),
+        autoscale_provider=jax_autoscale.SimCloudProvider(japi, clock=time.monotonic, rng=random.Random(args.seed),
+                                                          catalog=jax_autoscale.load_catalog(str(catalog))),
+    )
+    jsrv = jax_http_api.HttpApiServer(japi, rebalance=jsched.rebalance_snapshot,
+                                      autoscale=jsched.autoscale_snapshot).start()
+    try:
+        for _ in range(3):
+            sched.run_cycle()
+            jsched.run_cycle()
+        bodies = {}
+        for name, base in (("port", srv.base_url), ("jax", jsrv.base_url)):
+            bodies[name] = {}
+            for route in ("rebalance", "autoscale"):
+                with urllib.request.urlopen(f"{base}/debug/{route}") as r:
+                    bodies[name][route] = json.loads(r.read())
+    finally:
+        srv.stop()
+        jsrv.stop()
+        sched.close()
+        jsched.close()
+    assert _keys(bodies["port"]) == _keys(bodies["jax"])
+    for route in ("rebalance", "autoscale"):
+        assert bodies["port"][route]["config"] == bodies["jax"][route]["config"]
+    assert bodies["port"]["autoscale"]["catalog"] == bodies["jax"]["autoscale"]["catalog"]
+    assert bodies["port"]["rebalance"]["config"]["background"] and bodies["port"]["autoscale"]["config"]["background"]
+    assert sched.rebalancer._bg_thread is None and sched.autoscaler._bg_thread is None
+    remote = port_cli.build_parser().parse_args(["--autoscale", "--api-server", "http://127.0.0.1:1"])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        off = port_cli.make_scheduler(remote, fake_api.FakeApiServer(), CudaBackend(device="cpu"))
+    assert off.autoscaler is None
+    assert err.getvalue().strip() == json.dumps({"autoscale": False, "reason": "remote cluster"})
+
+
+@pytest.mark.parametrize("flags", [["--distributed"]])
 def test_cli_refuses_unported_flags(flags):
     proc = _cli("tpu_scheduler_torch.cli", *flags, "--device", "cpu", "--nodes", "2", "--pods", "2")
     assert proc.returncode == 2

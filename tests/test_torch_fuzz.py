@@ -8,9 +8,8 @@ package's files, read as data) replays bit-identically, the generator draws
 the same plans, the shrinker probes the same candidates, the oracle returns
 the same card and coverage.  Then the ``sim fuzz`` campaign: its run log
 equals the one the JAX package's generator and oracle give on the same
-budget and seed.  Plans on the ``elastic`` base need the autoscaler (ROADMAP
-Queue 1 item 9): the port logs them as refused, and the JAX side of the
-comparison skips the same plans."""
+budget and seed, line for line — plans on the ``elastic`` base (the
+autoscaler and its provider) included."""
 
 import json
 import os
@@ -35,7 +34,6 @@ import tpu_scheduler_torch.sim.fuzz as fuzz  # noqa: E402
 import tpu_scheduler_torch.sim.fuzz.corpus as corpus  # noqa: E402
 import tpu_scheduler_torch.sim.fuzz.plan as plan_mod  # noqa: E402
 import tpu_scheduler_torch.sim.harness as harness  # noqa: E402
-import tpu_scheduler_torch.sim.multi as multi  # noqa: E402
 import tpu_scheduler_torch.sim.scenarios as scenarios  # noqa: E402
 import tpu_scheduler_torch.sim.workload as workload  # noqa: E402
 from tpu_scheduler_torch.backends.cuda import CudaBackend  # noqa: E402
@@ -291,8 +289,7 @@ def test_lease_brownout_during_takeover_passes_and_replays(seed, tmp_path):
 
 def _jax_runlog(budget: int, seed: int) -> list[str]:
     """The run log of ``sim fuzz --budget --seed`` from the JAX package's
-    corpus replay, generator and oracle, with the port's rule for plans it
-    cannot run: a refused line in place of the verdict, coverage untouched."""
+    corpus replay, generator and oracle."""
     lines = []
 
     def log(obj):
@@ -307,23 +304,15 @@ def _jax_runlog(budget: int, seed: int) -> list[str]:
              "ops": len(entry["plan"].ops)})
     cov = jax_fuzz.CoverageMap()
     gen = jax_fuzz.PlanGenerator(seed, cov)
-    refused = found = 0
+    found = 0
     for i in range(budget):
         plan = gen.next_plan(i)
-        port_sc = fuzz.compile_plan(fuzz.plan_from_json(jax_fuzz.plan_to_json(plan)))
-        try:
-            multi.refuse_unported(port_sc)
-        except NotImplementedError as e:
-            refused += 1
-            log({"plan": plan.plan_id, "base": plan.base, "ops": len(plan.ops), "refused": str(e),
-                 "coverage_pairs": cov.distinct()})
-            continue
         card, violations = jax_fuzz.run_plan(plan, seed, cov)
         found += bool(violations)
         log({"plan": plan.plan_id, "base": plan.base, "ops": len(plan.ops), "pass": card["pass"],
              "violations": violations, "fingerprint": card["fingerprint"], "coverage_pairs": cov.distinct()})
     log({"fuzz": True, "seed": seed, "budget": budget, "corpus_replayed": len(entries), "corpus_ok": corpus_ok,
-         "violations_found": found, "plans_refused": refused, "coverage_pairs": cov.distinct(),
+         "violations_found": found, "coverage_pairs": cov.distinct(),
          "lease_pairs": cov.lease_pairs(), "coverage": cov.to_json()})
     return lines
 
@@ -348,8 +337,9 @@ def test_sim_fuzz_runlog_matches_jax(entry, tmp_path, capsys):
     assert lines == _jax_runlog(4, 0)
     summary = json.loads(lines[-1])
     assert summary["corpus_ok"] and summary["violations_found"] == 0 and summary["corpus_replayed"] >= 2
-    assert summary["plans_refused"] == sum('"refused"' in ln for ln in lines) >= 1
-    assert sum('"fingerprint"' in ln and '"plan"' in ln for ln in lines) >= 2  # plans that ran
+    plans = [json.loads(ln) for ln in lines if '"plan"' in ln]
+    assert len(plans) == 4 and all("fingerprint" in p for p in plans)  # every plan ran
+    assert any(p["base"] == "elastic" for p in plans)
 
 
 def test_sim_fuzz_without_cuda_exits_1(capsys, monkeypatch):
@@ -359,8 +349,14 @@ def test_sim_fuzz_without_cuda_exits_1(capsys, monkeypatch):
     assert "torch.cuda.is_available() is False" in captured.err and '"plan"' not in captured.out
 
 
-def test_elastic_plans_are_refused_by_item():
+def test_elastic_plan_runs_and_matches_jax():
+    """The generator's first plan at seed 0 is on the ``elastic`` base (the
+    autoscaler, a spot-reclaim fault among its ops or not): it runs on the
+    port, and its card, violations and coverage equal the JAX oracle's."""
     plan = fuzz.PlanGenerator(0, fuzz.CoverageMap()).next_plan(0)
     assert plan.base == "elastic"
-    with pytest.raises(NotImplementedError, match="the autoscaler not ported yet \\(ROADMAP Queue 1 item 9\\)"):
-        fuzz.run_plan(plan, 0, backend=_cpu())
+    cov, jcov = fuzz.CoverageMap(), jax_fuzz.CoverageMap()
+    card, violations = fuzz.run_plan(plan, 0, cov, backend=_cpu())
+    jcard, jviolations = jax_fuzz.run_plan(_jax_plan(plan), 0, jcov)
+    assert card == jcard and violations == jviolations and cov.to_json() == jcov.to_json()
+    assert card["elasticity"]["enabled"] and card["elasticity"]["reclaim_orphans"] == 0

@@ -13,11 +13,13 @@ and the whole scorecard equal outside :data:`ALLOWED_DIFFERENCES`.  Then
 traces recorded by either package replayed through the other, the CLI
 (``sim --device cpu`` prints the JAX CLI's card), the five multi-replica
 scenarios at seed 0 (cards equal, traces replayed across the packages both
-ways, the card unchanged under another string-hash seed), the refusal of
-every scenario and subcommand that waits for a later ROADMAP item, the
-default backend's refusal to run without CUDA, and the ``compile`` block's
-wiring to the kernel-build counter.  The 17 in-scope scenarios × seeds 0
-and 1 run under ``slow``, as ``tests/test_sim.py`` runs the JAX sim's."""
+ways, the card unchanged under another string-hash seed), the eight
+scenarios of the rebalancer and the autoscaler at seed 0 (cards equal,
+traces across the packages) and their ``rebalance``/``autoscale``
+switches, the default backend's refusal to run without CUDA, and the
+``compile`` block's wiring to the kernel-build counter.  All 25 scenarios ×
+seeds 0 and 1 run under ``slow``, as ``tests/test_sim.py`` runs the JAX
+sim's."""
 
 import dataclasses
 import json
@@ -81,8 +83,20 @@ MULTI_REPLICA = (
     "lease-brownout-during-takeover",
 )
 
-# The 17 scenarios the port runs: neither rebalancer nor autoscaler.
-IN_SCOPE = MULTI_REPLICA + (
+# The scenarios with the rebalancer, the autoscaler, or both.
+ITEM9 = (
+    "rebalance-under-chaos",
+    "fragmentation-long-horizon",
+    "defrag-smoke",
+    "autoscaler-backlog-whatif",
+    "diurnal-traffic",
+    "flash-crowd-provisioning-lag",
+    "spot-reclaim-storm",
+    "quota-capped-surge",
+)
+
+# Every registered scenario: the port runs all 25.
+IN_SCOPE = MULTI_REPLICA + ITEM9 + (
     "steady-state",
     "burst-storm",
     "arrival-rate-sweep",
@@ -96,20 +110,6 @@ IN_SCOPE = MULTI_REPLICA + (
     "train-smoke",
     "sim-smoke",
 )
-
-# Every other registered scenario and the ROADMAP Queue 1 item(s) its
-# refusal names.
-REFUSED = {
-    "rebalance-under-chaos": "item 9",
-    "fragmentation-long-horizon": "item 9",
-    "defrag-smoke": "item 9",
-    "autoscaler-backlog-whatif": "item 9",
-    "diurnal-traffic": "item 9",
-    "flash-crowd-provisioning-lag": "item 9",
-    "spot-reclaim-storm": "item 9",
-    "quota-capped-surge": "item 9",
-}
-
 
 def _cpu():
     return CudaBackend(device="cpu")
@@ -180,7 +180,7 @@ def test_registry_and_variants_equal():
     for rate in (5, 15, 40):
         assert dataclasses.asdict(scenarios.arrival_rate_variant(rate)) == dataclasses.asdict(
             jax_scenarios.arrival_rate_variant(rate))
-    assert set(IN_SCOPE) | set(REFUSED) == set(scenarios.SCENARIOS) and not set(IN_SCOPE) & set(REFUSED)
+    assert set(IN_SCOPE) == set(scenarios.SCENARIOS) and len(IN_SCOPE) == len(set(IN_SCOPE)) == 25
 
 
 def test_virtual_clock_fires_in_the_same_order():
@@ -463,28 +463,58 @@ def test_cli_lists_the_jax_cli_scenarios(capsys):
     assert port == capsys.readouterr().out
 
 
-# --- refusals -----------------------------------------------------------------
+# --- the rebalancer and the autoscaler -----------------------------------------
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_out_of_scope_scenario_is_refused_by_item(name, capsys):
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP Queue 1 {REFUSED[name]}\\)"):
-        harness.run_scenario(name, backend=_cpu())
-    assert sim_cli.main(["--device", "cpu", "--scenario", name]) == 2
-    err = capsys.readouterr()
-    assert f"ROADMAP Queue 1 {REFUSED[name]}" in err.err and '"scenario"' not in err.out
+@pytest.mark.parametrize("name", ITEM9)
+def test_item9_scenario_matches_the_jax_sim(name, tmp_path):
+    """The scenarios of the rebalancer and the autoscaler at seed 0: the
+    whole card equal with an empty allow-list, the tier enabled and passing
+    with its evidence, and each package's trace replayed through the other
+    with an equal fingerprint (the provider's node adds and deletes are not
+    in the trace: each replay re-derives them from its seeded provider)."""
+    jax_path, port_path = str(tmp_path / "jax.jsonl"), str(tmp_path / "port.jsonl")
+    port = harness.run_scenario(name, seed=0, backend=_cpu(), record=port_path)
+    jax = jax_harness.run_scenario(name, seed=0, backend=NativeBackend(), record=jax_path)
+    _hold(port, jax)
+    sc = scenarios.SCENARIOS[name]
+    if sc.rebalance:
+        r = port["rebalance"]
+        assert r["enabled"] and r["ok"] and r["orphaned_migrations"] == 0
+        assert r["solves"] > 0 or r["skips"].get("backlog", 0) > 0  # the what-if scenario stands down
+    if sc.autoscale:
+        e = port["elasticity"]
+        assert e["enabled"] and e["ok"] and e["reclaim_orphans"] == 0 and sum(e["scale_ups"].values()) > 0
+    assert jax_harness.run_scenario(None, replay=port_path, backend=NativeBackend())["fingerprint"] == \
+        port["fingerprint"]
+    assert harness.run_scenario(None, replay=jax_path, backend=_cpu())["fingerprint"] == jax["fingerprint"]
 
 
-@pytest.mark.parametrize("switch", ["rebalance", "autoscale"])
-def test_rebalance_and_autoscale_switches_refuse_true(switch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        harness.run_scenario("train-smoke", backend=_cpu(), **{switch: True})
+@pytest.mark.parametrize("name,switch,value", [
+    ("defrag-smoke", "rebalance", False), ("train-smoke", "rebalance", True),
+    ("flash-crowd-provisioning-lag", "autoscale", False), ("train-smoke", "autoscale", True),
+])
+def test_rebalance_and_autoscale_switches_match_the_jax_sim(name, switch, value):
+    """``rebalance``/``autoscale``: ``False`` forces the tier off on a
+    scenario that turns it on (the baseline fails its gate on merit), and
+    ``True`` does not turn it on for a scenario without the knob — as in
+    the JAX harness."""
+    port = harness.run_scenario(name, seed=0, backend=_cpu(), **{switch: value})
+    jax = jax_harness.run_scenario(name, seed=0, backend=NativeBackend(), **{switch: value})
+    assert port["fingerprint"] == jax["fingerprint"] and _diff(port, jax) == []
+    block = port["rebalance" if switch == "rebalance" else "elasticity"]
+    assert not block["enabled"]
+    assert port["pass"] == (value is True)
 
 
-@pytest.mark.parametrize("sub,item", [("train", 9)])
-def test_fuzz_and_train_subcommands_are_refused(sub, item, capsys):
-    assert sim_cli.main([sub, "--budget", "4"]) == 2
-    assert f"not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+def test_train_subcommand_runs(tmp_path, capsys):
+    """``sim train`` runs on the port (``learn/cli.py``); its artifact is
+    held against the JAX command's in ``tests/test_torch_learn.py``."""
+    out = tmp_path / "p.json"
+    assert sim_cli.main(["train", "--device", "cpu", "--train-seeds", "0", "--held-out-seeds", "101",
+                         "--generations", "1", "--population", "2", "--out", str(out)]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["out"] == str(out) and json.loads(out.read_text())["schema_version"] == 1
 
 
 def test_default_backend_needs_cuda(capsys, monkeypatch):

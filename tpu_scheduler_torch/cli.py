@@ -188,7 +188,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--rebalance",
         action="store_true",
-        help="the background rebalancer (not ported yet: ROADMAP Queue 1 item 9)",
+        help="enable the background rebalancer (rebalance/): a cadence-gated packing solve on a "
+        "worker thread proposing bounded defragmentation migration batches (unbind -> cordon -> delta re-place)",
     )
     p.add_argument(
         "--rebalance-every",
@@ -207,7 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--autoscale",
         action="store_true",
-        help="the closed-loop autoscaler (not ported yet: ROADMAP Queue 1 item 9)",
+        help="enable the closed-loop autoscaler (autoscale/) against the simulated cloud provider: "
+        "cost-aware SKU packing on SLO burn, scale-down through the drain protocol (synthetic cluster only)",
     )
     p.add_argument(
         "--catalog-file",
@@ -254,8 +256,6 @@ def unported_flags(args) -> list[str]:
     ROADMAP Queue 1 item."""
     asked = [
         ("--distributed", args.distributed, "7"),
-        ("--rebalance", args.rebalance, "9"),
-        ("--autoscale", args.autoscale, "9"),
     ]
     return [f"{flag} (ROADMAP Queue 1 item {item})" for flag, on, item in asked if on]
 
@@ -342,6 +342,33 @@ def make_scheduler(args, api, backend) -> Scheduler:
         topology = load_topology_file(args.topology_file)
     else:
         topology = "auto"
+    rebalance_cfg = None
+    if args.rebalance:
+        from .rebalance import RebalanceConfig
+
+        # Daemon mode runs the packing solve on a worker thread so the
+        # background tier stays off the cycle critical path.
+        rebalance_cfg = RebalanceConfig(every=args.rebalance_every, batch=args.rebalance_batch, background=True)
+    autoscale_cfg = None
+    autoscale_provider = None
+    if args.autoscale:
+        if args.api_server or args.kubeconfig is not None:
+            # The simulated provider joins nodes through the in-process
+            # apiserver; a remote cluster owns its own node lifecycle.
+            print(json.dumps({"autoscale": False, "reason": "remote cluster"}), file=sys.stderr)
+        else:
+            import random
+            import time
+
+            from .autoscale import DEFAULT_CATALOG, AutoscaleConfig, SimCloudProvider, load_catalog
+
+            catalog = load_catalog(args.catalog_file) if args.catalog_file else DEFAULT_CATALOG
+            autoscale_provider = SimCloudProvider(
+                api, clock=time.monotonic, rng=random.Random(args.seed), catalog=catalog
+            )
+            # Daemon mode plans the catalog what-if on a worker thread so
+            # the elastic tier stays off the cycle critical path.
+            autoscale_cfg = AutoscaleConfig(background=True)
     return Scheduler(
         api,
         backend,
@@ -360,6 +387,9 @@ def make_scheduler(args, api, backend) -> Scheduler:
         breaker_config=breaker_config,
         flush_capacity=args.flush_capacity,
         delta=not args.no_delta,
+        rebalance=rebalance_cfg,
+        autoscale=autoscale_cfg,
+        autoscale_provider=autoscale_provider,
     )
 
 
@@ -386,6 +416,8 @@ def start_http(args, api, sched):
         shards=sched.shards_snapshot,
         profile=profile_registry.snapshot,
         pending_ages=sched.pending_age_debug,
+        rebalance=sched.rebalance_snapshot if sched.rebalancer is not None else None,
+        autoscale=sched.autoscale_snapshot if sched.autoscaler is not None else None,
         latency=latency_registry.snapshot,
         port=args.http_port,
     ).start()

@@ -27,8 +27,7 @@ Every component lands in [0, 1], so the objective lives in [-0.25, 2.0]
 with the default weights.  Components are rounded to 6 decimals before the
 weighted sum — the scorecard byte-identity contract.
 
-Port: a copy of ``tpu_scheduler/learn/objective.py``, unchanged.  The
-optimizer that climbs it (``search.py``) waits for ROADMAP Queue 1 item 9.
+Port: a copy of ``tpu_scheduler/learn/objective.py``, unchanged.
 """
 
 from __future__ import annotations

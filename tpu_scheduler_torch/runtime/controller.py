@@ -35,9 +35,9 @@ preemption and PDBs, NoExecute eviction, the breaker and the deferred
 flush, leader election, the sharded control plane and the multi-mesh
 fleet (``shards > 1``: per-shard leases, the topology keyer and node
 slicing, mesh bindings, cross-replica gang reservations, live resize), and
-the SLO, latency and profile snapshots.  The subsystems of a later port
-item are refused with ``NotImplementedError``: the rebalancer and the
-autoscaler (``rebalance``, ``autoscale``; ROADMAP Queue 1 item 9).
+the SLO, latency and profile snapshots, the background rebalancer
+(``rebalance``) and the closed-loop autoscaler (``autoscale`` with its
+``autoscale_provider``), both ticked after the cycle's scheduling work.
 """
 
 from __future__ import annotations
@@ -90,18 +90,6 @@ __all__ = ["Scheduler", "ATTEMPTS", "REQUEUE_SECONDS"]
 
 ATTEMPTS = 5  # reference main.rs:49
 REQUEUE_SECONDS = 300.0  # reference main.rs:124
-
-
-def _refuse_unported(rebalance, autoscale) -> None:
-    """Refuse the options whose subsystem waits for a later item of the
-    port (ROADMAP Queue 1), naming the item."""
-    asked = [
-        ("rebalance", rebalance is not None and rebalance is not False, 9, "the rebalancer"),
-        ("autoscale", autoscale is not None and autoscale is not False, 9, "the autoscaler"),
-    ]
-    for what, on, item, name in asked:
-        if on:
-            raise NotImplementedError(f"{what}: {name} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def _pod_priority(p: Pod) -> int:
@@ -217,7 +205,6 @@ class Scheduler:
     ):
         if policy not in ("batch", "sample"):
             raise ValueError(f"unknown policy {policy!r} (expected 'batch' or 'sample')")
-        _refuse_unported(rebalance, autoscale)
         self.api = api
         self.backend = backend
         self.profile = profile
@@ -387,11 +374,6 @@ class Scheduler:
         else:
             self._fleet_reservations = None
         self.is_leader = not self.leader_elect and not self.sharded
-        # The subsystems of a later item (the rebalancer, the autoscaler)
-        # read as absent, as the sim harness expects of a scheduler that
-        # runs without them.
-        self.rebalancer = None
-        self.autoscaler = None
         # Takeover hygiene: set when leadership (or a shard) was newly
         # acquired; the next owned cycle revalidates the assumed-bind
         # overlay against the reflector cache before it is applied.
@@ -427,6 +409,31 @@ class Scheduler:
             self.delta.attach(self.reflector)
         else:
             self.delta = None
+        # Background rebalancer (rebalance/): the placement-
+        # quality tier — a cadence-gated packing solve over a consistent
+        # snapshot proposing bounded defragmentation migration batches,
+        # executed as breaker-gated unbind → cordon-empty → delta-engine
+        # re-place.  Batch-policy only (the victim taxonomy and the packing
+        # view are built on the batch path's ledgers); pass a
+        # RebalanceConfig (or True for defaults) to enable.
+        self.rebalancer = None
+        if rebalance is not None and rebalance is not False and policy == "batch":
+            from ..rebalance import Rebalancer, RebalanceConfig
+
+            cfg = rebalance if isinstance(rebalance, RebalanceConfig) else RebalanceConfig()
+            self.rebalancer = Rebalancer(cfg, metrics=self.metrics)
+        # Closed-loop autoscaler (autoscale/): the elastic-
+        # capacity tier — a cadence-gated tick AFTER the rebalancer's that
+        # buys SKUs against the pending backlog (cost-aware catalog FFD,
+        # SLO-burn driven) and retires empty elastic nodes through the
+        # drain protocol.  Needs a provider (SimCloudProvider in the sim);
+        # batch-policy only, same reasoning as the rebalancer.
+        self.autoscaler = None
+        if autoscale is not None and autoscale is not False and autoscale_provider is not None and policy == "batch":
+            from ..autoscale import Autoscaler, AutoscaleConfig
+
+            acfg = autoscale if isinstance(autoscale, AutoscaleConfig) else AutoscaleConfig()
+            self.autoscaler = Autoscaler(acfg, autoscale_provider, metrics=self.metrics)
         # Shadow parity sampling: every Nth delta cycle also runs the
         # full-wave solve and checks that both placed the same pod set.
         self.delta_shadow_every = int(delta_shadow_every)
@@ -2504,6 +2511,19 @@ class Scheduler:
                 # drained queue.
                 with span("slo"):
                     self._update_pending_ages(pending_all)
+                if self.rebalancer is not None:
+                    # Background defrag tier (rebalance/):
+                    # AFTER the cycle's scheduling work — cadence-gated,
+                    # throttled by SLO burn/backlog/breaker, so the tier
+                    # never competes with the fast path for the cycle.
+                    with span("rebalance"):
+                        self._rebalance_tick(snapshot, pending_all)
+                if self.autoscaler is not None:
+                    # Elastic-capacity tier (autoscale/):
+                    # AFTER the rebalancer so its drains are visible to the
+                    # reserve hysteresis before any capacity decision.
+                    with span("autoscale"):
+                        self._autoscale_tick(snapshot, pending_all)
 
         self._cycle_count += 1
         wall = time.perf_counter() - t0
@@ -3082,6 +3102,200 @@ class Scheduler:
                 "scheduler_slo_burn_rate", round(age / target, 6) if target > 0 else 0.0, labels={"tier": tier}
             )
 
+    # -- background rebalancer (rebalance/) ------------------------------
+
+    def _unbind(self, pod_full: str, node_name: str) -> bool:
+        """Breaker-gated deschedule of one migration victim: a CAS-guarded
+        ``unbind_pod`` POST (409 = the pod moved under the plan — the stale
+        plan loses, never the pod).  Every outcome feeds the breaker with
+        the usual taxonomy; the pre-bind hook covers the deschedule
+        decision point too, so a replica kill lands BEFORE the POST and a
+        crashed plan leaves every victim still bound."""
+        namespace, _, name = pod_full.rpartition("/")
+        if self.pre_bind_hook is not None:
+            self.pre_bind_hook(namespace or "default", name, node_name)
+        if self.breaker.mode() != "closed":
+            return False
+        try:
+            self.api.unbind_pod(namespace or "default", name, expect_node=node_name)
+        except ApiError as e:
+            self.breaker.record(e.code < 500)
+            logger.info("migration unbind of %s from %s failed: %s", pod_full, node_name, e)
+            return False
+        except (OSError, http.client.HTTPException) as e:
+            self.breaker.record(False)
+            logger.warning("migration unbind of %s failed: %s: %s", pod_full, type(e).__name__, e)
+            return False
+        self.breaker.record(True)
+        self.recorder.record(pod_full, "migration-unbound", self._cycle_tag, node=node_name, detail="defrag")
+        return True
+
+    def _set_rebalance_cordon(self, node: Node, drained: bool) -> bool:
+        """Cordon (label + unschedulable) or uncordon one rebalancer node
+        via the API — state lives in the cluster, so it survives a crash
+        and any successor's rebalancer recognizes it."""
+        from dataclasses import replace as dc_replace
+
+        from ..api.objects import NodeSpec
+        from ..rebalance import REBALANCE_CORDON_LABEL
+
+        labels = dict(node.metadata.labels or {})
+        if drained:
+            labels[REBALANCE_CORDON_LABEL] = "true"
+        else:
+            labels.pop(REBALANCE_CORDON_LABEL, None)
+        spec = node.spec if node.spec is not None else NodeSpec()
+        updated = dc_replace(
+            node,
+            metadata=dc_replace(node.metadata, labels=labels),
+            spec=dc_replace(spec, unschedulable=drained),
+        )
+        try:
+            self.api.update_node(updated)
+        except (ApiError, OSError, http.client.HTTPException) as e:
+            logger.warning("rebalance %scordon of %s failed: %s", "" if drained else "un", node.name, e)
+            return False
+        return True
+
+    def _rebalance_tick(self, snapshot: ClusterSnapshot, pending_all: list[Pod]) -> None:
+        """Assemble one tick's inputs and hand off to the Rebalancer.  In
+        sharded mode only the shard-0 owner rebalances (one cluster-wide
+        instance; a takeover of shard 0 IS the rebalancer failover)."""
+        if self.sharded and 0 not in self.shard_set.owned:
+            return
+        now = self.clock()
+        burn = 0.0
+        for _pf, (since, tier, _g) in self._pending_meta.items():
+            target = tier_target(tier)
+            if target > 0:
+                burn = max(burn, (now - since) / target)
+        try:
+            pdbs = list(getattr(self.api, "list_pdbs", list)())
+        except (ApiError, OSError, http.client.HTTPException):
+            pdbs = None  # the tick stands down (api-error) rather than guess
+        node_by = {n.name: n for n in snapshot.nodes}
+        # The throttle judges the RESIDUAL backlog — what this very cycle's
+        # solve left unplaced — not the pre-cycle pending list (which still
+        # counts pods the cycle just re-placed; a 1-cycle cadence would
+        # read its own migrations as demand pressure and thrash).
+        placed_names = {full_name(p) for p, _n in self._cycle_placed}
+        backlog = sum(1 for p in pending_all if full_name(p) not in placed_names)
+
+        def victim_ok(pf: str) -> bool:
+            return (
+                pf not in self.deferred_binds
+                and pf not in self._assumed
+                and (not self.sharded or self.shard_set.owns_name(pf))
+            )
+
+        self.rebalancer.tick(
+            snapshot,
+            topo=self._compiled_topology(snapshot),
+            pdbs=pdbs,
+            burn=burn,
+            backlog=backlog,
+            breaker_mode=self.breaker.mode(),
+            unbind=self._unbind,
+            cordon=lambda name: name in node_by and self._set_rebalance_cordon(node_by[name], True),
+            uncordon=lambda node: self._set_rebalance_cordon(node, False),
+            victim_ok=victim_ok,
+        )
+
+    def rebalance_snapshot(self) -> dict:
+        """The /debug/rebalance payload (GIL-atomic copies — the
+        resilience_snapshot stance), plus the live labeled-drained node
+        census so operators see the scale-down candidate set in place."""
+        if self.rebalancer is None:
+            return {"enabled": False}
+        from ..rebalance import REBALANCE_CORDON_LABEL
+
+        out = self.rebalancer.stats()
+        try:
+            drained = sorted(
+                n.name
+                for n in self.reflector.nodes.state()
+                if (n.metadata.labels or {}).get(REBALANCE_CORDON_LABEL)
+            )
+        except Exception:  # noqa: BLE001 — debug surface, never a crash
+            drained = []
+        out["drained_nodes"] = drained
+        cfg = self.rebalancer.config
+        out["config"] = {
+            "every": cfg.every,
+            "batch": cfg.batch,
+            "burn_limit": cfg.burn_limit,
+            "max_pending": cfg.max_pending,
+            "max_migrations": cfg.max_migrations,
+            "background": cfg.background,
+        }
+        return out
+
+    def _autoscale_tick(self, snapshot: ClusterSnapshot, pending_all: list[Pod]) -> None:
+        """Assemble one tick's inputs and hand off to the Autoscaler.  In
+        sharded mode only the shard-0 owner autoscales (one cluster-wide
+        provider ledger; a takeover of shard 0 IS the autoscaler failover —
+        the shared provider's in-flight provisions ride along)."""
+        if self.sharded and 0 not in self.shard_set.owned:
+            return
+        now = self.clock()
+        burn = 0.0
+        for _pf, (since, tier, _g) in self._pending_meta.items():
+            target = tier_target(tier)
+            if target > 0:
+                burn = max(burn, (now - since) / target)
+        from ..rebalance import REBALANCE_CORDON_LABEL
+
+        drained_labeled = sum(
+            1 for n in snapshot.nodes if (n.metadata.labels or {}).get(REBALANCE_CORDON_LABEL)
+        )
+        # Same residual-backlog stance as the rebalancer: demand is what
+        # this very cycle's solve left unplaced, not the pre-cycle list.
+        placed_names = {full_name(p) for p, _n in self._cycle_placed}
+        backlog = [p for p in pending_all if full_name(p) not in placed_names]
+        self.autoscaler.tick(
+            snapshot,
+            backlog,
+            topo=self._compiled_topology(snapshot),
+            burn=burn,
+            breaker_mode=self.breaker.mode(),
+            drained_labeled=drained_labeled,
+            unbind=self._unbind,
+            now=now,
+        )
+
+    def autoscale_snapshot(self) -> dict:
+        """The /debug/autoscale payload (GIL-atomic copies — the
+        resilience_snapshot stance): lifetime stats + last decision + skip
+        taxonomy from the Autoscaler, the provider's catalog and in-flight
+        provision/reclaim census, and the effective config."""
+        if self.autoscaler is None:
+            return {"enabled": False}
+        out = self.autoscaler.stats()
+        provider = self.autoscaler.provider
+        out["provider"] = provider.stats()
+        out["catalog"] = [
+            {
+                "name": s.name,
+                "cpu": s.cpu,
+                "mem_gi": s.mem_gi,
+                "hourly_cost": s.hourly_cost,
+                "quota": s.quota,
+                "provision_s": s.provision_s,
+                "spot": s.spot,
+            }
+            for s in provider.catalog
+        ]
+        cfg = self.autoscaler.config
+        out["config"] = {
+            "every": cfg.every,
+            "burn_trigger": cfg.burn_trigger,
+            "max_per_tick": cfg.max_per_tick,
+            "cooldown": cfg.cooldown,
+            "reserve": cfg.reserve,
+            "background": cfg.background,
+        }
+        return out
+
     def pending_age_debug(self, pod_full: str) -> dict | None:
         """The /debug/pods why-pending ``age`` block: how long this pod has
         been in the queue and which SLO tier it burns against.  Called from
@@ -3182,6 +3396,10 @@ class Scheduler:
         the bind worker) and hand off leadership (standbys take over
         immediately instead of waiting out the lease).  Idempotent."""
         self._join_binds()
+        if self.rebalancer is not None:
+            self.rebalancer.close()  # stop the background solve worker
+        if self.autoscaler is not None:
+            self.autoscaler.close()  # stop the background plan worker
         if self._renew_stop is not None:
             # Stop AND JOIN the renewal thread BEFORE releasing: a renew
             # already past its stop-check would otherwise re-acquire the

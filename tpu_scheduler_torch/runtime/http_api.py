@@ -30,10 +30,10 @@ RemoteApiAdapter → HTTP → HttpApiServer → FakeApiServer.
 
 Port: a copy of ``tpu_scheduler/runtime/http_api.py`` (host code over the
 standard library).  The wire format is the JAX server's, byte for byte:
-the same routes, the same JSON for the same objects.  The routes of
-subsystems that are not ported yet (``/debug/shards`` of the sharded
-control plane, ``/debug/rebalance``, ``/debug/autoscale``) answer as the
-JAX server does when it is given ``None`` for them: 404.
+the same routes, the same JSON for the same objects.  A debug route whose
+payload callable is not given (``/debug/shards``, ``/debug/rebalance``,
+``/debug/autoscale`` of a scheduler without that subsystem) answers 404, as
+the JAX server does.
 """
 
 from __future__ import annotations

@@ -19,14 +19,14 @@ Modules (each a copy of its JAX twin unless said otherwise):
                     verdict
   • ``scenarios`` — the named scenario registry (all 25)
   • ``multi``     — the replica harness: N replicas over lease-owned
-                    shards, the kill schedule and the takeover verdict
-  • ``harness``   — the discrete-event loop; runs the 17 scenarios
-                    without rebalancer or autoscaler and refuses the rest
-                    by name and item (ROADMAP Queue 1 item 9)
+                    shards, the kill schedule and the takeover verdict,
+                    the rebalancer and the autoscaler's shared provider
+  • ``harness``   — the discrete-event loop; runs all 25 scenarios
   • ``fuzz``      — the coverage-guided chaos fuzzer over fault plans
                     (two replicas over four shards per base workload)
   • ``cli``       — ``python -m tpu_scheduler_torch.cli sim --scenario X
-                    --seed N [--device cpu]`` and ``sim fuzz``
+                    --seed N [--device cpu]``, ``sim fuzz`` and ``sim
+                    train`` (``learn/cli.py``)
 """
 
 from .chaos import ChaosApiServer, ChaosConfig, ChaosWindow

@@ -5,10 +5,10 @@ Runs one named scenario to its scorecard JSON (stdout, one line) over
 (the plain torch versions; the card is never replaced by the CPU unasked —
 without CUDA the default exits 1 with ``BackendUnavailable``'s message).
 Exit codes: 0 = verdict passed, 1 = verdict failed (invariant violation,
-lost or double-bound pods) or no card, 2 = refused (a scenario, or the
-``train`` subcommand, waiting for a later ROADMAP Queue 1 item), 3 = a
+lost or double-bound pods) or no card, 2 = bad arguments, 3 = a
 ``--replay`` run diverged from its recorded fingerprint.  ``sim fuzz``
-runs the chaos fuzzer (``sim/fuzz/cli.py``).
+runs the chaos fuzzer (``sim/fuzz/cli.py``), ``sim train`` the policy
+search (``learn/cli.py``).
 
 Port of ``tpu_scheduler/sim/cli.py``: ``--device {cuda,cpu}`` takes the
 place of ``--backend {native,tpu}``; every other flag is the same.
@@ -26,12 +26,6 @@ from .harness import ReplayMismatchError, run_scenario
 from .scenarios import SCENARIOS
 
 __all__ = ["main"]
-
-# Subcommands of the JAX sim CLI whose subsystem waits for a later item.
-_UNPORTED_SUBCOMMANDS = {
-    "train": (9, "policy training"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tpu-scheduler-torch sim", description=__doc__)
@@ -66,11 +60,13 @@ def main(argv: list[str] | None = None) -> int:
         from .fuzz.cli import main as fuzz_main
 
         return fuzz_main(argv[1:])
-    if argv and argv[0] in _UNPORTED_SUBCOMMANDS:
-        item, what = _UNPORTED_SUBCOMMANDS[argv[0]]
-        print(f"tpu-scheduler-torch sim {argv[0]}: {what} is not ported yet (ROADMAP Queue 1 item {item})",
-              file=sys.stderr)
-        return 2
+    if argv and argv[0] == "train":
+        # Policy training (learn/): seeded CEM over the profile weight
+        # surface, distilled to a JSON artifact:
+        #   python -m tpu_scheduler_torch.cli sim train --scenario-set train-smoke --seed 0 --out profile.json
+        from ..learn.cli import main as train_main
+
+        return train_main(argv[1:])
     args = build_parser().parse_args(argv)
     configure_logging(args.log_level, "text")
     if args.list:
@@ -100,9 +96,6 @@ def main(argv: list[str] | None = None) -> int:
             profile_gates=gates,
             profile=profile,
         )
-    except NotImplementedError as e:
-        print(f"tpu-scheduler-torch sim: {e}", file=sys.stderr)
-        return 2
     except BackendUnavailable as e:
         print(f"tpu-scheduler-torch sim: {e}", file=sys.stderr)
         return 1

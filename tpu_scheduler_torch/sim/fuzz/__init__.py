@@ -16,9 +16,8 @@ record→replay determinism contract, extended to the search itself).
 
 Port: a copy of ``tpu_scheduler/sim/fuzz/`` over the port's harness.  Every
 function that runs an episode takes its ``backend`` (the card by default;
-``CudaBackend(device="cpu")`` on the CPU).  Plans on the ``elastic`` base
-need the autoscaler (ROADMAP Queue 1 item 9) and are refused by name: the
-campaign logs them as refused and goes on.
+``CudaBackend(device="cpu")`` on the CPU).  Plans on every base run,
+``elastic`` (the autoscaler and its provider) included.
 """
 
 from .coverage import STATE_FACETS, CoverageMap

@@ -15,10 +15,7 @@ determinism contract extended to the search.
 Port of ``tpu_scheduler/sim/fuzz/cli.py``: the episodes run over
 ``CudaBackend`` — on the card by default (without CUDA: exit 1 with
 ``BackendUnavailable``'s message before any episode), on the CPU with
-``--device cpu``.  A plan whose base the port cannot run yet (``elastic``:
-the autoscaler, ROADMAP Queue 1 item 9) is logged with ``refused`` in place
-of its verdict and leaves the coverage map as it was; the summary counts
-such plans in ``plans_refused``.
+``--device cpu``.  The run log is the JAX campaign's, line for line.
 
 Exit codes: 0 = corpus green and no new violations, 1 = a corpus entry
 drifted, the campaign found a violation, or no card.
@@ -99,23 +96,9 @@ def main(argv: list[str] | None = None) -> int:
     coverage = CoverageMap()
     gen = PlanGenerator(args.seed, coverage, max_ops=args.max_ops)
     found: list[dict] = []
-    refused = 0
     for i in range(args.budget):
         plan = gen.next_plan(i)
-        try:
-            card, violations = run_plan(plan, args.seed, coverage, backend=backend)
-        except NotImplementedError as e:
-            refused += 1
-            log(
-                {
-                    "plan": plan.plan_id,
-                    "base": plan.base,
-                    "ops": len(plan.ops),
-                    "refused": str(e),
-                    "coverage_pairs": coverage.distinct(),
-                }
-            )
-            continue
+        card, violations = run_plan(plan, args.seed, coverage, backend=backend)
         log(
             {
                 "plan": plan.plan_id,
@@ -160,7 +143,6 @@ def main(argv: list[str] | None = None) -> int:
         "corpus_replayed": corpus_n,
         "corpus_ok": corpus_ok,
         "violations_found": len(found),
-        "plans_refused": refused,
         "coverage_pairs": coverage.distinct(),
         "lease_pairs": coverage.lease_pairs(),
         "coverage": coverage.to_json(),

@@ -9,9 +9,7 @@ violation name points straight at the failed subsystem instead of a bare
 ``pass: false``.
 
 Port: a copy of ``tpu_scheduler/sim/fuzz/oracle.py``.  ``run_plan`` takes
-the backend the episode runs on (default ``CudaBackend()``, on the card);
-a plan on a base the port cannot run yet raises the harness's
-``NotImplementedError``.
+the backend the episode runs on (default ``CudaBackend()``, on the card).
 """
 
 from __future__ import annotations

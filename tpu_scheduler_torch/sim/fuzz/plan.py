@@ -9,9 +9,7 @@ so a plan inherits the whole invariant battery for free.  Plans serialize to
 canonical JSON (sorted keys, rounded floats) and any run reproduces
 bit-identically from (plan, seed) alone.
 
-Port: a copy of ``tpu_scheduler/sim/fuzz/plan.py``.  The ``elastic`` base
-runs the autoscaler, which the port does not have yet (ROADMAP Queue 1
-item 9): the harness refuses its plans by name.
+Port: a copy of ``tpu_scheduler/sim/fuzz/plan.py``.
 """
 
 from __future__ import annotations

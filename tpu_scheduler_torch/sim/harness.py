@@ -26,11 +26,9 @@ test is the port's ``Scheduler``, and the default backend is
 without CUDA it raises ``BackendUnavailable``, and a run on the CPU must ask
 for ``CudaBackend(device="cpu")``.  The cycles are bit-equal to the JAX
 package's NumPy oracle, so an episode's fingerprint and scorecard are the
-JAX sim's over NativeBackend.  It runs every scenario without rebalancer or
-autoscaler, with one replica or several; ``multi.refuse_unported`` names the
-ROADMAP item (9) each other scenario waits for.  The rebalance and
-elasticity blocks keep their schema and read as the JAX harness reads them
-with the subsystem off.
+JAX sim's over NativeBackend.  It runs every registered scenario: one
+replica or several, with the rebalancer, the autoscaler and its simulated
+cloud provider where the scenario turns them on.
 """
 
 from __future__ import annotations
@@ -50,7 +48,7 @@ from ..utils.profiler import compile_listener_active, compile_stats, tier_of
 from ..utils.tracing import base_name
 from .chaos import ChaosApiServer
 from .clock import VirtualClock
-from .multi import MultiReplicaHarness, refuse_unported
+from .multi import MultiReplicaHarness
 from .scenarios import SCENARIOS, Scenario
 from .scorecard import (
     COMPILE_FIELDS,
@@ -324,7 +322,17 @@ def _incremental_block(sc: Scenario, fleet: MultiReplicaHarness) -> dict:
     return out
 
 
-def _rebalance_block(sc: Scenario, inner, chaos, pending_final, lost_names, open_iv_by_replica, slo_churn: int) -> dict:
+def _rebalance_block(
+    sc: Scenario,
+    fleet: MultiReplicaHarness,
+    inner,
+    chaos,
+    pending_final,
+    lost_names,
+    open_iv_by_replica,
+    enabled: bool,
+    slo_churn: int,
+) -> dict:
     """The scorecard ``rebalance`` verdict (tpu_scheduler/rebalance).
 
     Packing efficiency / stranded capacity are computed from the FINAL API
@@ -337,14 +345,11 @@ def _rebalance_block(sc: Scenario, inner, chaos, pending_final, lost_names, open
     deschedule POSTed inside its OWN replica's breaker-open interval is a
     degraded-mode bug counted in ``unbinds_while_open``."""
     from ..core.snapshot import ClusterSnapshot
-    from ..rebalance import RebalanceSnapshot, packing_stats
+    from ..rebalance import REBALANCE_CORDON_LABEL, RebalanceSnapshot, packing_stats
 
-    # Port: no rebalancer runs (ROADMAP Queue 1 item 9): its counters stay
-    # 0, no what-if is computed, and ``ok`` holds, as the JAX harness judges
-    # a scenario without the tier.  The packing verdict over the final state
-    # and the orphan evidence are the JAX harness's.
+    rebs = [r.rebalancer for r in fleet.scheds if r.rebalancer is not None]
     out = {
-        "enabled": False,
+        "enabled": bool(rebs),
         "required": bool(sc.rebalance_required),
         "solves": 0,
         "migrations": 0,
@@ -364,6 +369,17 @@ def _rebalance_block(sc: Scenario, inner, chaos, pending_final, lost_names, open
         "whatif": None,
         "ok": True,
     }
+    skips: dict[str, int] = {}
+    for reb in rebs:
+        s = reb.stats()
+        out["solves"] += s["solves"]
+        out["migrations"] += s["executed"]
+        out["completed"] += s["completed"]
+        out["nodes_drained"] += s["nodes_drained"]
+        out["pressure_releases"] += s["pressure_releases"]
+        for k, v in s["skips"].items():
+            skips[k] = skips.get(k, 0) + v
+    out["skips"] = dict(sorted(skips.items()))
     final = ClusterSnapshot.build(inner.list_nodes(), inner.list_pods())
     rs = RebalanceSnapshot.build(final)
     stats = packing_stats(rs.alloc, rs.used)
@@ -379,6 +395,29 @@ def _rebalance_block(sc: Scenario, inner, chaos, pending_final, lost_names, open
         for (t, _pf), actor in zip(chaos.unbind_log, chaos.unbind_actors)
         if any(s < t < e for s, e in open_iv_by_replica[actor])
     )
+    if sc.rebalance_whatif:
+        from ..rebalance import autoscaler_whatif
+
+        drained_labeled = sum(
+            1 for n in final.nodes if (n.metadata.labels or {}).get(REBALANCE_CORDON_LABEL)
+        )
+        out["whatif"] = autoscaler_whatif(final, pending_final, drained_labeled=drained_labeled)
+    gate = out["efficiency_gate"]
+    budget = out["migration_budget"]
+    whatif = out["whatif"]
+    out["ok"] = bool(
+        (gate <= 0 or out["packing_efficiency"] >= gate)
+        and (budget <= 0 or out["migrations"] <= budget)
+        and out["orphaned_migrations"] == 0
+        and out["unbinds_while_open"] == 0
+        and (
+            whatif is None
+            or whatif["pending_unplaceable"] == 0
+            or whatif["nodes_needed"] >= 1
+        )
+    )
+    if not enabled and not sc.rebalance_required:
+        out["ok"] = True  # a scenario without the tier has nothing to judge
     return out
 
 
@@ -438,20 +477,33 @@ def _locality_block(sc: Scenario, st: "_SimState") -> dict:
     return out
 
 
-def _elasticity_block(sc: Scenario, pending_final, end_t: float, st: "_SimState") -> dict:
+def _elasticity_block(
+    sc: Scenario,
+    fleet: MultiReplicaHarness,
+    pending_final,
+    lost_names,
+    end_t: float,
+    st: "_SimState",
+    enabled: bool,
+) -> dict:
     """The scorecard ``elasticity`` verdict (tpu_scheduler/autoscale).
 
     The joint objective is computed from the SAME surface whether the
     autoscaler ran or not: effective p99 time-to-bind — every bound pod's
     TTB plus every still-pending pod charged its unmet age at episode end —
     plus ``autoscale_cost_weight`` × the provider's elastic node-hour cost
-    integral (zero for the static fleet).
-
-    Port: no autoscaler or provider runs (ROADMAP Queue 1 item 9), so the
-    fleet is static: no scale events, no reclaims, no cost.  The block reads
-    as the JAX harness's with the autoscaler off."""
+    integral (zero for the static fleet).  So the ``autoscale=False``
+    baseline gets the identical verdict surface and must fail the same
+    gate on merit: it pays no cost but its unserved backlog's effective
+    p99 blows the objective.  Reclaim-orphan evidence: any pod the
+    provider force-unbound at a reclaim deadline (or the autoscaler
+    unbound while draining a scale-down candidate) that ends the run
+    neither bound nor legitimately gone — REQUIRED zero whenever the
+    block gates at all."""
+    autos = [r.autoscaler for r in fleet.scheds if r.autoscaler is not None]
+    provider = fleet.provider
     out = {
-        "enabled": False,
+        "enabled": bool(enabled and provider is not None),
         "required": bool(sc.autoscale_required),
         "scale_ups": {},
         "scale_downs": {},
@@ -468,6 +520,35 @@ def _elasticity_block(sc: Scenario, pending_final, end_t: float, st: "_SimState"
         "objective_gate": round(float(sc.autoscale_objective_gate), 6),
         "ok": True,
     }
+    ups: dict[str, int] = {}
+    downs: dict[str, int] = {}
+    skips: dict[str, int] = {}
+    unbound_short: set[str] = set()
+    for auto in autos:
+        s = auto.stats()
+        for k, v in s["scale_ups"].items():
+            ups[k] = ups.get(k, 0) + v
+        for k, v in s["scale_downs"].items():
+            downs[k] = downs.get(k, 0) + v
+        for k, v in s["skips"].items():
+            skips[k] = skips.get(k, 0) + v
+        unbound_short.update(pf.rpartition("/")[2] for pf in auto.drain_unbound)
+    out["scale_ups"] = dict(sorted(ups.items()))
+    out["scale_downs"] = dict(sorted(downs.items()))
+    out["skips"] = dict(sorted(skips.items()))
+    if provider is not None:
+        pstats = provider.stats()
+        out["skus"] = pstats["skus"]
+        out["pending_provisions"] = pstats["pending_provisions"]
+        out["reclaims"] = pstats["reclaim_notices"]
+        out["quota_errors"] = pstats["quota_errors"]
+        out["stockout_errors"] = pstats["stockout_errors"]
+        lags = sorted(provider.provision_lags())
+        out["provision_lag_p99_s"] = round(_percentile(lags, 0.99), 6)
+        out["cost_node_hours"] = round(provider.cost_node_hours(end_t), 6)
+        unbound_short.update(pf.rpartition("/")[2] for pf in provider.reclaim_unbound)
+    pending_names = {p.metadata.name for p in pending_final}
+    out["reclaim_orphans"] = len(unbound_short & (pending_names | set(lost_names)))
     # Effective p99 TTB: the SLO term no fleet can game by refusing to
     # bind — unserved demand is charged its full unmet age.
     eff = sorted(
@@ -477,7 +558,7 @@ def _elasticity_block(sc: Scenario, pending_final, end_t: float, st: "_SimState"
     joint = _percentile(eff, 0.99) + float(sc.autoscale_cost_weight) * out["cost_node_hours"]
     out["joint_objective"] = round(joint, 6)
     gate = out["objective_gate"]
-    out["ok"] = bool(gate <= 0 or out["joint_objective"] <= gate)
+    out["ok"] = bool((gate <= 0 or out["joint_objective"] <= gate) and out["reclaim_orphans"] == 0)
     assert tuple(out) == ELASTICITY_FIELDS, "elasticity block drifted from ELASTICITY_FIELDS"
     return out
 
@@ -566,11 +647,14 @@ def run_scenario(
     aggregate attribution coverage and the measured overhead estimate —
     which are deliberately kept OFF the scorecard (it must stay
     byte-identical across runs); `sim --profile-check` consumes them.
-    ``rebalance`` and ``autoscale`` keep the JAX harness's switches for the
-    background defrag and elastic-capacity tiers; the port has neither tier
-    yet, so ``True`` — like a scenario whose knob turns one on — raises
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 9 (``multi.
-    refuse_unported``).
+    ``rebalance`` mirrors the topology switch for the background defrag
+    tier: "auto" (default) follows the scenario's ``rebalance`` knob,
+    False forces the rebalancer-OFF baseline the fragmentation scorecard
+    block quantifies against (and must FAIL the efficiency gate).
+    ``autoscale`` is the same switch for the elastic-capacity tier:
+    "auto" follows the scenario's ``autoscale`` knob, False forces the
+    static-fleet baseline the elasticity scorecard block quantifies
+    against (and must FAIL the joint cost+SLO objective gate).
     ``profile`` overrides the ``SchedulingProfile`` the fleet schedules
     with (None = the default, exactly as before — fingerprints hold); a
     scenario's ``preemption`` knob still applies on top."""
@@ -624,7 +708,6 @@ def scenario_episode(
         seed = int(replay_data["header"]["seed"])
     else:
         sc = _resolve_scenario(scenario)
-    refuse_unported(sc, rebalance=rebalance, autoscale=autoscale)
 
     clock = VirtualClock()
     inner = FakeApiServer(watch_history=sc.watch_history, clock=clock)
@@ -642,7 +725,20 @@ def scenario_episode(
     # One harness regardless of replica count: replicas == 1 constructs the
     # scheduler exactly as the single-replica path always did (same rng
     # label, no shard machinery), so pre-sharding fingerprints hold.
-    fleet = MultiReplicaHarness(sc, seed, clock, chaos, backend, profile, events_buffer, topology)
+    rebalance_on = bool(getattr(sc, "rebalance", False)) and rebalance is not False
+    autoscale_on = bool(getattr(sc, "autoscale", False)) and autoscale is not False
+    fleet = MultiReplicaHarness(
+        sc,
+        seed,
+        clock,
+        chaos,
+        backend,
+        profile,
+        events_buffer,
+        topology,
+        rebalance_on=rebalance_on,
+        autoscale_on=autoscale_on,
+    )
 
     writer = TraceWriter(record) if record else None
     if writer:
@@ -804,8 +900,8 @@ def scenario_episode(
     def fold_outcomes() -> int:
         """Fold chaos logs since the last cycle: time-to-bind, completion
         scheduling, double-bind detection, sanctioned evictions, and
-        deschedules (a migrated pod leaves the bound set so its re-bind is a
-        migration completing, never a double-bind)."""
+        rebalancer deschedules (a migrated pod leaves the bound set so its
+        re-bind is a migration completing, never a double-bind)."""
         nonlocal bind_cursor, evict_cursor, unbind_cursor
         new_binds = 0
         for t, pod_full, _node in chaos.bind_log[bind_cursor:]:
@@ -830,17 +926,37 @@ def scenario_episode(
                 st.disturbed_pods.add(name)
                 st.counts["evicted"] += 1
         evict_cursor = len(chaos.evict_log)
-        # Deschedules happen AFTER the cycle's binds, so draining them after
-        # the bind fold keeps intra-cycle order: unbound pods re-enter
-        # pending and their next bind re-adds them above.  (The JAX
-        # harness also restarts the TTB clock of pods a spot reclaim or an
-        # autoscaler drain unbound; the port has neither until ROADMAP
-        # Queue 1 item 9.)
+        # Rebalancer deschedules happen AFTER the cycle's binds (the tick
+        # runs at cycle end), so draining them after the bind fold keeps
+        # intra-cycle order: unbound pods re-enter pending and their next
+        # bind re-adds them above.
+        restarts = _forced_restarts()
         for _t, pod_full in chaos.unbind_log[unbind_cursor:]:
-            st.bound_live.discard(pod_full.rpartition("/")[2])
+            name = pod_full.rpartition("/")[2]
+            st.bound_live.discard(name)
             st.counts["migrated"] += 1
+            # A spot reclaim or autoscale drain is a forced RESTART, not a
+            # scheduling decision: the TTB clock restarts at eviction, so
+            # the scorecard judges how fast the fleet re-places the pod —
+            # not the cloud's choice of when to take the node away.
+            # (Rebalancer migrations keep the original clock: the
+            # scheduler chose those.)
+            if pod_full in restarts and name in st.arrival_t:
+                st.arrival_t[name] = _t
+                st.disturbed_pods.add(name)
         unbind_cursor = len(chaos.unbind_log)
         return new_binds
+
+    def _forced_restarts() -> set[str]:
+        # shape: () -> set[str]  (full pod names force-unbound by the
+        # provider's reclaim kill path or an autoscaler scale-down drain)
+        out: set[str] = set()
+        if getattr(fleet, "provider", None) is not None:
+            out.update(fleet.provider.reclaim_unbound)
+        for sched in fleet.scheds:
+            if sched.autoscaler is not None:
+                out.update(sched.autoscaler.drain_unbound)
+        return out
 
     # -- the discrete-event loop --------------------------------------------
 
@@ -925,6 +1041,13 @@ def scenario_episode(
         "lost_names": lost[:20],
         "double_bound": st.double_bound,
     }
+    if getattr(fleet, "provider", None) is not None:
+        # A reclaim notice is cluster churn: the run can end inside the
+        # notice→kill grace window with pods still bound on the cordoned
+        # node — the provider took it, the scheduler didn't misplace them.
+        for rec in fleet.provider.records:
+            if rec["state"] == "reclaiming":
+                st.disturbed_nodes.add(rec["name"])
     invariants = check_invariants(inner, st.scheduled_names, st.disturbed_pods, st.disturbed_nodes, st.gangs)
     placements = [
         (p.metadata.name, p.spec.node_name) for p in api_pods.values() if p.spec is not None and p.spec.node_name
@@ -992,15 +1115,17 @@ def scenario_episode(
         incremental=_incremental_block(sc, fleet),
         rebalance=_rebalance_block(
             sc,
+            fleet,
             inner,
             chaos,
             pending_final,
             lost,
             open_iv_by_replica,
+            rebalance_on,
             int(metrics_snapshot.get("scheduler_preemption_victims_total", 0))
             + int(metrics_snapshot.get("scheduler_noexecute_evictions_total", 0)),
         ),
-        elasticity=_elasticity_block(sc, pending_final, end_t, st),
+        elasticity=_elasticity_block(sc, fleet, pending_final, lost, end_t, st, autoscale_on),
         latency=_latency_block(sc, fleet, st),
         recorder_stats={
             "tracked_pods": sum(len(r.recorder.tracked_pods()) for r in fleet.scheds),

@@ -22,10 +22,9 @@ path always did (same rng label, no shard machinery), so every pre-existing
 scenario's fingerprint is unchanged.
 
 Port: a copy of ``tpu_scheduler/sim/multi.py`` over the port's
-``Scheduler``, without the rebalancer and the autoscaler (ROADMAP Queue 1
-item 9): ``refuse_unported`` names that item for a scenario that turns
-either on, and the harness and its constructor call it before they build
-anything.  The replicas share one backend, as in the JAX harness.
+``Scheduler``.  The replicas share one backend and, where the scenario
+turns the autoscaler on, one ``SimCloudProvider`` drawing from its own
+``random.Random(f"{seed}:provider")`` stream, as in the JAX harness.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import random
 from ..backends.base import SchedulingBackend
 from ..runtime.controller import Scheduler
 
-__all__ = ["AVAILABILITY_FIELDS", "ReplicaKilled", "MultiReplicaHarness", "refuse_unported"]
+__all__ = ["AVAILABILITY_FIELDS", "ReplicaKilled", "MultiReplicaHarness"]
 
 # The closed schema of the scorecard ``availability`` block.
 AVAILABILITY_FIELDS = (
@@ -52,21 +51,6 @@ AVAILABILITY_FIELDS = (
     "double_binds",
     "ok",
 )
-
-
-def refuse_unported(sc, rebalance="auto", autoscale="auto") -> None:
-    """Raise ``NotImplementedError`` naming the scenario and ROADMAP Queue 1
-    item 9 when it needs a rebalancer or an autoscaler — the scenario's
-    knob, or ``True`` passed for either switch."""
-    asked = [
-        ("the rebalancer", bool(sc.rebalance) or rebalance is True),
-        ("the autoscaler", bool(sc.autoscale) or autoscale is True),
-    ]
-    whats = [what for what, on in asked if on]
-    if whats:
-        raise NotImplementedError(
-            f"scenario {sc.name!r}: {', '.join(whats)} not ported yet (ROADMAP Queue 1 item 9)"
-        )
 
 
 class ReplicaKilled(Exception):
@@ -94,12 +78,33 @@ class MultiReplicaHarness:
         rebalance_on: bool = False,
         autoscale_on: bool = False,
     ):
-        refuse_unported(sc, rebalance=bool(rebalance_on), autoscale=bool(autoscale_on))
         self.sc = sc
         self.clock = clock
         self.chaos = chaos
         self.replicas = max(1, int(sc.replicas))
         self.shards = int(sc.shards) if sc.shards > 0 else 2 * self.replicas
+        # ONE provider per cluster (the cloud account), shared by every
+        # replica: the shard-0 owner's autoscaler drives it, and a shard-0
+        # takeover inherits the in-flight provisions and reclaim deadlines
+        # because the ledger lives here, not in the dead replica.  Its rng
+        # label ("provider") is its own stream — scheduler/chaos/workload
+        # draw sequences are untouched, so old fingerprints hold.
+        self.provider = None
+        if autoscale_on:
+            from ..autoscale import DEFAULT_CATALOG, SimCloudProvider
+
+            catalog = tuple(
+                s for s in DEFAULT_CATALOG if not sc.autoscale_skus or s.name in sc.autoscale_skus
+            )
+            self.provider = SimCloudProvider(
+                chaos,
+                clock=clock,
+                rng=random.Random(f"{seed}:provider"),
+                catalog=catalog,
+                total_quota=int(sc.autoscale_quota),
+                reclaim_rate=float(sc.autoscale_reclaim_rate),
+                reclaim_grace_s=float(sc.autoscale_reclaim_grace_s),
+            )
         self.scheds: list[Scheduler] = []
         for i in range(self.replicas):
             kwargs = dict(
@@ -116,6 +121,39 @@ class MultiReplicaHarness:
                 # control flow, so record/replay bit-identity holds.
                 delta_shadow_every=getattr(sc, "delta_shadow_every", 0),
             )
+            if rebalance_on:
+                # Background rebalancer (rebalance/), INLINE
+                # solve mode: a worker thread would race the VirtualClock,
+                # so the sim runs the packing solve synchronously inside
+                # the cadence-gated tick — every decision is control flow
+                # and record/replay bit-identity holds.
+                from ..rebalance import RebalanceConfig
+
+                kwargs.update(
+                    rebalance=RebalanceConfig(
+                        every=int(sc.rebalance_every),
+                        batch=int(sc.rebalance_batch),
+                        max_migrations=int(sc.rebalance_migration_budget),
+                    )
+                )
+            if autoscale_on:
+                # Closed-loop autoscaler (autoscale/), INLINE
+                # plan mode for the same VirtualClock reason as above.
+                # Every replica gets an Autoscaler but only the shard-0
+                # owner ticks (runtime/controller.py gates), so the shared
+                # provider sees exactly one decision stream.
+                from ..autoscale import AutoscaleConfig
+
+                kwargs.update(
+                    autoscale=AutoscaleConfig(
+                        every=int(sc.autoscale_every),
+                        burn_trigger=float(sc.autoscale_burn_trigger),
+                        max_per_tick=int(sc.autoscale_max_per_tick),
+                        cooldown=int(sc.autoscale_cooldown),
+                        reserve=int(sc.autoscale_reserve),
+                    ),
+                    autoscale_provider=self.provider,
+                )
             if self.replicas > 1:
                 kwargs.update(shards=self.shards, identity=f"replica-{i}", lease_duration=sc.lease_duration)
             self.scheds.append(Scheduler(chaos, backend, **kwargs))

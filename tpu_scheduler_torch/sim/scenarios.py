@@ -10,8 +10,7 @@ All durations/rates are VIRTUAL seconds — a 2-minute scenario costs wall
 clock proportional to the scheduling work, not the simulated time.
 
 Port: a copy of ``tpu_scheduler/sim/scenarios.py``: all 25 scenarios, as
-data.  The port's harness runs the 17 without rebalancer or autoscaler
-and refuses the rest by name (``sim/multi.py``, ``refuse_unported``).
+data; the port's harness runs every one.
 """
 
 from __future__ import annotations
