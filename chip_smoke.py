@@ -31,6 +31,18 @@ bisection kernels) and, for each main path:
   mid and constrained-row cycles held against ``CudaBackend``; the flagship
   on (2, 2) and the constrained flagship on (1, 2), timed, held against the
   unsharded cycles;
+* multi-process — ``multihost``: the sharded flagship and the sharded
+  constrained flagship across two processes
+  (``parallel/multihost.py``): two ranks of ``experiments/multihost_cards``
+  on one free 127.0.0.1 port, each ``init_distributed`` with
+  ``[cuda:0] * 2`` as its tp row (gloo: the ranks share the card), so the
+  (2, 2) mesh's dp crosses them; each rank's bindings and rounds held
+  against the single-process sharded cycles, its #2b launches counted, its
+  exchange's time a round against #2b's; #2b held against its plain
+  version at rank 1's shard (``kernel_vs_plain_multihost_shard``);
+  ``native_ext``: the packing shim (``ops/native_ext``, built with g++) on
+  the flagship's 100,000 pending pods against the Python quantity path,
+  and the share of a fresh pack spent in request sums and parses;
 * topology — kernels #1 and #2 with the gang co-placement term held bit
   for bit against their plain versions (the flagship block at round 0 and
   mid-cycle, tiles mixing gangless and several gangs, ties the term makes,
@@ -162,9 +174,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity
-from torch.profiler import profile as torch_profile
 
 import tpu_scheduler_torch.backends.cuda as cuda_backend_mod
 import tpu_scheduler_torch.cli as cli_mod
@@ -193,7 +202,14 @@ from tpu_scheduler_torch.ops.choose import (
     tile_live_mask,
 )
 from tpu_scheduler_torch.ops.constraints import augment_round_state, pack_constraints, round_blocked_masks
-from tpu_scheduler_torch.experiments import bench_kernel_parts, bench_wide_kernel, ptxas_resources, time_cuda
+from tpu_scheduler_torch.experiments import (
+    bench_kernel_parts,
+    bench_wide_kernel,
+    multihost_cards,
+    profiled,
+    ptxas_resources,
+    time_cuda,
+)
 from tpu_scheduler_torch.experiments import card as nvidia_smi
 from tpu_scheduler_torch.ops.pack import pack_snapshot
 from tpu_scheduler_torch.parallel.mesh import make_mesh
@@ -821,30 +837,6 @@ def build_kernels() -> tuple[dict, dict]:
                 print(f"# ptxas ({name}): {line.strip()}", flush=True)
         resources.update(ptxas_resources(log))
     return {name: seconds for name, (_, seconds, _) in built.items()}, resources
-
-
-def profiled(fn) -> tuple[float, list]:
-    """(wall ms, [(name, device ms, count)] sorted by device time) of one
-    call of ``fn`` ending in a synchronise, under torch.profiler: device-side
-    events only (kernels, copies) — host aten rows also carry their
-    kernels' time."""
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((evt.key, dev_us / 1e3, evt.count))
-    rows.sort(key=lambda r: -r[1])
-    return wall_ms, rows
 
 
 def device_split(wall_ms: float, rows: list, kernel_tag: str) -> dict:
@@ -3438,6 +3430,126 @@ def item9_phases(smi: str, device, tmp: pathlib.Path) -> dict:
     return {"launches": totals, "max_abs_err": {"choose": e2e_err, "choose_topology": topo_err}}
 
 
+# ---- the multi-process sharded cycle and the packing shim -----------------
+
+# Two ranks, each a tp row of [cuda:0] * 2, so dp = 2 crosses them; gloo,
+# because NCCL does not put two ranks on one card.  Each rank is killed
+# past the timeout; every collective fails after the group's.
+MULTIHOST_RANKS = 2
+MULTIHOST_TIMEOUT_S = 300
+
+
+def multihost_phase(smi: str, refs: dict, tmp: pathlib.Path) -> dict:
+    """Two ranks of ``experiments/multihost_cards`` sharing card 0, each
+    rank's bindings and rounds held against the single-process sharded
+    results ``refs`` (case -> (assigned, rounds)), and launches = tp ·
+    rounds a cycle.  A rank that fails, outlives its timeout or disagrees
+    ends the script.  Returns the ranks' #2b launches."""
+    t0 = time.perf_counter()
+    try:
+        records = multihost_cards.spawn(MULTIHOST_RANKS, [0, 0], True, tmp, MULTIHOST_TIMEOUT_S)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from e
+    wall = time.perf_counter() - t0
+    launches = {"launches": 0, "launches_constrained": 0}
+    for r, rec in enumerate(records):
+        for case, (ref_assigned, ref_rounds) in refs.items():
+            c = rec[case]
+            c["equal_to_single_process"] = bool(np.array_equal(c.pop("assigned"), ref_assigned)
+                                                and c["rounds"] == ref_rounds)
+            per_cycle = sum(c["launches"].values()) / (len(c["seconds"]) + 1)
+            c["launches_per_cycle"], c["expected_launches_per_cycle"] = per_cycle, 2 * c["rounds"]
+            if not (c["equal_to_single_process"] and c["deterministic"]) or per_cycle != 2 * c["rounds"]:
+                emit(dict(rec, phase="multihost"))
+                raise SystemExit(f"multihost: rank {r}'s {case} disagrees with the single-process sharded cycle, "
+                                 f"or launched {per_cycle} kernels a cycle against tp · rounds = {2 * c['rounds']}")
+            launches["launches"] += c["launches"]["launches"]
+            launches["launches_constrained"] += c["launches"]["launches_constrained"]
+        if rec["backend"] != "gloo" or rec["row_offset"] != r or rec["mesh"] != [2, 2]:
+            raise SystemExit(f"multihost: rank {r} ran {rec['backend']} on {rec['mesh']} from row {rec['row_offset']}")
+        emit(dict(rec, phase="multihost"))
+    emit({"phase": "multihost_seconds", "seconds": wall, "launches": launches, "nvidia_smi": smi})
+    return launches
+
+
+def native_ext_phase(snap, smi: str) -> dict:
+    """The packing shim (``ops/native_ext``, built here with g++) on the
+    flagship's 100,000 pending pods' cpu and memory strings against the
+    port's Python quantity path (``api/quantity``): rows equal, both times;
+    then a fresh pack of the whole snapshot with the time spent in the
+    request sums and quantity parses it makes (cold parse caches), and that
+    share of the pack."""
+    import tpu_scheduler_torch.ops.pack as pack_mod
+    from tpu_scheduler_torch.api.quantity import cpu_to_millis, memory_to_bytes
+    from tpu_scheduler_torch.core.snapshot import ClusterSnapshot
+    from tpu_scheduler_torch.ops import native_ext
+
+    t0 = time.perf_counter()
+    if not native_ext.available():
+        raise SystemExit("native_ext: the shim did not build from tpu_scheduler_torch/csrc/pack.cpp")
+    build_s = time.perf_counter() - t0
+    requests = [p.spec.containers[0].resources.requests for p in snap.pending_pods()]
+    cpu = [r.get("cpu") for r in requests]
+    mem = [r.get("memory") for r in requests]
+
+    def python_rows() -> np.ndarray:
+        rows = np.empty((len(cpu), 2), dtype=np.int64)
+        for i, (c, m) in enumerate(zip(cpu, mem)):
+            rows[i, 0] = cpu_to_millis(c) if c is not None else 0
+            rows[i, 1] = -(-(memory_to_bytes(m) if m is not None else 0) // 1024)
+        return np.clip(rows, -(2**31 - 1), 2**31 - 1).astype(np.int32)
+
+    def cold(fn):
+        cpu_to_millis.cache_clear()
+        memory_to_bytes.cache_clear()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    py_out, py_cold_s = cold(python_rows)
+    py_warm_s = min(_timed(python_rows) for _ in range(3))
+    native_out = native_ext.pack_requests(cpu, mem)
+    native_s = min(_timed(lambda: native_ext.pack_requests(cpu, mem)) for _ in range(3))
+    equal = bool(np.array_equal(native_out, py_out))
+    # A fresh wave's pack, with the request sums and the allocatable
+    # parses it calls timed in place (cold parse caches).
+    spent = [0.0]
+
+    def timing(fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t
+        return wrapped
+
+    names = ("total_pod_resources", "cpu_to_millis", "memory_to_bytes")
+    saved = {n: getattr(pack_mod, n) for n in names}
+    fresh = ClusterSnapshot.build(snap.nodes, snap.pods)
+    try:
+        for n in names:
+            setattr(pack_mod, n, timing(saved[n]))
+        _, pack_s = cold(lambda: pack_snapshot(fresh, pod_block=8192, node_block=128))
+    finally:
+        for n, fn in saved.items():
+            setattr(pack_mod, n, fn)
+    rec = {"phase": "native_ext", "pods": len(cpu), "equal": equal, "shim_build_or_load_seconds": build_s,
+           "python_cold_seconds": py_cold_s, "python_warm_seconds": py_warm_s, "native_seconds": native_s,
+           "python_over_native": py_warm_s / native_s, "fresh_pack_seconds": pack_s,
+           "pack_quantity_seconds": spent[0], "pack_quantity_share": spent[0] / pack_s, "nvidia_smi": smi}
+    emit(rec)
+    if not equal:
+        raise SystemExit("native_ext: the shim's request rows differ from the Python quantity path")
+    return rec
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing measured", file=sys.stderr)
@@ -3531,7 +3643,17 @@ def main() -> int:
         lambda: choose_block(*shard_args, w_thr, 1, node_offset=n_local, node_words=shard_words),
         lambda: choose_block_plain(*shard_args, w_thr, 1, node_offset=n_local), reps=10, plain_reps=2,
     )
-    shard_max_abs_err = max(offsets_rec["max_abs_err"], shard_err)
+    # ... and held at the multihost phase's shard of rank 1: the second half
+    # of the pod rows against the second node column.
+    mh_args = node_slice(block_args(a_flag, p_local, 2 * p_local), n_local, 2 * n_local)
+    mh_equal, mh_err = outputs_equal(choose_block(*mh_args, w_thr, 1, node_offset=n_local),
+                                     choose_block_plain(*mh_args, w_thr, 1, node_offset=n_local))
+    emit({"phase": "kernel_vs_plain_multihost_shard", "kernel": "choose_block", "B": p_local, "N": n_local,
+          "rows": [p_local, 2 * p_local], "node_offset": n_local, "equal": mh_equal, "max_abs_err": mh_err})
+    if not mh_equal:
+        raise SystemExit("kernel #2b disagrees with its plain version at the multihost shard of rank 1")
+    shard_max_abs_err = max(offsets_rec["max_abs_err"], shard_err, mh_err)
+    del mh_args
     shard_bound_ms, shard_bound_by = choose_bound_ms(p_local, n_local, flagship.node_avail.shape[1], widths,
                                                      active=int(shard_args[8].sum()))
     emit({"phase": "choose_sharded_timing", "B": p_local, "N": n_local, "node_offset": n_local, "ms": shard_ms,
@@ -3603,11 +3725,13 @@ def main() -> int:
 
     # The sharded flagship: the user's entry point on a (2, 2) mesh.
     mesh22 = cuda_mesh(4, 2)
-    rec, _ = sharded_cycles("sharded_flagship", flagship, throughput, mesh22, 3, res)
+    rec, sresults = sharded_cycles("sharded_flagship", flagship, throughput, mesh22, 3, res)
     sharded_launches = rec["choose_launches"]
+    multihost_refs = {"flagship": (sresults[-1].assigned, sresults[-1].rounds)}
     emit(dict(rec, bound_pods=20_000, unsharded_median_seconds=statistics.median(times[1:]), nvidia_smi=smi))
     wall_ms, rows = profiled(lambda: ShardedBackend(mesh22).schedule(flagship, throughput))
     emit(dict(device_split(wall_ms, rows, "choose_kernel"), phase="sharded_flagship_breakdown", mesh=[2, 2]))
+    native_ext_phase(snap, smi)
     del flagship, snap, results, res
     torch.cuda.empty_cache()
 
@@ -3689,6 +3813,22 @@ def main() -> int:
     cshard_cons, cshard_masks = block_cons(arrays, 0, cflag.padded_pods), mask_slice(masks, cn_local, 2 * cn_local)
     cshard = constrained_timing("choose_constrained_sharded_timing", cshard_args, cshard_cons, cshard_masks, w_thr,
                                 cn_local, reps=5, plain_reps=1, smi=smi)
+    # ... and held at the multihost phase's shard of rank 1: the second half
+    # of the pod rows against the second node column.
+    half = cflag.padded_pods // 2
+    mh_args = node_slice(block_args(arrays, half, cflag.padded_pods), cn_local, 2 * cn_local)
+    mh_cons = block_cons(arrays, half, cflag.padded_pods)
+    mh_equal, mh_err = outputs_equal(
+        choose_block_constrained(*mh_args, mh_cons, cshard_masks, w_thr, 0, node_offset=cn_local),
+        choose_block_constrained_plain(*mh_args, mh_cons, cshard_masks, w_thr, 0, node_offset=cn_local),
+    )
+    emit({"phase": "kernel_vs_plain_multihost_shard", "kernel": "choose_block_constrained", "B": half,
+          "N": cn_local, "rows": [half, cflag.padded_pods], "node_offset": cn_local, "equal": mh_equal,
+          "max_abs_err": mh_err})
+    if not mh_equal:
+        raise SystemExit("constrained kernel #2b disagrees with its plain version at the multihost shard of rank 1")
+    cshard_mh_err = mh_err
+    del mh_args, mh_cons
     del arrays, masks, cshard_args, cshard_cons, cshard_masks
     torch.cuda.empty_cache()
 
@@ -3773,6 +3913,13 @@ def main() -> int:
     # row: the second shard's operands at the first round with <= 3 % of
     # the rows active, recorded from one more cycle.
     late = late_round_launch(cflag, throughput, mesh12)
+    # The same two cycles across two processes (parallel/multihost.py):
+    # (2, 2) meshes whose dp rows are the two ranks.
+    multihost_refs["constrained_flagship"] = (sresults[-1].assigned, sresults[-1].rounds)
+    mh_dir = pathlib.Path(__file__).resolve().parent / "build"
+    mh_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=mh_dir) as tmp:
+        mh_launches = multihost_phase(smi, multihost_refs, pathlib.Path(tmp))
     tail = constrained_timing("choose_constrained_tail_timing", late["args"], late["cons_pod"], late["masks"],
                               late["weights"], late["node_offset"], reps=10, plain_reps=1, smi=smi, salt=late["salt"],
                               round=late["round"], active_by_round=late["active_by_round"])
@@ -4017,15 +4164,17 @@ def main() -> int:
         },
         {
             "name": "choose_sharded", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
-            "replaces": "tpu_scheduler/parallel/sharded.py:264", "launches": sharded_launches,
+            "replaces": "tpu_scheduler/parallel/sharded.py:264",
+            "launches": sharded_launches + mh_launches["launches"],
             "max_abs_err": shard_max_abs_err,
             "ms": shard_ms, "plain_ms": shard_plain_ms, "bound_ms": shard_bound_ms, "bound_by": shard_bound_by,
             "library_ms": None,
         },
         {
             "name": "choose_constrained_sharded", "route": "cuda", "source": "tpu_scheduler_torch/csrc/choose.cu",
-            "replaces": "tpu_scheduler/parallel/sharded.py:264", "launches": sharded_claunches,
-            "max_abs_err": cshard_max_abs_err,
+            "replaces": "tpu_scheduler/parallel/sharded.py:264",
+            "launches": sharded_claunches + mh_launches["launches_constrained"],
+            "max_abs_err": max(cshard_max_abs_err, cshard_mh_err),
             "ms": cshard["ms"], "plain_ms": cshard["plain_ms"], "bound_ms": cshard["bound_ms"],
             "bound_by": cshard["bound_by"], "library_ms": None,
         },

@@ -150,7 +150,7 @@ def test_port_imports_no_jax():
                  "sim.fuzz", "sim.fuzz.cli", "sim.fuzz.corpus", "sim.fuzz.coverage", "sim.fuzz.generate",
                  "sim.fuzz.oracle", "sim.fuzz.plan", "sim.fuzz.shrink", "rebalance.planner", "rebalance.executor",
                  "rebalance.whatif", "autoscale", "autoscale.policy", "autoscale.provider", "autoscale.controller",
-                 "learn.env", "learn.search", "learn.distill", "learn.cli"):
+                 "learn.env", "learn.search", "learn.distill", "learn.cli", "parallel.multihost", "ops.native_ext"):
         assert f"tpu_scheduler_torch.{name}" in report["mods"], name
 
 

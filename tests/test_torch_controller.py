@@ -567,12 +567,50 @@ def test_cli_debug_rebalance_and_autoscale_routes_match_jax(tmp_path):
     assert err.getvalue().strip() == json.dumps({"autoscale": False, "reason": "remote cluster"})
 
 
-@pytest.mark.parametrize("flags", [["--distributed"]])
-def test_cli_refuses_unported_flags(flags):
-    proc = _cli("tpu_scheduler_torch.cli", *flags, "--device", "cpu", "--nodes", "2", "--pods", "2")
-    assert proc.returncode == 2
-    assert "not ported yet" in proc.stderr and "ROADMAP Queue 1 item" in proc.stderr
-    assert '"summary"' not in proc.stdout
+DISTRIBUTED_FLAGS = ["--distributed", "--backend", "cuda-sharded", "--device", "cpu", "--nodes", "24",
+                     "--pods", "96", "--workload", "mixed", "--log-level", "WARNING"]
+SUMMARY_KEYS = ("cycles", "bound_total", "unschedulable_last")
+
+
+def test_cli_distributed_single_process_under_torchrun_env():
+    """``--distributed`` with torchrun's environment at world size 1: the
+    process group starts over env://, the mesh stays single-process, and the
+    run completes its cycles with the summary of the run without
+    ``--distributed``."""
+    from test_torch_multihost import _free_port
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1", "RANK": "0"}
+    dist = _summary(_cli("tpu_scheduler_torch.cli", *DISTRIBUTED_FLAGS, env_extra=env))
+    plain = _summary(_cli("tpu_scheduler_torch.cli", *DISTRIBUTED_FLAGS[1:]))
+    assert dist["cycles"] >= 1 and dist["bound_total"] > 0
+    assert {k: dist[k] for k in SUMMARY_KEYS} == {k: plain[k] for k in SUMMARY_KEYS}
+    assert dist["backend"] == "cuda-sharded" and dist["device"] == "cpu"
+
+
+def test_cli_two_processes_agree_with_one():
+    """Two CLI processes over ``SCHED_*`` (gloo, ``[cpu] * 8`` each: a (8, 2)
+    mesh across them): both ranks' summaries and pod → node maps are equal,
+    and equal to the one-process run's."""
+    from test_torch_multihost import _spawn
+
+    def sched_env(world):
+        return lambda rank, coordinator: {
+            "SCHED_COORDINATOR": coordinator, "SCHED_NUM_PROCESSES": str(world), "SCHED_PROCESS_ID": str(rank),
+        }
+
+    # One process: no --distributed, so init_distributed is the no-op (with
+    # it, a world of 1 would ask torchrun's env:// instead).
+    runs = {world: _spawn("cli", world=world, extra=tuple(DISTRIBUTED_FLAGS[world == 1:]), env_extra=sched_env(world))
+            for world in (1, 2)}
+    seen = []
+    for world, results in runs.items():
+        for rc, out, res in results:
+            assert rc == 0 and res is not None and res["rc"] == 0, out[-3000:]
+            assert (res["collectives"] > 0) == (world > 1), res["collectives"]  # the cycles ran across processes
+            summary = json.loads([ln for ln in out.splitlines() if ln.startswith('{"summary"')][-1])
+            seen.append(({k: summary[k] for k in SUMMARY_KEYS}, res["placements"]))
+    assert len(seen) == 3 and seen[0][0]["bound_total"] > 0
+    assert all(s == seen[0] for s in seen[1:])
 
 
 def test_cli_without_cuda_fails_and_never_runs_on_the_cpu():

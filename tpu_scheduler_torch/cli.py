@@ -17,8 +17,19 @@ Prints one JSON metrics line per cycle and a final summary line.  Cycles
 run through the delta engine unless ``--no-delta``; ``--checkpoint-dir``
 restores scheduler-local state at start and saves it at exit.  There is
 no fallback: without CUDA, ``--device cuda`` fails with the backend's
-``BackendUnavailable`` before any cycle.  Flags whose subsystem waits for
-a later item of the port (ROADMAP Queue 1) exit 2 naming the item.
+``BackendUnavailable`` before any cycle.
+
+``--distributed`` (and ``--backend cuda-sharded``) starts
+``torch.distributed`` (``parallel/mesh.init_distributed``) from the
+``SCHED_COORDINATOR`` / ``SCHED_NUM_PROCESSES`` / ``SCHED_PROCESS_ID``
+environment, or with ``--distributed`` alone from torchrun's ``env://``;
+every process runs the same flags and the sharded cycle spans them
+(``parallel/multihost.py``).  Two processes on the CPU:
+
+    SCHED_COORDINATOR=127.0.0.1:29500 SCHED_NUM_PROCESSES=2 SCHED_PROCESS_ID=0 \
+        python -m tpu_scheduler_torch.cli --distributed --backend cuda-sharded --device cpu &
+    SCHED_COORDINATOR=127.0.0.1:29500 SCHED_NUM_PROCESSES=2 SCHED_PROCESS_ID=1 \
+        python -m tpu_scheduler_torch.cli --distributed --backend cuda-sharded --device cpu
 
 ``sim`` runs the simulator (``sim/cli.py``):
 
@@ -75,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--distributed",
         action="store_true",
-        help="multi-process meshes (not ported yet: ROADMAP Queue 1 item 7)",
+        help="start torch.distributed at startup for multi-process meshes (reads SCHED_COORDINATOR / "
+        "SCHED_NUM_PROCESSES / SCHED_PROCESS_ID, else torchrun's env://)",
     )
     p.add_argument("--policy", choices=["batch", "sample"], default="batch", help="batched cycle vs reference-style per-pod random sampling")
     p.add_argument("--profile", choices=sorted(PROFILES), default="default", help="scoring profile")
@@ -251,26 +263,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def unported_flags(args) -> list[str]:
-    """The given flags whose subsystem is not ported yet, each with its
-    ROADMAP Queue 1 item."""
-    asked = [
-        ("--distributed", args.distributed, "7"),
-    ]
-    return [f"{flag} (ROADMAP Queue 1 item {item})" for flag, on, item in asked if on]
-
-
 def make_cli_backend(args):
     """The backend the flags ask for, on the card unless ``--device cpu``."""
     import torch
 
+    # Eight virtual CPU devices a process, as the JAX package's test harness.
+    cpu_devices = [torch.device("cpu")] * 8
+    if args.distributed or args.backend == "cuda-sharded":
+        from .parallel.mesh import init_distributed
+
+        # No-op in single-process runs; multi-process coordination comes from
+        # the SCHED_* env (or torchrun's env:// with --distributed).
+        init_distributed(auto=args.distributed, local_device_ids=cpu_devices if args.device == "cpu" else None)
     if args.backend == "cuda-sharded":
         from .parallel.mesh import make_mesh
         from .parallel.sharded import ShardedBackend
 
         if args.device == "cpu":
-            # Eight virtual CPU devices, as the JAX package's test harness.
-            return ShardedBackend(mesh=make_mesh([torch.device("cpu")] * 8, tp=args.tp))
+            return ShardedBackend(mesh=make_mesh(cpu_devices, tp=args.tp))
         return ShardedBackend(tp=args.tp)
     from .backends.cuda import CudaBackend
 
@@ -434,9 +444,6 @@ def main(argv: list[str] | None = None) -> int:
         return sim_main(argv[1:])
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = unported_flags(args)
-    if refused:
-        parser.error("not ported yet: " + ", ".join(refused))
     configure_logging(args.log_level, args.log_format)
 
     from .utils.gc_tuning import enable_daemon_gc_tuning

@@ -12,17 +12,22 @@ and ``bench_choose_builds``, which times kernel #1 from several builds of
 topology path against another checkout's in one process;
 ``bench_bisect_trees`` does so for the bisection kernels #3 and #4,
 ``bench_bisect_tiles`` times them at other pods per tile and
-``bisect_sass`` counts their instructions a pair in the SASS.
+``bisect_sass`` counts their instructions a pair in the SASS;
+``multihost_cards`` runs the sharded cycle across processes on the cards
+of one machine.
 """
 
 from __future__ import annotations
 
 import re
 import subprocess
+import time
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["card", "ptxas_resources", "time_cuda"]
+__all__ = ["card", "profiled", "ptxas_resources", "time_cuda"]
 
 
 def card() -> str:
@@ -46,6 +51,30 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(fn) -> tuple[float, list]:
+    """(wall ms, [(name, device ms, count)] sorted by device time) of one
+    call of ``fn`` ending in a synchronise, under torch.profiler: device-side
+    events only (kernels, copies) — host aten rows also carry their
+    kernels' time."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((evt.key, dev_us / 1e3, evt.count))
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, rows
 
 
 def _demangled(entry: str) -> str:

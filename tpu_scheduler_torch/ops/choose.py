@@ -92,6 +92,7 @@ __all__ = [
     "CONSTRAINT_POD_KEYS",
     "bind_library",
     "build_library",
+    "build_cached",
     "bitmap_words",
     "check_bitmaps",
     "check_domain_columns",
@@ -158,10 +159,12 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the kernels are built from csrc/*.cu at first use")
 
 
-def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> tuple[pathlib.Path, float, str]:
-    """Build (or find built) the kernel library of one CUDA source (default:
-    csrc/choose.cu) into build/torch_kernels/<source digest>/.  Returns
-    (path, build seconds — 0.0 when already built, compiler output)."""
+def build_cached(source: pathlib.Path, lib_name: str, command) -> tuple[pathlib.Path, float, str]:
+    """Build (or find built) the shared library of one source into
+    build/torch_kernels/<source digest>/, running ``command(out_path)`` (the
+    compiler's argv) into a temporary name that is then renamed, so
+    concurrent first users never load a half-written file.  Returns (path,
+    build seconds — 0.0 when already built, compiler output)."""
     src = source.read_bytes()
     out_dir = _BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
     lib = out_dir / lib_name
@@ -169,19 +172,28 @@ def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> 
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".{lib_name}.{os.getpid()}.{threading.get_ident()}"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-fmad=false",  # no FMA contraction: results must round like the unfused reference tree
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source),
-    ]
+    cmd = command(tmp)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise KernelError(f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
-    record_kernel_build(seconds)
     return lib, seconds, proc.stdout + proc.stderr
+
+
+def build_library(source: pathlib.Path = _SOURCE, lib_name: str = _LIB_NAME) -> tuple[pathlib.Path, float, str]:
+    """Build (or find built) the kernel library of one CUDA source (default:
+    csrc/choose.cu) into build/torch_kernels/<source digest>/.  Returns
+    (path, build seconds — 0.0 when already built, compiler output)."""
+    lib, seconds, output = build_cached(source, lib_name, lambda tmp: [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-fmad=false",  # no FMA contraction: results must round like the unfused reference tree
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source),
+    ])
+    if seconds:
+        record_kernel_build(seconds)
+    return lib, seconds, output
 
 
 def bind_library(path: pathlib.Path) -> ctypes.CDLL:

@@ -3,10 +3,13 @@
 ``sharded_assign_cycle``, ``ShardedBackend``): the auction distributed over
 a (dp, tp) mesh, pods sharded over ``dp``, nodes over ``tp``.
 
-It is a single-controller program, as the JAX package's single-process path
-is: each round runs the same local step for every (dp, tp) shard on that
-shard's device, and the JAX collectives become explicit in-process ops
-(``.to(device)``, ``torch.cat``, a sum).  The algorithm is the JAX
+Each process runs one body, :func:`sharded_rounds`, over its own dp rows:
+each round runs the same local step for every (dp, tp) shard of those rows
+on that shard's device.  The JAX collectives become explicit ops: the tp
+merge is in-process (``.to(device)``, a where), and the three values that
+cross dp rows go through an exchange — in-process copies
+(:class:`InProcessExchange`, :func:`sharded_assign_cycle`) or
+``torch.distributed`` across processes (``parallel/multihost.py``).  The algorithm is the JAX
 package's sharded one, not ``ops/assign.py``'s: one fixed-shape choose per
 shard per round over its whole [p_local, n_local] slice, with no size chain
 and no compaction.  Results equal the single-device backends bit for bit:
@@ -40,7 +43,8 @@ no-op.
 
 There is no proving, strike or plain-path retry (the JAX backend's guard at
 ``sharded.py:552-585`` is not mirrored): on CUDA tensors the kernels run or
-raise.  Multi-host meshes (``parallel/multihost.py``) are not ported yet.
+raise.  :class:`ShardedBackend` routes a mesh of several processes through
+``parallel/multihost.sharded_assign_multihost``.
 """
 
 from __future__ import annotations
@@ -68,7 +72,16 @@ from ..ops.constraints import augment_round_state, constraint_commit, constraint
 from ..ops.pack import STALL_ROUNDS, PackedCluster, round_up
 from .mesh import Mesh, make_mesh
 
-__all__ = ["ShardedBackend", "sharded_assign_cycle", "constraint_operands", "POD_KEYS", "CONSTRAINT_KEYS"]
+__all__ = [
+    "ShardedBackend",
+    "sharded_assign_cycle",
+    "sharded_rounds",
+    "InProcessExchange",
+    "constraint_operands",
+    "pad_node_axis",
+    "POD_KEYS",
+    "CONSTRAINT_KEYS",
+]
 
 # Pod-side keys a shard reads, in choose_block's argument order (pod_valid
 # seeds the active flags).
@@ -141,6 +154,17 @@ def constraint_operands(cons, n_pad_from: int, n_pad_to: int) -> dict:
     return ops
 
 
+def pad_node_axis(arrays: dict, tp: int) -> dict:
+    """A copy of the PackedCluster device arrays with the node axis padded
+    (invalid, zero-capacity rows) to a multiple of ``tp``."""
+    a = dict(arrays)
+    n0 = a["node_avail"].shape[0]
+    n_pad = round_up(n0, tp)
+    for k in _NODE_PAD_KEYS:
+        a[k] = np.pad(a[k], ((0, n_pad - n0),) + ((0, 0),) * (a[k].ndim - 1))
+    return a
+
+
 def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
 
@@ -175,16 +199,34 @@ class _Shard:
     assigned: torch.Tensor
 
 
-def sharded_assign_cycle(
-    mesh: Mesh, arrays: dict, weights, max_rounds: int = 32, constraints: dict | None = None,
-    soft_spread: bool = False, soft_pa: bool = False, hard_pa: bool = True,
+class InProcessExchange:
+    """The cycle's cross-row exchange when every dp row lives in this
+    process: the in-process copies that stand in for the JAX collectives.
+    ``parallel/multihost.py``'s ``ProcessExchange`` has the same two methods
+    over ``torch.distributed``."""
+
+    def gather_rows(self, parts: list, home: torch.device) -> torch.Tensor:
+        """This process's per-row tensors, concatenated in row order on
+        ``home``: every dp row's, in global priority order."""
+        return torch.cat([t.to(home) for t in parts])
+
+    def reduce_sum(self, counts: torch.Tensor) -> list:
+        """The element-wise sum over processes, on the host."""
+        return counts.tolist()
+
+
+def sharded_rounds(
+    mesh: Mesh, arrays: dict, weights, max_rounds: int, constraints: dict | None,
+    soft_spread: bool, soft_pa: bool, hard_pa: bool, exchange,
 ):
-    """Run one cycle over the mesh.  ``arrays``: the PackedCluster device
-    arrays (NumPy) with N pre-padded to a tp multiple (pods pad here, after
-    the priority permutation); ``constraints``: the
-    :func:`constraint_operands` dict of a constrained cycle.  Returns
-    (assigned [P] int32 on the CPU, rounds, avail [dp, N_padded, R] int32 on
-    the CPU — every dp row's copy of the remaining capacity, which agree)."""
+    """The cycle's body, run by every process over its own dp rows of the
+    mesh; ``exchange`` carries the three values that cross rows: the claim
+    gather over dp, the stop decision's counts and the final ``assigned``.
+    ``arrays``: the PackedCluster device arrays (NumPy, the same in every
+    process) with N pre-padded to a tp multiple (pods pad here, after the
+    priority permutation); ``constraints``: the :func:`constraint_operands`
+    dict of a constrained cycle.  Returns (assigned [P] int32 on the CPU,
+    rounds, this process's shards)."""
     dp, tp = mesh.shape["dp"], mesh.shape["tp"]
     n_tot = arrays["node_avail"].shape[0]
     if n_tot % tp:
@@ -205,15 +247,16 @@ def sharded_assign_cycle(
     constrained = constraints is not None
     weights = np.asarray(weights, dtype=np.float32)
 
-    # Read-only uploads, once per (device, row) and (device, column), the
-    # bitmaps checked to be 0/1 and the node words built there.
+    # Read-only uploads of this process's rows, once per (device, row) and
+    # (device, column), the bitmaps checked to be 0/1 and the node words
+    # built there.
     row_cache: dict = {}
     col_cache: dict = {}
     word_cache: dict = {}
     shards = []
-    for i in range(dp):
-        for j in range(tp):
-            d = mesh.devices[i][j]
+    for r, devices in enumerate(mesh.devices):
+        i = mesh.row_offset + r
+        for j, d in enumerate(devices):
             lo, base = i * p_local, j * n_local
             if (d, i) not in row_cache:
                 row_cache[d, i] = {k: _put(v[lo : lo + p_local], d) for k, v in pods.items()}
@@ -229,12 +272,14 @@ def sharded_assign_cycle(
                 active=rows["pod_valid"].clone(),
                 assigned=torch.full((p_local,), -1, dtype=torch.int32, device=d),
             ))
-    grid = [shards[i * tp : (i + 1) * tp] for i in range(dp)]
+    grid = [shards[r * tp : (r + 1) * tp] for r in range(len(mesh.devices))]
+    home = shards[0].device
+    devices = mesh.distinct_devices()
 
     replicas: dict = {}
     if constrained:
         cpods_h = {k: permuted(constraints[k]) for k in CONSTRAINT_KEYS[:_N_PODKEYS]}
-        for d in mesh.distinct_devices():
+        for d in devices:
             meta = {k: _put(constraints[k], d) for k in CONSTRAINT_KEYS[_N_PODKEYS : _N_PODKEYS + _N_METAKEYS]}
             state = {k: _put(constraints[k], d) for k in CONSTRAINT_KEYS[_N_PODKEYS + _N_METAKEYS :]}
             replicas[d] = _Replica(
@@ -242,9 +287,13 @@ def sharded_assign_cycle(
                 state=augment_round_state(state, meta), ranks=torch.arange(p_tot, dtype=torch.int32, device=d),
             )
 
-    home = shards[0].device
-    # Per-round values are lists indexed like ``shards`` (k = i * tp + j).
-    first = {d: next(k for k, s in enumerate(shards) if s.device == d) for d in replicas}
+    # Per-round values are lists indexed like ``shards`` (k = r * tp + j).
+    first = {d: next(k for k, s in enumerate(shards) if s.device == d) for d in devices}
+
+    def row_of(s: _Shard) -> range:
+        """The indices into ``shards`` of ``s``'s dp row."""
+        r = s.i - mesh.row_offset
+        return range(r * tp, (r + 1) * tp)
     go = bool(pods["pod_valid"].any())
     rounds = stall = 0
     while rounds < max_rounds and go and not (constrained and stall >= STALL_ROUNDS):
@@ -270,9 +319,9 @@ def sharded_assign_cycle(
                 )
             best.append(b)
             local_choice.append(idx + s.base)
-        choice, has, cand, claim_node, claim_req = [], [], [], [], []
+        choice, has, cand, claims = [], [], [], []
         for s in shards:
-            row = range(s.i * tp, (s.i + 1) * tp)
+            row = row_of(s)
             b, c = best[row[0]].to(s.device), local_choice[row[0]].to(s.device)
             for k in row[1:]:
                 b_k, c_k = best[k].to(s.device), local_choice[k].to(s.device)
@@ -284,29 +333,30 @@ def sharded_assign_cycle(
             choice.append(c)
             has.append(h)
             cand.append(wants)
-            claim_node.append(torch.where(wants, c, n_tot))  # n_tot: no claim
-            claim_req.append(torch.where(wants[:, None], s.pods["pod_req"], 0))
+            # The row's claims: [p_local, 1 + R] int32, the claimed node
+            # (n_tot: no claim) and the request (0 for a non-claimant).
+            node = torch.where(wants, c, n_tot)[:, None]
+            claims.append(torch.cat([node, torch.where(wants[:, None], s.pods["pod_req"], 0)], 1))
 
-        # 2. accept: every shard gathers its column's claims over dp (global
-        # priority order) and accepts on its own nodes; flags sum over tp.
+        # 2. accept: the claims of every dp row in global priority order,
+        # once per device; every shard accepts on its own nodes, and the
+        # flags sum over tp.
+        g_claims = exchange.gather_rows(claims[::tp], home)
+        g_on = {d: g_claims.to(d) for d in devices}
         g_choice, in_range, ch_local, claim, acc_range = [], [], [], [], []
         for s in shards:
-            column = range(s.j, dp * tp, tp)
-            g = torch.cat([claim_node[k].to(s.device) for k in column])
-            g_req = torch.cat([claim_req[k].to(s.device) for k in column])
+            g, g_req = g_on[s.device][:, 0], g_on[s.device][:, 1:]
             mine = (g >= s.base) & (g < s.base + n_local)
             g_choice.append(g)
             in_range.append(mine)
             ch_local.append(torch.where(mine, g - s.base, n_local).to(torch.int64))
             claim.append(torch.where(mine[:, None], g_req, 0).to(torch.int64))
             acc_range.append(accept_claims(ch_local[-1], claim[-1], s.avail))
-        accepted = [
-            sum(acc_range[k].to(s.device).to(torch.int32) for k in range(s.i * tp, (s.i + 1) * tp)) > 0
-            for s in shards
-        ]
+        accepted = [sum(acc_range[k].to(s.device).to(torch.int32) for k in row_of(s)) > 0 for s in shards]
 
         # 3. constraints: filter and state commit, once per device over the
-        # global claims (identical on every shard of the device).
+        # global claims (identical on every shard of the device, and in
+        # every process).
         pa_progress = {}
         if constrained:
             filtered = {}
@@ -338,17 +388,36 @@ def sharded_assign_cycle(
             s.active = new_active
 
         # One host read per round: the active count over dp, and whether
-        # anybody was accepted (the stall rule).
-        counts = [row[0].active.sum().to(home) for row in grid] + [accepted[0].sum().to(home)]
-        *n_active, n_accepted = torch.stack(counts).tolist()
-        go = sum(n_active) > 0
+        # anybody was accepted (the stall rule) — summed over processes, so
+        # every process takes the same decision.
+        counts = torch.stack([sum(row[0].active.sum().to(home) for row in grid), accepted[0].sum().to(home)])
+        n_active, n_accepted = exchange.reduce_sum(counts)
+        go = n_active > 0
         rounds += 1
         if constrained:
             stall = 0 if n_accepted else stall + 1
 
-    assigned_p = torch.cat([row[0].assigned.cpu() for row in grid])
+    assigned_p = exchange.gather_rows([row[0].assigned for row in grid], home).cpu()
     assigned = torch.full((p_out,), -1, dtype=torch.int32)
     assigned[torch.from_numpy(perm)] = assigned_p[:p_out]
+    return assigned, rounds, shards
+
+
+def sharded_assign_cycle(
+    mesh: Mesh, arrays: dict, weights, max_rounds: int = 32, constraints: dict | None = None,
+    soft_spread: bool = False, soft_pa: bool = False, hard_pa: bool = True,
+):
+    """Run one cycle over a single-process mesh (:func:`sharded_rounds`
+    with the in-process exchange).  Returns (assigned [P] int32 on the CPU,
+    rounds, avail [dp, N_padded, R] int32 on the CPU — every dp row's copy
+    of the remaining capacity, which agree)."""
+    if mesh.process_count != 1:
+        raise ValueError("sharded_assign_cycle: a multi-process mesh runs through parallel.multihost")
+    assigned, rounds, shards = sharded_rounds(
+        mesh, arrays, weights, max_rounds, constraints, soft_spread, soft_pa, hard_pa, InProcessExchange()
+    )
+    tp = mesh.shape["tp"]
+    grid = [shards[i * tp : (i + 1) * tp] for i in range(mesh.shape["dp"])]
     avail = torch.stack([torch.cat([s.avail.cpu() for s in row]) for row in grid])
     return assigned, rounds, avail
 
@@ -379,20 +448,26 @@ class ShardedBackend(SchedulingBackend):
         # Topology-blind, as the JAX ShardedBackend: packed.topology is not
         # read (supports_topology is False).
         tp = self.mesh.shape["tp"]
-        a = dict(packed.device_arrays())
         # Node padding to the tp multiple happens here; pod padding to the
         # dp multiple inside the cycle, after the priority permutation.
-        n_pad = round_up(packed.padded_nodes, tp)
-        for k in _NODE_PAD_KEYS:
-            a[k] = np.pad(a[k], ((0, n_pad - packed.padded_nodes),) + ((0, 0),) * (a[k].ndim - 1))
+        a = pad_node_axis(packed.device_arrays(), tp)
+        n_pad = a["node_avail"].shape[0]
         cons = packed.constraints
         c = constraint_operands(cons, packed.padded_nodes, n_pad) if cons is not None else None
+        flags = dict(
+            soft_spread=cons is not None and cons.n_spread_soft > 0,
+            soft_pa=cons is not None and cons.n_ppa_terms > 0,
+            hard_pa=cons is not None and cons.n_pa_terms > 0,
+        )
         try:
+            if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+                # Several processes: the same body with the exchange over
+                # torch.distributed (the JAX ``_dispatch``).
+                from .multihost import sharded_assign_multihost
+
+                return sharded_assign_multihost(self.mesh, a, profile.weights(), profile.max_rounds, c, **flags)
             assigned, rounds, _avail = sharded_assign_cycle(
-                self.mesh, a, profile.weights(), profile.max_rounds, constraints=c,
-                soft_spread=cons is not None and cons.n_spread_soft > 0,
-                soft_pa=cons is not None and cons.n_ppa_terms > 0,
-                hard_pa=cons is not None and cons.n_pa_terms > 0,
+                self.mesh, a, profile.weights(), profile.max_rounds, constraints=c, **flags
             )
         except RuntimeError as e:
             if any(d.type == "cuda" for d in self.mesh.distinct_devices()) and _is_device_failure(e):
