@@ -45,6 +45,7 @@ import tpu_scheduler_torch.runtime.http_api as http_api  # noqa: E402
 import tpu_scheduler_torch.sim.harness as harness  # noqa: E402
 import tpu_scheduler_torch.testing as testing  # noqa: E402
 from tpu_scheduler_torch.backends.cuda import CudaBackend  # noqa: E402
+from test_torch_sim import port_card_of  # noqa: E402
 
 logging.getLogger("tpu_scheduler").setLevel(logging.ERROR)
 logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
@@ -565,7 +566,10 @@ def test_sharded_only_shard0_owner_autoscales_and_takeover_inherits_provider():
 
 
 def _card(pk, name, seed, **kw):
-    return pk.harness.run_scenario(name, seed=seed, backend=pk.backend(), **kw)
+    """A scenario's card on ``pk``: the JAX card with its span census
+    carried over to the port's (``test_torch_sim.port_card_of``)."""
+    card = pk.harness.run_scenario(name, seed=seed, backend=pk.backend(), **kw)
+    return port_card_of(card) if pk is JAX else card
 
 
 @pytest.mark.parametrize("name", ELASTICITY_SCENARIOS)

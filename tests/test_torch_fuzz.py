@@ -37,6 +37,7 @@ import tpu_scheduler_torch.sim.harness as harness  # noqa: E402
 import tpu_scheduler_torch.sim.scenarios as scenarios  # noqa: E402
 import tpu_scheduler_torch.sim.workload as workload  # noqa: E402
 from tpu_scheduler_torch.backends.cuda import CudaBackend  # noqa: E402
+from test_torch_sim import port_card_of  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS_DIR = os.path.join(ROOT, "tests", "fuzz_corpus")
@@ -76,7 +77,7 @@ def test_corpus_entries_replay_bit_identically():
         assert ok, f"corpus entry {entry['name']} drifted: {problems}"
         assert 1 <= len(entry["plan"].ops) <= plan_mod.MAX_OPS
         jok, _jproblems, jcard = jax_corpus.replay_entry(jentry)
-        assert jok and card == jcard
+        assert jok and card == port_card_of(jcard)
 
 
 def test_corpus_files_carry_the_closed_entry_schema():
@@ -225,7 +226,7 @@ def test_oracle_fills_coverage_and_is_deterministic():
     assert cov.distinct() == 2 * 5 and cov.lease_pairs() == 5
     jcov = jax_fuzz.CoverageMap()
     jcard, jviol = jax_fuzz.run_plan(_cov_plan(jax_fuzz), 0, jcov)
-    assert card1 == jcard and viol1 == jviol and cov.to_json() == jcov.to_json()
+    assert card1 == port_card_of(jcard) and viol1 == jviol and cov.to_json() == jcov.to_json()
 
 
 def test_judge_card_and_card_value_match():
@@ -254,7 +255,8 @@ def _mini(sc_mod, wl_mod, **kw):
 
 def test_convergence_true_positive_draining_run_quiesces():
     card = harness.run_scenario(_mini(scenarios, workload), seed=0, backend=_cpu())
-    assert card == jax_harness.run_scenario(_mini(jax_scenarios, jax_workload), seed=0, backend=NativeBackend())
+    assert card == port_card_of(
+        jax_harness.run_scenario(_mini(jax_scenarios, jax_workload), seed=0, backend=NativeBackend()))
     c = card["convergence"]
     assert c["required"] and c["ok"] and c["pending_final"] == 0 and c["stale_leases"] == 0 and card["pass"]
 
@@ -265,7 +267,8 @@ def test_convergence_false_positive_guard_wedged_backlog_fails_the_run():
             initial_nodes=2, arrival_rate=4.0, lifetime_mean_s=0.0, pod_cpu_m=(4000,), pod_mem_mi=(4096,)))
 
     card = harness.run_scenario(wedged(scenarios, workload), seed=0, backend=_cpu())
-    assert card == jax_harness.run_scenario(wedged(jax_scenarios, jax_workload), seed=0, backend=NativeBackend())
+    assert card == port_card_of(
+        jax_harness.run_scenario(wedged(jax_scenarios, jax_workload), seed=0, backend=NativeBackend()))
     assert card["convergence"]["pending_final"] > 0 and not card["convergence"]["ok"] and not card["pass"]
     relaxed = harness.run_scenario(replace(wedged(scenarios, workload), convergence_required=False), seed=0,
                                    backend=_cpu())
@@ -276,7 +279,8 @@ def test_convergence_false_positive_guard_wedged_backlog_fails_the_run():
 def test_lease_brownout_during_takeover_passes_and_replays(seed, tmp_path):
     path = str(tmp_path / "trace.jsonl")
     card = harness.run_scenario("lease-brownout-during-takeover", seed=seed, backend=_cpu(), record=path)
-    assert card == jax_harness.run_scenario("lease-brownout-during-takeover", seed=seed, backend=NativeBackend())
+    assert card == port_card_of(
+        jax_harness.run_scenario("lease-brownout-during-takeover", seed=seed, backend=NativeBackend()))
     assert card["pass"] and any(k.startswith("lease-") for k in card["chaos_injected"])
     a = card["availability"]
     assert a["ok"] and a["double_binds"] == 0 and a["orphaned_pods"] == 0
@@ -358,5 +362,5 @@ def test_elastic_plan_runs_and_matches_jax():
     cov, jcov = fuzz.CoverageMap(), jax_fuzz.CoverageMap()
     card, violations = fuzz.run_plan(plan, 0, cov, backend=_cpu())
     jcard, jviolations = jax_fuzz.run_plan(_jax_plan(plan), 0, jcov)
-    assert card == jcard and violations == jviolations and cov.to_json() == jcov.to_json()
+    assert card == port_card_of(jcard) and violations == jviolations and cov.to_json() == jcov.to_json()
     assert card["elasticity"]["enabled"] and card["elasticity"]["reclaim_orphans"] == 0

@@ -47,6 +47,7 @@ import tpu_scheduler_torch.models.profiles as profiles  # noqa: E402
 import tpu_scheduler_torch.sim as sim  # noqa: E402
 import tpu_scheduler_torch.sim.cli as sim_cli  # noqa: E402
 from tpu_scheduler_torch.backends.cuda import CudaBackend  # noqa: E402
+from test_torch_sim import port_card_of  # noqa: E402
 
 logging.getLogger("tpu_scheduler").setLevel(logging.ERROR)
 logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
@@ -58,12 +59,12 @@ PORT_PROFILES_DIR = ROOT / "tpu_scheduler_torch" / "learn" / "profiles"
 PORT = types.SimpleNamespace(
     name="port", env=env, search=search, objective=objective, distill=distill, profiles=profiles, sim=sim,
     learn_cli=learn_cli, profiles_dir=PORT_PROFILES_DIR, backend=lambda: CudaBackend(device="cpu"),
-    search_kw={"device": "cpu"},
+    search_kw={"device": "cpu"}, carry=lambda card: card,
 )
 JAX = types.SimpleNamespace(
     name="jax", env=jax_env, search=jax_search, objective=jax_objective, distill=jax_distill,
     profiles=jax_profiles, sim=jax_sim, learn_cli=jax_learn_cli, profiles_dir=JAX_PROFILES_DIR,
-    backend=NativeBackend, search_kw={},
+    backend=NativeBackend, search_kw={}, carry=port_card_of,
 )
 
 # A mid-box action distinct from the default vector on several knobs.
@@ -100,7 +101,7 @@ def _drive(pk, scenario="train-smoke", seed=0, window=1, actions=()):
         obs, reward, done, _info = e.step(acts.get(i))
         traj.append({"obs": obs, "reward": reward, "done": done})
         i += 1
-    return traj, e.card
+    return traj, pk.carry(e.card)
 
 
 # --- episodes ---------------------------------------------------------------
@@ -109,7 +110,7 @@ def _drive(pk, scenario="train-smoke", seed=0, window=1, actions=()):
 def test_none_action_episode_matches_run_scenario():
     def case(pk):
         _traj, card = _drive(pk)
-        plain = pk.sim.run_scenario("train-smoke", seed=0, backend=pk.backend())
+        plain = pk.carry(pk.sim.run_scenario("train-smoke", seed=0, backend=pk.backend()))
         assert json.dumps(card, sort_keys=True) == json.dumps(plain, sort_keys=True)
         return json.dumps(card, sort_keys=True)
 
@@ -214,10 +215,10 @@ def test_policy_floor_gates_the_verdict():
             workload=pk.sim.WorkloadSpec(initial_nodes=6, arrival_rate=4.0, lifetime_mean_s=6.0),
             policy_required=True, policy_objective_floor=0.1,
         )
-        ok = pk.sim.run_scenario(base, seed=0, backend=pk.backend())
+        ok = pk.carry(pk.sim.run_scenario(base, seed=0, backend=pk.backend()))
         assert ok["policy"]["ok"] and ok["pass"]
-        failed = pk.sim.run_scenario(dataclasses.replace(base, policy_objective_floor=100.0), seed=0,
-                                     backend=pk.backend())
+        failed = pk.carry(pk.sim.run_scenario(dataclasses.replace(base, policy_objective_floor=100.0), seed=0,
+                                              backend=pk.backend()))
         assert not failed["policy"]["ok"] and not failed["pass"]
         assert failed["fingerprint"] == ok["fingerprint"]
         return json.dumps(ok, sort_keys=True), json.dumps(failed, sort_keys=True)

@@ -54,6 +54,7 @@ import tpu_scheduler_torch.sim.harness as harness  # noqa: E402
 import tpu_scheduler_torch.testing as testing  # noqa: E402
 import tpu_scheduler_torch.topology.model as topology  # noqa: E402
 from tpu_scheduler_torch.backends.cuda import CudaBackend  # noqa: E402
+from test_torch_sim import port_card_of  # noqa: E402
 
 logging.getLogger("tpu_scheduler").setLevel(logging.ERROR)
 logging.getLogger("tpu_scheduler_torch").setLevel(logging.ERROR)
@@ -124,8 +125,11 @@ def _drained_nodes(pk, api):
 
 
 def _card(pk, name, seed, **kw):
+    """A scenario's card on ``pk``: the JAX card with its span census
+    carried over to the port's (``test_torch_sim.port_card_of``)."""
     backend = pk.backend()
-    return pk.harness.run_scenario(name, seed=seed, backend=backend, **kw)
+    card = pk.harness.run_scenario(name, seed=seed, backend=backend, **kw)
+    return port_card_of(card) if pk is JAX else card
 
 
 # -- victim taxonomy ----------------------------------------------------------

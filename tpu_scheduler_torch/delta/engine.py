@@ -33,7 +33,8 @@ score tie-break freedom; the PLACED SET and the unschedulable set may not).
 
 Port: a copy of ``tpu_scheduler/delta/engine.py``.  ``"mesh-rebind"`` is
 raised by the fleet (the controller's mesh-binding sync after a takeover or
-a resize).
+a resize).  The full-wave commit's rebuild has a span of its own
+(``delta/commit/rebuild``).
 """
 
 from __future__ import annotations
@@ -211,7 +212,8 @@ class DeltaEngine:
             self.full_solve_reasons[reason] = self.full_solve_reasons.get(reason, 0) + 1
             if self.metrics is not None:
                 self.metrics.inc("scheduler_full_solves_total", labels={"reason": reason})
-            self._rebuild(snapshot, packed, node_sig, placed, unschedulable, pending_all, res_memo)
+            with span("rebuild"):
+                self._rebuild(snapshot, packed, node_sig, placed, unschedulable, pending_all, res_memo)
             return
         st = self.state
         for pod, node in placed:

@@ -78,8 +78,17 @@ from ..models.profiles import DEFAULT_PROFILE, SchedulingProfile
 from ..ops.pack import extend_node_vocabs, pack_snapshot, repack_incremental
 from ..utils.events import SEGMENTS, FlightRecorder, waterfall
 from ..utils.metrics import CycleMetrics, MetricsRegistry, cycle_phases
-from ..utils.profiler import SLO_TIERS, ProfileRing, tier_of, tier_target, transfer_bytes_total
-from ..utils.tracing import Trace, current_trace, set_log_cycle, span
+from ..utils.profiler import (
+    SLO_TIERS,
+    ProfileRing,
+    gc_long_since,
+    gc_totals,
+    install_gc_clock,
+    tier_of,
+    tier_target,
+    transfer_bytes_total,
+)
+from ..utils.tracing import Trace, base_name, current_trace, profiler_range, set_log_cycle, span
 from .fake_api import ApiError, FakeApiServer
 from .reflector import ClusterReflector
 from .resilience import STATES, BackoffQueue, BreakerConfig, CircuitBreaker
@@ -331,6 +340,14 @@ class Scheduler:
         # in flight: (outcomes list, done event).
         self._bind_queue = None
         self._bind_inflight: tuple[list, threading.Event] | None = None
+        # The worker's finished batches not yet folded into a cycle's
+        # metrics: (dispatching cycle tag, perf_counter start and end, POSTs,
+        # failures, the worker thread's CPU seconds).
+        self._bind_lock = threading.Lock()
+        self._bind_done: list[tuple] = []  # guarded-by: _bind_lock
+        # Collector pauses are counted process-wide, on every thread; each
+        # cycle folds the change over its own run.
+        install_gc_clock()
         self._cycle_unschedulable: list[str] = []  # this cycle's no-node pods
         self._cycle_gangs: dict[str, set[str]] = {}  # gang -> CYCLE-wide member names
         # Leader election (SURVEY.md §5 — the reference has none): only the
@@ -1392,8 +1409,13 @@ class Scheduler:
             job = self._bind_queue.get()
             if job is None:
                 return
-            bindings, outcomes, done = job
-            t0 = time.perf_counter()
+            bindings, outcomes, done, tag = job
+            # The batch from its first POST to its last, with the thread's
+            # CPU seconds in it; the cycle that builds its metrics next
+            # folds it (``_take_bind_batches``).
+            prange = profiler_range("bind")
+            failures = 0
+            t0, cpu0 = time.perf_counter(), time.thread_time()
             for pod_full, node_name in bindings:
                 namespace, _, name = pod_full.rpartition("/")
                 try:
@@ -1401,8 +1423,19 @@ class Scheduler:
                     outcomes.append((pod_full, None))
                 except Exception as e:  # noqa: BLE001 — categorized on the main-thread drain
                     outcomes.append((pod_full, e))
-            outcomes.append(("__bind_seconds__", time.perf_counter() - t0))
+                    failures += 1
+            t1, cpu1 = time.perf_counter(), time.thread_time()
+            if prange is not None:
+                prange.__exit__(None, None, None)
+            with self._bind_lock:
+                self._bind_done.append((tag, t0, t1, len(bindings), failures, cpu1 - cpu0))
             done.set()
+
+    def _take_bind_batches(self) -> list[tuple]:
+        """The bind worker's batches finished since the last call."""
+        with self._bind_lock:
+            out, self._bind_done = self._bind_done, []
+        return out
 
     def _dispatch_binds(self, result) -> None:
         """Assume every binding, then hand the batch to the bind worker (at
@@ -1421,7 +1454,7 @@ class Scheduler:
         outcomes: list = []
         done = threading.Event()
         self._bind_inflight = (outcomes, done)
-        self._bind_queue.put((bindings, outcomes, done))
+        self._bind_queue.put((bindings, outcomes, done, self._cycle_tag))
 
     def _join_binds(self) -> None:
         """Wait for the in-flight bind batch (if any) and fold its outcomes
@@ -1434,11 +1467,6 @@ class Scheduler:
         self._bind_inflight = None
         unexpected: Exception | None = None
         for pod_full, err in outcomes:
-            if pod_full == "__bind_seconds__":
-                tr = current_trace()
-                if tr is not None:
-                    tr.record("bind", err)  # the overlapped POST time, attributed at drain
-                continue
             if err is None:
                 self.breaker.record(True)
                 self.metrics.inc("scheduler_bindings_total")
@@ -2266,6 +2294,7 @@ class Scheduler:
     # hotpath: cycle-driver
     def run_cycle(self) -> CycleMetrics:
         t0 = time.perf_counter()
+        gc0 = gc_totals()
         self._cycle_unschedulable = []
         self._cycle_placed = []
         self._cycle_gangs = {}
@@ -2295,7 +2324,8 @@ class Scheduler:
                     self.breaker.record(False, n=min(int(err_delta), 4))
                 elif self.reflector.healthy:
                     self.breaker.record(True)
-                snapshot = self.reflector.snapshot()
+                with span("snapshot"):
+                    snapshot = self.reflector.snapshot()
             # The "overlay" phase: every ledger/ownership/degraded-mode step
             # between the snapshot and the scheduling decision — previously
             # unattributed wall that landed in `other` (the coverage gate's
@@ -2527,6 +2557,7 @@ class Scheduler:
 
         self._cycle_count += 1
         wall = time.perf_counter() - t0
+        gc1 = gc_totals()
         top = trace.top_level()
         # The breakdown fields are DERIVED from the same phase set the
         # {phase=} metric series uses (metrics.cycle_phases): a depth-0 span
@@ -2558,8 +2589,9 @@ class Scheduler:
             ),
             **{f"{ph}_seconds": top.get(ph, 0.0) for ph in phase_set if ph != "other"},
         )
+        lanes = self._fold_beyond_phases(m, trace, gc0, gc1, t0)
         self.metrics.observe_cycle(m)
-        self.recorder.record_cycle(m.__dict__, trace.events, notes=self._cycle_notes)
+        self.recorder.record_cycle(m.__dict__, trace.events, notes=self._cycle_notes, lanes=lanes)
         # Continuous profiler: fold this cycle's attribution tree into the
         # ring (outside the measured wall — the ring never inflates the
         # cycle it records) and publish the device-transfer delta.
@@ -2570,6 +2602,29 @@ class Scheduler:
             self._xfer_folded = xfer
         set_log_cycle(None)
         return m
+
+    def _fold_beyond_phases(self, m: CycleMetrics, trace: Trace, gc0: tuple, gc1: tuple, t0: float) -> list[dict]:
+        """Fill ``m``'s fields beyond the phases — the nested spans, the
+        collector's pauses over the cycle, the bind worker's batches that
+        ended before now — and return the recorder's lanes: each batch, and
+        each pause of ``GC_LONG_S`` or more since the cycle began."""
+        for path, seconds in trace.durations.items():
+            if "/" in path:
+                key = "/".join(base_name(seg) for seg in path.split("/"))
+                m.spans[key] = m.spans.get(key, 0.0) + seconds
+        m.gc_pause_s = gc1[0] - gc0[0]
+        m.gc_collections = [b - a for a, b in zip(gc0[1], gc1[1])]
+        lanes = []
+        for tag, b0, b1, posts, failures, cpu in self._take_bind_batches():
+            m.bind_posts += posts
+            m.bind_failures += failures
+            m.bind_wall_s += b1 - b0
+            m.bind_cpu_s += cpu
+            lanes.append({"lane": "bind", "name": "bind", "start": trace.wall(b0), "end": trace.wall(b1),
+                          "cycle": tag, "posts": posts, "failures": failures, "cpu_s": cpu})
+        for gen, s, e in gc_long_since(trace.wall(t0)):
+            lanes.append({"lane": "gc", "name": f"gc gen{gen}", "start": s, "end": e, "generation": gen})
+        return lanes
 
     def _delta_shadow_check(self, snapshot: ClusterSnapshot, eligible: list[Pod], pending_all: list[Pod]) -> None:
         """Shadow-solve parity (sampled): solve the FULL eligible

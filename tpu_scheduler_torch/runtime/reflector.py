@@ -12,7 +12,8 @@ Watch errors follow the reference's resilience contract (``main.rs:136-138``:
 poll emits no events, keeps the last-known store, and schedules the next
 attempt with exponential backoff + jitter instead of crashing the loop.
 
-Port: a copy of ``tpu_scheduler/runtime/reflector.py``, unchanged (pure host code).
+Port: a copy of ``tpu_scheduler/runtime/reflector.py`` (pure host code),
+with the ``poll`` and ``fold`` spans.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import zlib
 
 from ..api.objects import Node
 from ..core.snapshot import ClusterSnapshot
+from ..utils.tracing import span
 from .fake_api import ApiError, Watch, WatchEvent
 
 __all__ = ["Reflector", "ClusterReflector"]
@@ -70,7 +72,16 @@ class Reflector:
         """Drain the watch and fold events into the store; returns the events
         (the ``touched_objects`` stream, main.rs:137).  On a transient watch
         failure: no events, store unchanged, exponential backoff until the
-        next attempt (main.rs:136) — the error is counted, never raised."""
+        next attempt (main.rs:136) — the error is counted, never raised.
+        One ``poll`` and one ``fold`` span a call, whatever the poll gives,
+        so their counts follow the cycles alone."""
+        with span("poll"):
+            events = self._poll()
+        with span("fold"):
+            self._fold(events)
+        return events
+
+    def _poll(self) -> list[WatchEvent]:
         now = self._clock()
         if now < self._retry_at:
             return []
@@ -86,6 +97,9 @@ class Reflector:
         self._backoff = 0.0
         self._retry_at = 0.0
         self.last_error = None  # recovered — don't report stale errors
+        return events
+
+    def _fold(self, events: list[WatchEvent]) -> None:
         for ev in events:
             key = self._key(ev.object)
             if ev.type == "DELETED":
@@ -98,7 +112,6 @@ class Reflector:
             if self._on_event is not None:
                 self._on_event(key, prev, new)
             self.events_seen += 1
-        return events
 
     @property
     def healthy(self) -> bool:
@@ -215,12 +228,14 @@ class ClusterReflector:
 
     def sync(self) -> tuple[int, int]:
         """Drain both watches; returns (node_events, pod_events).  Batch pod
-        listeners flush here — one call with the whole drained event list."""
+        listeners flush here — one call with the whole drained event list,
+        in a ``fold`` span of its own (opened every call)."""
         out = len(self.nodes.sync()), len(self.pods.sync())
-        if self._pod_event_batch:
-            batch, self._pod_event_batch = self._pod_event_batch, []
-            for fn in self._pod_batch_listeners:
-                fn(batch)
+        with span("fold"):
+            if self._pod_event_batch:
+                batch, self._pod_event_batch = self._pod_event_batch, []
+                for fn in self._pod_batch_listeners:
+                    fn(batch)
         return out
 
     def take_deleted_pods(self) -> list[tuple[str | None, str]]:

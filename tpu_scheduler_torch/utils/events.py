@@ -17,7 +17,10 @@ and is counted, never silent.
 trace-event JSON (the ``{"traceEvents": [...]}`` object form) loadable in
 Perfetto / chrome://tracing, with the device-trace directory linked when
 ``--profile-dir`` is set — plus one track per tracked pod (pid 2) showing
-its admission waterfall as segment slices.  Served by
+its admission waterfall as segment slices.  A cycle record's ``lanes``
+hold work that is not a span of the cycle's thread: the bind worker's
+batches and the collector's long pauses, each lane on a track
+(``LANE_TIDS``) beside the cycle's spans.  Served by
 ``runtime/http_api.py`` under ``/debug/pods/<ns>/<name>``, ``/debug/cycles``
 and ``/debug/trace``.
 
@@ -29,7 +32,8 @@ kind via ``SEGMENT_OF_KIND``), with anything unmapped surfaced as
 catches.  Latency math reads the ``t`` stamp (the injected scheduler clock:
 virtual seconds in the sim, monotonic in the daemon), never wall ``ts``.
 
-Port: a copy of ``tpu_scheduler/utils/events.py``, unchanged (pure host code).
+Port: a copy of ``tpu_scheduler/utils/events.py`` (pure host code), with
+the cycle records' ``lanes``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,12 @@ import threading
 import time
 from collections import OrderedDict, deque
 
-__all__ = ["FlightRecorder", "EVENT_KINDS", "SEGMENTS", "SEGMENT_OF_KIND", "waterfall"]
+__all__ = ["FlightRecorder", "EVENT_KINDS", "SEGMENTS", "SEGMENT_OF_KIND", "LANE_TIDS", "waterfall"]
+
+# The closed set of cycle-record lanes, each drawn on its own track (pid 1,
+# beside the cycle spans on tid 1): ``bind`` the bind worker's batches
+# (first POST to last), ``gc`` the collector's pauses of 10 ms or more.
+LANE_TIDS = {"bind": 2, "gc": 3}
 
 # The closed vocabulary of per-pod verdicts (one place, so the debug API and
 # tests can validate timelines against it).
@@ -288,10 +297,19 @@ class FlightRecorder:
 
     # -- per-cycle records ---------------------------------------------------
 
-    def record_cycle(self, metrics: dict, spans: list[tuple[str, float, float]], notes: list[str] | None = None) -> None:
+    def record_cycle(
+        self,
+        metrics: dict,
+        spans: list[tuple[str, float, float]],
+        notes: list[str] | None = None,
+        lanes: list[dict] | None = None,
+    ) -> None:
         """Retain one cycle: its CycleMetrics dict, its span INTERVALS
-        (name, wall_start, wall_end — the chrome_trace source), and any
-        cycle-level annotations (backend-fallback etc.)."""
+        (name, wall_start, wall_end — the chrome_trace source), any
+        cycle-level annotations (backend-fallback etc.), and its ``lanes``:
+        intervals off the cycle's thread (``{"lane", "name", "start",
+        "end", ...}``, the lane one of ``LANE_TIDS``), kept apart from
+        ``spans``, whose slash-free entries are the cycle's phases."""
         if not self.enabled:
             return
         rec = {
@@ -301,6 +319,8 @@ class FlightRecorder:
         }
         if notes:
             rec["notes"] = list(notes)
+        if lanes:
+            rec["lanes"] = [dict(x) for x in lanes]
         with self._lock:
             self._cycles.append(rec)
 
@@ -310,7 +330,11 @@ class FlightRecorder:
         if n is not None:
             out = out[-n:]
         return [
-            {**rec, "spans": [{"name": s[0], "start": s[1], "end": s[2]} for s in rec["spans"]]}
+            {
+                **rec,
+                "spans": [{"name": s[0], "start": s[1], "end": s[2]} for s in rec["spans"]],
+                **({"lanes": [dict(x) for x in rec["lanes"]]} if "lanes" in rec else {}),
+            }
             for rec in out
         ]
 
@@ -326,15 +350,33 @@ class FlightRecorder:
         side.  Tracked pods get their own process (pid 2, one thread per
         pod — the most recently updated 64): each timeline renders as its
         admission-waterfall segments, so a pod's journey reads as a lane of
-        named slices under the cycle spans."""
+        named slices under the cycle spans.  Lane intervals (the bind
+        worker's batches, long collector pauses) draw on their own tids of
+        pid 1 (``LANE_TIDS``), named by ``thread_name`` metadata."""
         with self._lock:
             recs = list(self._cycles)
             pod_tls = [(pf, list(tl)) for pf, tl in list(self._timelines.items())[-64:]]
         if n_cycles is not None:
             recs = recs[-n_cycles:]
         events: list[dict] = []
+        lanes_seen: set[str] = set()
         for rec in recs:
             cycle = rec["metrics"].get("cycle")
+            for lane in rec.get("lanes", ()):
+                lanes_seen.add(lane["lane"])
+                t0, t1 = lane["start"], lane["end"]
+                events.append(
+                    {
+                        "name": lane["name"],
+                        "cat": "scheduler",
+                        "ph": "X",
+                        "ts": round(t0 * 1e6, 3),
+                        "dur": round(max(0.0, t1 - t0) * 1e6, 3),
+                        "pid": 1,
+                        "tid": LANE_TIDS[lane["lane"]],
+                        "args": {k: v for k, v in lane.items() if k not in ("lane", "name", "start", "end")},
+                    }
+                )
             for name, t0, t1 in rec["spans"]:
                 # Span names are hierarchical PATHS (utils/tracing.py:
                 # ``solve/round[03]/score``); Perfetto nests ``X`` slices on
@@ -366,6 +408,10 @@ class FlightRecorder:
                     "tid": 1,
                     "s": "g",
                 }
+            )
+        for lane in sorted(lanes_seen, key=LANE_TIDS.get):
+            events.append(
+                {"name": "thread_name", "ph": "M", "pid": 1, "tid": LANE_TIDS[lane], "args": {"name": f"{lane} lane"}}
             )
         # Per-pod waterfall tracks (pid 2): each inter-event interval that
         # maps to a segment becomes one X slice on the pod's own tid.  Wall

@@ -15,7 +15,8 @@ Thread-safety contract: every mutation AND every read path goes through
 ``_snapshot_full()`` so a worker-thread ``inc`` can never race the /metrics
 scrape mid-iteration (dict-resize under iteration was a real crash class).
 
-Port: a copy of ``tpu_scheduler/utils/metrics.py``, unchanged (pure host code).
+Port: a copy of ``tpu_scheduler/utils/metrics.py`` (pure host code), with
+``CycleMetrics``' fields beyond the phases: ``spans``, ``gc_*``, ``bind_*``.
 """
 
 from __future__ import annotations
@@ -146,6 +147,22 @@ class CycleMetrics:
     # so elastic-capacity cost can never hide in `other`.
     autoscale_seconds: float = 0.0
     other_seconds: float = 0.0  # wall minus every attributed phase
+    # -- not phases: none of these ends in ``_seconds`` (cycle_phases) ------
+    # They nest inside the phases, or run on another thread, so they never
+    # add up with them.  ``spans``: nested span seconds by path (depth 1 and
+    # below, each segment at its base name: ``solve/round``).
+    spans: dict = field(default_factory=dict)
+    # Collector pauses inside the cycle, on every thread
+    # (utils/profiler.install_gc_clock), and the collections by generation.
+    gc_pause_s: float = 0.0
+    gc_collections: list = field(default_factory=lambda: [0, 0, 0])
+    # The pipelined bind worker's batches that ended during the cycle: its
+    # POSTs, their failures, the seconds from first POST to last, and the
+    # worker thread's CPU seconds in them (wall − cpu: time it waited).
+    bind_posts: int = 0
+    bind_failures: int = 0
+    bind_wall_s: float = 0.0
+    bind_cpu_s: float = 0.0
 
     @property
     def pods_per_second(self) -> float:

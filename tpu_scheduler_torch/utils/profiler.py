@@ -20,6 +20,13 @@ Three pieces:
     builds through) and their seconds, and lands each in the active trace
     as a ``compile`` span; ``record_transfer`` counts host→device bytes at
     the CudaBackend's upload-cache seam (its misses).
+  • **Collector clock** — ``install_gc_clock`` hooks ``gc.callbacks`` once
+    per process: pause seconds and collections by generation on every
+    thread (``gc_totals``), and the interval of each collection of 10 ms or
+    more (``gc_long_since``).  The controller folds the change over each
+    cycle into ``CycleMetrics`` and the recorder's ``gc`` lane.  Pauses
+    are not spans: when a collection fires depends on the heap, and the
+    span census must stay a pure function of control flow.
 
 SLO burn: ``tier_of`` maps pod priority to a closed tier set with per-tier
 time-to-bind targets (``SLO_TIERS``); the controller's pending-age tracker
@@ -40,6 +47,7 @@ serve the HTTP debug routes (``runtime/http_api.py``).
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 
@@ -60,6 +68,9 @@ __all__ = [
     "span_cost_estimate",
     "record_transfer",
     "transfer_bytes_total",
+    "install_gc_clock",
+    "gc_totals",
+    "gc_long_since",
 ]
 
 # The closed vocabulary of span base names (indexed spans like ``round[03]``
@@ -87,6 +98,9 @@ SPAN_CATALOGUE = (
     "index",       # delta sub-span: watch-event fold into the SolveState
     "close",       # delta sub-span: invalidation closure over standing verdicts
     "repack",      # delta sub-span: carried residual-capacity materialization
+    "rebuild",     # delta/commit sub-span: SolveState rebuild after a full wave
+    "poll",        # sync sub-span: one watch poll (each reflector, each cycle)
+    "fold",        # sync sub-span: watch events into the store and index, and the batch-listener flush
     "shadow",      # delta sub-span: sim-only full-solve parity check
     "round",       # one auction round (native backend round loop)
     "mask",        # per-round constraint/topology mask build
@@ -97,7 +111,7 @@ SPAN_CATALOGUE = (
     "pa",          # filter sub-span: positive-affinity bootstrap min-rank
     "spread",      # filter sub-span: spread rank-prefix admission + cascade
     "commit",      # choose sub-span: domain-state commit of accepted claims
-    "snapshot",    # rebalance sub-span: consistent packing-view build
+    "snapshot",    # rebalance sub-span: consistent packing-view build / sync sub-span: reflector snapshot build
     "plan",        # rebalance sub-span: batch selection / autoscale sub-span: catalog what-if
     "migrate",     # rebalance sub-span: breaker-gated unbinds + cordons
     "pump",        # autoscale sub-span: provider lifecycle pump (joins, reclaims, kills)
@@ -487,3 +501,49 @@ def compile_listener_active(backend=None) -> bool:
     nothing is built, so the count is vacuously zero (as under the JAX
     package's NativeBackend)."""
     return getattr(getattr(backend, "device", None), "type", None) == "cuda"
+
+
+# -- collector clock -----------------------------------------------------------
+
+# Collections of at least this many seconds keep their interval (the
+# recorder's ``gc`` lane); shorter ones are only counted.
+GC_LONG_S = 0.010
+
+# The hook's state, each a single cell replaced whole (never mutated in
+# place): a reader on another thread takes one consistent value without a
+# lock, and the callback takes no lock a collecting thread could hold.
+_gc_start = [0.0]  # perf_counter stamp of the running collection's start
+_gc_total: list = [(0.0, (0, 0, 0))]  # (pause seconds, collections by generation)
+_gc_long: list = [()]  # ((generation, wall start, wall end), ...), the newest 64
+
+
+def _gc_callback(phase: str, info: dict) -> None:
+    if phase == "start":
+        _gc_start[0] = time.perf_counter()
+        return
+    dt = time.perf_counter() - _gc_start[0]
+    g = info["generation"]
+    pause, counts = _gc_total[0]
+    _gc_total[0] = (pause + dt, tuple(c + (i == g) for i, c in enumerate(counts)))
+    if dt >= GC_LONG_S:
+        end = time.time()
+        _gc_long[0] = (_gc_long[0] + ((g, end - dt, end),))[-64:]
+
+
+def install_gc_clock() -> None:
+    """Hook the collector clock into ``gc.callbacks``; a second install is a
+    no-op (every scheduler of a process installs it)."""
+    if _gc_callback not in gc.callbacks:
+        gc.callbacks.append(_gc_callback)
+
+
+def gc_totals() -> tuple[float, tuple[int, int, int]]:
+    """(pause seconds, collections by generation) since the hook went in,
+    over every thread of the process."""
+    return _gc_total[0]
+
+
+def gc_long_since(wall: float) -> list[tuple[int, float, float]]:
+    """(generation, wall start, wall end) of each collection of at least
+    ``GC_LONG_S`` that ended at or after ``wall``."""
+    return [c for c in _gc_long[0] if c[2] >= wall]

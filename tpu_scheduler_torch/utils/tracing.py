@@ -18,7 +18,11 @@ thread's tree (the THRD stance: no shared mutable state, no lock needed).
 
 ``device_profile(dir)`` wraps ``torch.profiler``: a Chrome trace of the
 host and (when CUDA is up) the card, written into ``dir``; inert when
-``dir`` is None, and it raises when a trace was asked for but cannot start.  ``configure_logging`` grows a
+``dir`` is None, and it raises when a trace was asked for but cannot start.
+While any ``torch.profiler`` records, each depth-0 span (a cycle phase)
+also opens a profiler range of its own name (``profiler_range``), so the
+profiler's trace holds the phases on its own clock beside the kernels;
+the recorder's intervals stay on the wall clock.  ``configure_logging`` grows a
 ``--log-format json`` path: one JSON object per line (ts, level, logger,
 msg, cycle) so the daemon's logs are machine-parseable; ``set_log_cycle``
 tags every line emitted during a cycle with its number.
@@ -43,6 +47,7 @@ __all__ = [
     "current_trace",
     "base_name",
     "device_profile",
+    "profiler_range",
     "configure_logging",
     "JsonLogFormatter",
     "set_log_cycle",
@@ -144,15 +149,16 @@ class Trace:
         self._perf0 = time.perf_counter()
         self._path = ""  # the currently open span path ("" = top level)
 
-    def _wall(self, perf_t: float) -> float:
+    def wall(self, perf_t: float) -> float:
+        """A ``perf_counter`` stamp on this trace's wall clock (the clock of
+        its span intervals)."""
         return self._wall0 + (perf_t - self._perf0)
 
     def record(self, name: str, seconds: float, perf_start: float | None = None) -> None:
         """Record a span as a child of the currently open path.  ``perf_start``
         (a perf_counter stamp) gives the exact interval; without it the
-        interval is synthesized as ending now — the overlapped-bind drain
-        knows only its duration, and an approximate box in the trace beats
-        an invisible one."""
+        interval is synthesized as ending now (a kernel build, or work timed
+        elsewhere that ended just before the call)."""
         path = f"{self._path}/{name}" if self._path else name
         self._record_path(path, seconds, perf_start)
 
@@ -160,7 +166,7 @@ class Trace:
         self.durations[path] = self.durations.get(path, 0.0) + seconds
         self.counts[path] = self.counts.get(path, 0) + 1
         end = time.perf_counter() if perf_start is None else perf_start + seconds
-        self.events.append((path, self._wall(end - seconds), self._wall(end)))
+        self.events.append((path, self.wall(end - seconds), self.wall(end)))
 
     def __enter__(self) -> "Trace":
         _stack().append(self)
@@ -186,13 +192,48 @@ def current_trace() -> Trace | None:
     return s[-1] if s else None
 
 
+# The Python-side flag every ``torch.profiler`` session sets while it
+# records (``torch.autograd.profiler._is_profiler_enabled``): unlike
+# ``torch._C._autograd._profiler_enabled()``, which reads the profiler's
+# thread-local state, it reads True on every thread, so the bind worker sees
+# a session its own thread did not start.  Resolved at the first depth-0
+# span, so importing this module never imports torch.
+_profiler_module: list = [None]
+
+
+def _profiling() -> bool:
+    mod = _profiler_module[0]
+    if mod is None:
+        import torch.autograd.profiler as mod
+
+        _profiler_module[0] = mod
+    return mod._is_profiler_enabled
+
+
+def profiler_range(name: str):
+    """An open profiler range named ``name`` while a ``torch.profiler``
+    records, else None; the caller closes it with ``__exit__(None, None,
+    None)``.  The range is a plain CPU op (``_RecordFunctionFast``), not a
+    user annotation: the profiler mirrors user annotations onto the device
+    timeline as device events, and a phase must not read as device work."""
+    if not _profiling():
+        return None
+    import torch
+
+    rf = torch._C._profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
 class span:
     """Time a block into the active trace (hierarchically).  A plain class
     context manager, not @contextmanager: this sits on the per-round hot
     path and the generator protocol costs ~2 µs per use that a __slots__
-    class does not (the <2 % profiler-overhead budget is built from this)."""
+    class does not (the <2 % profiler-overhead budget is built from this).
+    A depth-0 span (a cycle phase) also opens a profiler range while a
+    ``torch.profiler`` records; nested spans never check."""
 
-    __slots__ = ("name", "_t0", "_tr", "_prev")
+    __slots__ = ("name", "_t0", "_tr", "_prev", "_range")
 
     def __init__(self, name: str):
         self.name = name
@@ -200,10 +241,15 @@ class span:
     def __enter__(self) -> "span":
         s = getattr(_tls, "stack", None)
         tr = self._tr = s[-1] if s else None
+        self._range = None
         if tr is not None:
             prev = tr._path
             self._prev = prev
-            tr._path = f"{prev}/{self.name}" if prev else self.name
+            if prev:
+                tr._path = f"{prev}/{self.name}"
+            else:
+                tr._path = self.name
+                self._range = profiler_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
@@ -214,13 +260,17 @@ class span:
             path = tr._path
             tr._path = self._prev
             tr._record_path(path, dt, self._t0)
+            if self._range is not None:
+                self._range.__exit__(None, None, None)
 
 
 @contextlib.contextmanager
 def device_profile(log_dir: str | None):
     """``torch.profiler`` trace around a block, exported as a Chrome trace
     (``device_trace.json``) into ``log_dir``; inert when ``log_dir`` is
-    None.  A trace that was asked for and cannot start raises."""
+    None.  A trace that was asked for and cannot start raises.  It records
+    every thread, so the bind worker's batches (``bind`` ranges) sit in it
+    beside the main thread's phases and the kernels."""
     if not log_dir:
         yield
         return
@@ -233,7 +283,10 @@ def device_profile(log_dir: str | None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
+    prof = profile(
+        activities=activities,
+        experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True),
+    )
     prof.__enter__()
     try:
         yield
