@@ -38,8 +38,10 @@ class FakeClock:
 
 PACKED_ARRAYS = ("node_alloc", "node_avail", "node_labels", "node_taints", "node_aff", "node_valid",
                  "node_taints_soft", "node_pref")
-# Counters the two packages keep differently by construction.
-UNCOMPARED = ("scheduler_device_transfer_bytes_total",)
+# Counters the two packages keep differently by construction (the last
+# three only the port keeps).
+UNCOMPARED = ("scheduler_device_transfer_bytes_total", "scheduler_delta_early_escalations_total",
+              "scheduler_assumed_overlay_view_pods_total", "scheduler_assumed_overlay_cloned_pods_total")
 
 
 def _mods(port):
@@ -107,6 +109,47 @@ def test_checkpoint_files_match_jax(tmp_path):
     for k in PACKED_ARRAYS:
         assert p_arrays[k].dtype == j_arrays[k].dtype, k
         np.testing.assert_array_equal(p_arrays[k], j_arrays[k], err_msg=k)
+
+
+def _saved_after_wave(port, path):
+    """A cold wave, then a wave whose pending pods pass the overflow
+    threshold (it escalates before the fold), saved right after it."""
+    nodes, pods = _cluster()
+    api, sched, clock, conv = _world(port, nodes, pods)
+    sched.delta.OVERFLOW_MIN, sched.delta.OVERFLOW_FRAC = 4, 0.1
+    sched.run_cycle()
+    for i in range(24):
+        api.create_pod(conv(jt.make_pod(f"wave-{i}", cpu="100m", memory="128Mi")))
+    clock.t += 5.0
+    sched.run_cycle()
+    _mods(port)[2].save_scheduler(sched, str(path))
+    return sched
+
+
+def test_checkpoint_after_escalated_wave_matches_jax(tmp_path):
+    """A checkpoint taken right after a wave that escalated before the fold
+    writes the JAX package's files, though the port's placement ledger is
+    still unwritten then (the save reads none of it); read afterwards, both
+    ledgers and the engine's stats are the JAX package's."""
+    ps = _saved_after_wave(True, tmp_path / "port")
+    assert ps.delta.state._deferred is not None
+    js = _saved_after_wave(False, tmp_path / "jax")
+    p_state, p_arrays = _files(tmp_path / "port")
+    j_state, j_arrays = _files(tmp_path / "jax")
+    assert p_state == j_state
+    assert p_state["delta"]["full_solve_reasons"] == {"closure-overflow": 1, "cold": 1}
+    assert ps.metrics.snapshot().get("scheduler_delta_early_escalations_total") == 1
+    assert sorted(p_arrays) == sorted(j_arrays)
+    for k in p_arrays:
+        np.testing.assert_array_equal(p_arrays[k], j_arrays[k], err_msg=k)
+    assert ps.delta.stats() == js.delta.stats()
+    for st, other in ((ps.delta.state, js.delta.state),):
+        assert sorted(st.unsched.items()) == sorted(other.unsched.items())
+        assert sorted((pf, r, n, tuple(int(x) for x in q)) for pf, (r, n, q) in st.placements.items()) == \
+            sorted((pf, r, n, tuple(int(x) for x in q)) for pf, (r, n, q) in other.placements.items())
+        assert (st.used64 == other.used64).all() and (st.alloc64 == other.alloc64).all()
+    ps.close()
+    js.close()
 
 
 def _restored_view(sched):

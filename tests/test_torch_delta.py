@@ -11,6 +11,7 @@ raise is driven; ``delta_shadow_every=1`` holds the delta cycle to the full
 solve with zero mismatches."""
 
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -78,6 +79,11 @@ class World:
     def create_pod(self, p):
         self.api.create_pod(self.pod(p))
 
+    def bind_out_of_band(self, namespace, name, node):
+        """Another binder's POST, past any hold on this world's own."""
+        mod = objects if self.port else jax_objects
+        type(self.api).create_binding(self.api, namespace, name, mod.ObjectReference(name=node))
+
     def scheduler(self, profile_kw=None, requeue_seconds=0.0, seed=7, **kw):
         profile = (PROFILES if self.port else JAX_PROFILES)["default"].with_(**(profile_kw or {}))
         mod = controller if self.port else jax_controller
@@ -90,11 +96,13 @@ class World:
     def checkpoint(self):
         return checkpoint_mod if self.port else jax_checkpoint
 
-    def cycle(self, sched, audit=True):
+    def cycle(self, sched, audit=True, read=True):
+        """One cycle and its row; ``read=False`` leaves the ledgers unread
+        (and unaudited) after it, as a cycle of the daemon does."""
         m = sched.run_cycle()
         st = sched.delta.state if sched.delta is not None else None
         ledger = None
-        if st is not None:
+        if st is not None and read:
             ledger = (sorted(st.unsched.items()),
                       sorted((pf, r, node, tuple(int(x) for x in req)) for pf, (r, node, req) in st.placements.items()))
             if audit:
@@ -434,6 +442,138 @@ def sc_mesh_rebind(w):
     return b
 
 
+def _hold_binds(w, s):
+    """Hold the bind worker's POSTs until the returned event is set; a
+    dispatch while a held batch is in flight sets it first, so the batch
+    completes before the next is handed over."""
+    gate = threading.Event()
+    post = w.api.create_binding
+    dispatch = s._dispatch_binds
+
+    def held_post(namespace, name, target):
+        gate.wait(30.0)
+        return post(namespace, name, target)
+
+    def dispatch_releasing(result):
+        if s._bind_inflight is not None and not s._bind_inflight[1].is_set():
+            gate.set()
+        dispatch(result)
+
+    w.api.create_binding = held_post
+    s._dispatch_binds = dispatch_releasing
+    return gate
+
+
+def sc_cycle_beside_inflight_binds(w):
+    """Cycles while a pipelined bind batch is held in flight: first with
+    nothing but its assumed pods pending (the port overlays them through a
+    view of the snapshot), then with new pods pending beside them (bound
+    clones); the batch's confirmations then fold against a ledger no one
+    has read since the wave (the port's is still deferred)."""
+    w.load([jt.make_node(f"n{i}", cpu="4", memory="8Gi") for i in range(3)], [jt.make_pod("b0", cpu="1", memory="1Gi")])
+    s = w.scheduler(pipeline=True)
+    w.cycle(s)
+    s._join_binds()
+    gate = _hold_binds(w, s)
+    w.cycle(s)  # warm: a delta cycle with nothing to do
+    for i in range(4):
+        w.create_pod(jt.make_pod(f"a{i}", cpu="1", memory="1Gi"))
+    w.cycle(s, read=False)
+    assert not gate.is_set()
+    m = w.cycle(s, read=False)
+    if w.port:
+        assert m.spans.get("overlay/assumed_view_pods") == 4 and "overlay/assumed_cloned_pods" not in m.spans
+        assert s.metrics.snapshot().get("scheduler_assumed_overlay_view_pods_total") == 4
+    gate.clear()
+    for i in range(3):
+        w.create_pod(jt.make_pod(f"c{i}", cpu="500m", memory="512Mi"))
+    m = w.cycle(s)
+    if w.port:
+        assert m.spans.get("overlay/assumed_cloned_pods") == 4 and "overlay/assumed_view_pods" not in m.spans
+    gate.set()
+    s._join_binds()
+    w.cycle(s)
+    w.cycle(s)
+    return s
+
+
+def sc_early_overflow(w):
+    """A wave whose pending pods without a standing verdict already pass
+    the overflow threshold escalates before the fold; the ledgers after the
+    rebuild (left unread through the wave's drain) and the next delta
+    cycle hold."""
+    w.load([jt.make_node("n1", cpu="64", memory="128Gi"), jt.make_node("n2", cpu="64", memory="128Gi")],
+           [jt.make_pod("b0", cpu="1", memory="1Gi")])
+    s = w.scheduler(pipeline=True)
+    s.delta.OVERFLOW_MIN = 2
+    w.cycle(s)
+    s._join_binds()
+    w.api.delete_pod("default", "b0")
+    for i in range(8):
+        w.create_pod(jt.make_pod(f"wave-{i}", cpu="100m", memory="64Mi"))
+    m = w.cycle(s, read=False)
+    if w.port:
+        assert m.spans.get("delta/early_escalations") == 1 and s.delta.state._deferred is not None
+        assert s.metrics.snapshot().get("scheduler_delta_early_escalations_total") == 1
+    s._join_binds()
+    w.cycle(s, read=False)  # folds the wave's confirmations
+    if w.port:
+        assert s.delta.state._deferred is not None
+    w.create_pod(jt.make_pod("late", cpu="100m", memory="64Mi"))
+    w.cycle(s)
+    s._join_binds()
+    w.cycle(s)
+    return s
+
+
+def sc_deferred_rebind(w):
+    """While a wave's ledger is still unread, one of its pods is bound out
+    of band to another node than the wave chose (the wave's own POST then
+    meets a 409): the fold of the wave's bindings moves that pod's mass."""
+    w.load([jt.make_node("n1", cpu="64", memory="128Gi"), jt.make_node("n2", cpu="64", memory="128Gi")],
+           [jt.make_pod("b0", cpu="1", memory="1Gi")])
+    s = w.scheduler(pipeline=True)
+    s.delta.OVERFLOW_MIN = 2
+    w.cycle(s)
+    s._join_binds()
+    gate = _hold_binds(w, s)
+    for i in range(8):
+        w.create_pod(jt.make_pod(f"wave-{i}", cpu=f"{i + 1}00m", memory="64Mi"))
+    w.cycle(s, read=False)
+    chosen = s._assumed["default/wave-3"]
+    other = "n1" if chosen == "n2" else "n2"
+    w.bind_out_of_band("default", "wave-3", other)
+    gate.set()
+    s._join_binds()
+    w.cycle(s, read=False)
+    if w.port:
+        assert s.delta.state._deferred is None  # the rebind was no confirmation
+    w.cycle(s)
+    return s
+
+
+def sc_early_overflow_vocab(w):
+    """A wave that overflows and also binds a pod naming an extended
+    resource outside the vocabulary escalates as "vocab-change", decided
+    before the fold as well."""
+    w.load([jt.make_node("n1", cpu="64", memory="128Gi", extended={"example.com/fpga": "4"})],
+           [jt.make_pod("p0", cpu="1", memory="1Gi")])
+    s = w.scheduler()
+    s.delta.OVERFLOW_MIN = 2
+    w.cycle(s)
+    w.create_pod(jt.make_pod("pinned", cpu="1", memory="1Gi", extended={"example.com/fpga": "1"}, node_name="n1",
+                             phase="Running"))
+    for i in range(8):
+        w.create_pod(jt.make_pod(f"wave-{i}", cpu="100m", memory="64Mi"))
+    m = w.cycle(s)
+    if w.port:
+        assert m.spans.get("delta/early_escalations") == 1
+    assert s.delta.stats()["full_solve_reasons"] == {"cold": 1, "vocab-change": 1}
+    w.create_pod(jt.make_pod("late", cpu="100m", memory="64Mi"))
+    w.cycle(s)
+    return s
+
+
 SCENARIOS = {
     "standing_verdict": (sc_standing_verdict, None),
     "unrelated_node_churn": (sc_unrelated_node_churn, None),
@@ -453,6 +593,10 @@ SCENARIOS = {
     "restore": (sc_restore, "restore"),
     "shadow": (sc_shadow, None),
     "mesh_rebind": (sc_mesh_rebind, "mesh-rebind"),
+    "cycle_beside_inflight_binds": (sc_cycle_beside_inflight_binds, None),
+    "early_overflow": (sc_early_overflow, "closure-overflow"),
+    "early_overflow_vocab": (sc_early_overflow_vocab, "vocab-change"),
+    "deferred_rebind": (sc_deferred_rebind, "closure-overflow"),
 }
 
 

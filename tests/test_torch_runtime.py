@@ -125,6 +125,43 @@ def test_circuit_breaker_transitions_match():
     assert out["port"][1], "the script trips the breaker"
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_circuit_breaker_success_runs_match(seed):
+    """``record_successes(n)`` on the port's breaker against ``n`` calls of
+    ``record(True)`` on the JAX package's, after seeded histories of
+    outcomes and clock steps (closed with and without failures in the
+    window, open, half-open; ratios that can and cannot trip): the same
+    state, transitions and answers after the run and after more outcomes."""
+    rng = random.Random(seed)
+    for _ in range(200):
+        cfg = dict(window=rng.randint(1, 12), min_samples=rng.randint(1, 10),
+                   failure_ratio=rng.choice((0.0, 0.3, 0.5, 1.0, 1.5)), open_seconds=rng.choice((0.5, 3.0)))
+        history = [(rng.random() < 0.7, rng.choice((0.0, 0.5, 2.0))) for _ in range(rng.randint(0, 30))]
+        n = rng.randint(0, 40)
+        after = [(rng.random() < 0.7, rng.choice((0.0, 1.0))) for _ in range(5)]
+        out = {}
+        for tag, mods in (("port", PORT), ("jax", JAX)):
+            clock = Clock()
+            seen = []
+            br = mods["resilience"].CircuitBreaker(clock=clock, config=mods["resilience"].BreakerConfig(**cfg),
+                                                    on_transition=lambda t, frm, to: seen.append((t, frm, to)))
+            for ok, dt in history:
+                clock.t += dt
+                br.record(ok)
+            if tag == "port":
+                br.record_successes(n)
+            else:
+                for _ in range(n):
+                    br.record(True)
+            states = [(br.mode(), br.debug(clock.t))]
+            for ok, dt in after:
+                clock.t += dt
+                br.record(ok)
+                states.append((br.mode(), br.debug(clock.t)))
+            out[tag] = (states, seen, br.open_intervals(clock.t))
+        assert out["port"] == out["jax"], cfg
+
+
 # --- the in-process API server and the reflector -------------------------------
 
 

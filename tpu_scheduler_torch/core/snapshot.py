@@ -64,6 +64,10 @@ class ClusterSnapshot:
     _placed_with_terms: list = field(default_factory=list, compare=False, repr=False)
     # Lazy pending-pod memo (the snapshot is immutable, so one scan suffices).
     _pending: list | None = field(default=None, compare=False, repr=False)
+    # The exact capacity sweep (ops/pack._alloc_and_used64) by (padded
+    # node count, resource vocabulary): the pack and the delta engine's
+    # rebuild of one full wave read the same sweep.
+    _sweeps: dict = field(default_factory=dict, compare=False, repr=False)
     # Compiled interconnect topology of THIS node set (topology/model
     # .CompiledTopology), attached by the controller once per cycle so pack,
     # scoring and the gang accounting read the same resolved hierarchy.

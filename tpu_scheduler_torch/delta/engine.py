@@ -34,17 +34,25 @@ score tie-break freedom; the PLACED SET and the unschedulable set may not).
 Port: a copy of ``tpu_scheduler/delta/engine.py``.  ``"mesh-rebind"`` is
 raised by the fleet (the controller's mesh-binding sync after a takeover or
 a resize).  The full-wave commit's rebuild has a span of its own
-(``delta/commit/rebuild``).
+(``delta/commit/rebuild``).  Three departures keep a mass wave's engine work
+off its path, each with the JAX package's results: a plan whose pending pods
+without a standing verdict already pass the overflow threshold escalates
+before the fold (``escalated_early``, counted in
+``scheduler_delta_early_escalations_total``); the rebuild takes the pack's
+capacity sweep of the same snapshot; and it leaves the placement ledger to
+be written when first read (``SolveState.defer_placements``).
 """
 
 from __future__ import annotations
 
 import logging
 
+import numpy as np
+
 from ..api.objects import full_name
 from ..utils.tracing import span
 from .index import DeltaIndex, blocking_nodes, verdict_constrained
-from .state import SolveState, req64_of
+from .state import SolveState
 
 logger = logging.getLogger("tpu_scheduler_torch.delta")
 
@@ -62,6 +70,12 @@ ESCALATION_REASONS = (
     "epoch-refresh",
     "mesh-rebind",
 )
+
+
+def _outside(res, vocab: tuple[str, ...]) -> bool:
+    """Whether the request sums ``res`` name an extended resource outside
+    ``vocab`` (``req64_of`` gives None for such a pod)."""
+    return bool(res.extended) and any(v and name not in vocab for name, v in res.extended.items())
 
 
 class DeltaPlan:
@@ -101,6 +115,9 @@ class DeltaEngine:
         self._invalid_reason: str | None = None  # forces the next plan full
         self._full_reason: str | None = None  # the reason the CURRENT cycle went full
         self._placements_since_plan = False
+        # Whether the last plan escalated on counts alone, before the fold
+        # (the controller's per-cycle counter; not a ``stats()`` key).
+        self.escalated_early = False
         self.generation = 0
         # Lifetime stats (served to the sim scorecard / bench / tests).
         self.delta_cycles = 0
@@ -158,6 +175,7 @@ class DeltaEngine:
         as budgets thaw — a standing verdict would silently starve it.  The
         carried-capacity fast path still applies."""
         self._full_reason = None
+        self.escalated_early = False
         st = self.state
         if st is None:
             return self._escalate(self._invalid_reason or "cold")
@@ -173,6 +191,20 @@ class DeltaEngine:
             return self._escalate("vocab-change")
         if st.delta_cycles_since_full >= self.epoch_refresh:
             return self._escalate("epoch-refresh")
+        threshold = max(self.OVERFLOW_MIN, int(self.OVERFLOW_FRAC * len(snapshot.pods)))
+        if not preempting and len(pending) - len(st.unsched) > threshold:
+            # The fold and the close only retire standing verdicts, so the
+            # dirty set holds at least every pending pod the ledger does not
+            # skip: the cycle overflows whatever they find.  Of the fold's
+            # own verdicts only a vocabulary miss ranks above the overflow,
+            # and the buffered events show it without the fold; the rebuild
+            # discards them, as it discards every buffered event.
+            self.escalated_early = True
+            if self.metrics is not None:
+                self.metrics.inc("scheduler_delta_early_escalations_total")
+            with span("index"):
+                outside = self.index.binds_outside_vocab(st.res_vocab)
+            return self._escalate("vocab-change" if outside else "closure-overflow")
         with span("index"):
             fold = self.index.fold(st, self.index.take())
         if not fold.ok:
@@ -187,7 +219,7 @@ class DeltaEngine:
             else:
                 dirty = [p for p in pending if full_name(p) not in standing]
                 skipped = len(pending) - len(dirty)
-        if len(dirty) > max(self.OVERFLOW_MIN, int(self.OVERFLOW_FRAC * len(snapshot.pods))):
+        if len(dirty) > threshold:
             return self._escalate("closure-overflow")
         alloc_used = None
         if dirty:
@@ -196,7 +228,7 @@ class DeltaEngine:
                 # vocabulary is a full-pack event (the full path re-derives
                 # scales); detect it here, where the padded sweep is skipped.
                 for p in dirty:
-                    if req64_of(p, st.res_vocab) is None:
+                    if self.index.requests.of(p, st.res_vocab) is None:
                         return self._escalate("vocab-change")
                 alloc_used = (st.alloc64, st.used64)
         return DeltaPlan(dirty, skipped, alloc_used, retired)
@@ -217,7 +249,7 @@ class DeltaEngine:
             return
         st = self.state
         for pod, node in placed:
-            req = req64_of(pod, st.res_vocab, res_memo)
+            req = self.index.requests.of(pod, st.res_vocab)
             if req is None:
                 # Should be unreachable (plan pre-checked the dirty set);
                 # never poison the ledger — escalate instead.
@@ -260,10 +292,12 @@ class DeltaEngine:
 
     def _rebuild(self, snapshot, packed, node_sig, placed: list, unschedulable: list, pending_all: list, res_memo) -> None:
         """Reset the SolveState from a freshly solved full-wave cycle: the
-        capacity pair comes from the SAME exact sweep the pack ran
-        (ops/pack._alloc_and_used64), placements re-enumerate from the
-        snapshot plus this cycle's commits, and the verdict ledger restarts
-        from this cycle's unschedulable set."""
+        capacity pair is the exact sweep the pack ran on this snapshot
+        (ops/pack._alloc_and_used64, memoized on it; copied, since the state
+        writes into it) plus this cycle's commits, the placement ledger is
+        the snapshot's placements plus those commits, written when it is
+        first read (``SolveState.defer_placements``), and the verdict
+        ledger restarts from this cycle's unschedulable set."""
         self.index.take()  # buffered events are already reflected in the snapshot
         self.generation += 1
         if packed is None or tuple(n.name for n in snapshot.nodes) != tuple(packed.node_names):
@@ -272,32 +306,68 @@ class DeltaEngine:
             # the next packing cycle rebuilds against a fresh axis.
             self.state = None
             return
-        from ..ops.pack import _alloc_and_used64
+        from ..ops.pack import _alloc_and_used64, _resources
 
-        alloc64, used64, row = _alloc_and_used64(
-            snapshot, packed.padded_nodes, res_memo, packed.res_vocab
-        )
+        vocab = packed.res_vocab
+        alloc64, used64, row = _alloc_and_used64(snapshot, packed.padded_nodes, res_memo, vocab)
         st = SolveState(
             node_names=tuple(packed.node_names),
             node_sig=node_sig,
-            res_vocab=packed.res_vocab,
+            res_vocab=vocab,
             res_scales=packed.res_scales,
-            alloc64=alloc64,
-            used64=used64,
+            alloc64=alloc64.copy(),
+            used64=used64.copy(),
             row=row,
             generation=self.generation,
         )
-        for pod, node in snapshot.placed_pods():
-            req = req64_of(pod, st.res_vocab, res_memo)
-            if req is None:
+        memo = res_memo if res_memo is not None else {}
+        on_nodes = snapshot.placed_pods()
+        for pod, _node in on_nodes:
+            hit = memo.get(id(pod))
+            res = hit[1] if hit is not None and hit[0] is pod else _resources(pod, memo)
+            if res.extended and _outside(res, vocab):
                 self.state = None  # resource outside the vocab: stay cold
                 return
-            # Capacity is already in used64 (the sweep above); ledger only.
-            st.placements[full_name(pod)] = (st.row.get(node.name, -1), node.name, req)
-        for pod, node in placed:
-            req = req64_of(pod, st.res_vocab, res_memo)
-            if req is not None:
-                st.commit(full_name(pod), node.name, req)
+        # This cycle's commits as SolveState.commit makes them one by one —
+        # a pod naming a resource outside the vocabulary left out, a full
+        # name's first commit counting — with their capacity added in
+        # scatters; the ledger's entries are written when it is first read.
+        # Two pods share a full name only without a namespace (one of them
+        # at None, the other at ""), so only those are named here.
+        commits: dict[int, tuple] = {}  # id(pod) -> (pod, node), in commit order
+        loose: set[str] | None = None
+        rows: list[int] = []
+        cpu: list[int] = []
+        mem: list[int] = []
+        used64 = st.used64
+        for pn in placed:
+            pod, node = pn
+            hit = memo.get(id(pod))
+            res = hit[1] if hit is not None and hit[0] is pod else _resources(pod, memo)
+            if (res.extended and _outside(res, vocab)) or id(pod) in commits:
+                continue
+            if not pod.metadata.namespace:
+                if loose is None:
+                    loose = {full_name(q) for q, _n in on_nodes if not q.metadata.namespace}
+                pf = full_name(pod)
+                if pf in loose:
+                    continue
+                loose.add(pf)
+            commits[id(pod)] = pn
+            r = row.get(node.metadata.name, -1)
+            if r >= 0:
+                rows.append(r)
+                cpu.append(res.cpu)
+                mem.append(res.memory)
+                if res.extended:
+                    for name, v in res.extended.items():
+                        if v:
+                            used64[r, vocab.index(name)] += v
+        if rows:
+            at = np.asarray(rows)
+            np.add.at(used64[:, 0], at, np.asarray(cpu, dtype=np.int64))
+            np.add.at(used64[:, 1], at, np.asarray(mem, dtype=np.int64))
+        st.defer_placements(on_nodes, commits, self.index.requests)
         self._record_verdicts(st, snapshot, unschedulable, pending_all)
         self.state = st
         self._placements_since_plan = False

@@ -34,7 +34,9 @@ each of which retires the verdict above.  Everything else (new placements,
 new pods) only ever REMOVES feasibility, which keeps an unschedulable
 verdict true.
 
-Port: a copy of ``tpu_scheduler/delta/index.py``, unchanged (NumPy).
+Port: a copy of ``tpu_scheduler/delta/index.py`` (NumPy), with
+``DeltaIndex.binds_outside_vocab``, the fold's vocabulary verdict without
+the fold, and request vectors shared through ``RequestVectors``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..api.objects import full_name
-from .state import SolveState, req64_of
+from .state import RequestVectors, SolveState
 
 __all__ = ["DeltaIndex", "FoldResult"]
 
@@ -115,6 +117,7 @@ class DeltaIndex:
 
     def __init__(self):
         self._events: list[tuple] = []
+        self.requests = RequestVectors()
 
     def on_pod_event(self, key, prev, new) -> None:
         self._events.append((key, prev, new))
@@ -132,6 +135,24 @@ class DeltaIndex:
         out, self._events = self._events, []
         return out
 
+    def binds_outside_vocab(self, res_vocab: tuple[str, ...]) -> bool:
+        """Whether the fold of the buffered events would stop on a
+        vocabulary miss: an event whose pod is bound and names an extended
+        resource outside ``res_vocab``.  The buffer is left as it is."""
+        known = set(res_vocab)
+        for _key, _prev, new in self._events:
+            spec = new.spec if new is not None else None
+            if spec is None or spec.node_name is None:
+                continue
+            for c in spec.containers:
+                req = c.resources.requests if c.resources is not None else None
+                if req and not known.issuperset(req):
+                    # A request names a column the vocabulary lacks: look closer.
+                    if self.requests.of(new, res_vocab) is None:
+                        return True
+                    break
+        return False
+
     def fold(self, state: SolveState, events: list[tuple]) -> FoldResult:
         """Fold one cycle's events into ``state`` — the VECTORIZED fast
         path.  When every event key is unique the per-key outcomes are
@@ -143,6 +164,8 @@ class DeltaIndex:
         (tests/test_fleet.py pins the parity).  Duplicate keys (several
         events for one pod in a cycle) and vocabulary misses fall back to
         the order-dependent scalar loop."""
+        if self._confirms_deferred(state, events):
+            return FoldResult()
         if len(events) < 8 or len({k for k, _p, _n in events}) != len(events):
             return self._fold_scalar(state, events)
         out = FoldResult()
@@ -158,7 +181,7 @@ class DeltaIndex:
                 if node is None:
                     repend.append(pf)
                 else:
-                    req = req64_of(new, state.res_vocab)
+                    req = self.requests.of(new, state.res_vocab)
                     if req is None:
                         # Vocabulary miss: the scalar loop owns the exact
                         # stop-at-first-miss semantics (no state touched yet).
@@ -196,7 +219,7 @@ class DeltaIndex:
         row_of = state.row
         for pf, node, req in bounds:
             ent = placements.get(pf)
-            if ent is not None and ent[1] == node and not (ent[2] != req).any():
+            if ent is not None and ent[1] == node and (ent[2] is req or not (ent[2] != req).any()):
                 unsched.pop(pf, None)  # confirmation of our own commit
                 continue
             if ent is not None:  # rebind / request drift: move the mass
@@ -218,6 +241,31 @@ class DeltaIndex:
         if add_rows:
             np.add.at(state.used64, np.asarray(add_rows), np.stack(add_reqs))
         return out
+
+    def _confirms_deferred(self, state: SolveState, events: list[tuple]) -> bool:
+        """Fold ``events`` without writing the state's deferred placements
+        when every one confirms a deferred commit: the pod object the
+        commit was made from, now bound to the node it was committed to,
+        with the same requests, once.  Either fold turns such events into
+        nothing but dropped verdicts; returns whether it applied."""
+        by_pod = state.deferred_commits()
+        if by_pod is None or not events:
+            return False
+        vocab = state.res_vocab
+        seen: set[int] = set()
+        for key, prev, new in events:
+            hit = by_pod.get(id(prev))
+            if hit is None or hit[0] is not prev or id(prev) in seen or not key[0] or _node_of(new) != hit[1].name:
+                return False
+            if prev.spec is None or new.spec.containers is not prev.spec.containers:
+                req, was = self.requests.of(new, vocab), self.requests.of(prev, vocab)
+                if req is None or was is None or (req is not was and (req != was).any()):
+                    return False
+            seen.add(id(prev))
+        if state.unsched:
+            for key, _prev, _new in events:
+                state.unsched.pop(_pod_full(key), None)
+        return True
 
     def _fold_scalar(self, state: SolveState, events: list[tuple]) -> FoldResult:
         """The original one-event-at-a-time fold.  Exact-once accounting:
@@ -241,14 +289,14 @@ class DeltaIndex:
                 continue
             node = _node_of(new)
             if node is not None:  # bound (created bound, or confirmed/out-of-band)
-                req = req64_of(new, state.res_vocab)
+                req = self.requests.of(new, state.res_vocab)
                 if req is None:
                     out.ok = False  # new resource column: full-pack event
                     return out
                 ent = state.placements.get(pf)
                 if ent is None:
                     state.commit(pf, node, req)
-                elif ent[1] != node or (ent[2] != req).any():
+                elif ent[1] != node or (ent[2] is not req and (ent[2] != req).any()):
                     # Re-bound elsewhere (409 winner) or request drift: move
                     # the mass; the old node's room frees.
                     out.note_release(state.release(pf))

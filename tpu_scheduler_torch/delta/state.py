@@ -23,7 +23,8 @@ int64 (cpu millicores, memory bytes, extended raw), pods bound to unknown
 nodes consume nothing we track, and a request naming a resource outside the
 packed vocabulary is a full-pack event (the engine escalates).
 
-Port: a copy of ``tpu_scheduler/delta/state.py``, unchanged (NumPy).
+Port: a copy of ``tpu_scheduler/delta/state.py`` (NumPy), with
+``RequestVectors``, one shared vector for every pod that requests alike.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..api.objects import Pod, total_pod_resources
+from ..api.objects import Pod, full_name, total_pod_resources
 from ..ops.pack import _avail_i32
 
-__all__ = ["SolveState", "req64_of"]
+__all__ = ["RequestVectors", "SolveState", "req64_of"]
 
 
 def req64_of(pod: Pod, res_vocab: tuple[str, ...], res_memo: dict | None = None):
@@ -67,6 +68,51 @@ def req64_of(pod: Pod, res_vocab: tuple[str, ...], res_memo: dict | None = None)
     return out
 
 
+class RequestVectors:
+    """``req64_of`` by what decides it: pods whose containers request the
+    same quantities share one vector, computed once per vocabulary and
+    made read-only (the ledgers only ever read a request vector), so a
+    watch event confirming a commit finds the very vector it was committed
+    with.  At most ``CAPACITY`` distinct requests are kept."""
+
+    CAPACITY = 4096
+
+    def __init__(self):
+        self._vocab: tuple[str, ...] | None = None
+        self._by_requests: dict = {}
+
+    def of(self, pod: Pod, res_vocab: tuple[str, ...]):
+        """``req64_of(pod, res_vocab)``: the same values, or ``None``."""
+        if res_vocab is not self._vocab:
+            if res_vocab != self._vocab:
+                self._by_requests = {}
+            self._vocab = res_vocab
+        spec = pod.spec
+        if spec is None:
+            key = None
+        elif len(spec.containers) == 1:
+            res = spec.containers[0].resources
+            key = (None if res is None or res.requests is None else tuple(res.requests.items()),)
+        else:
+            key = tuple(
+                None if c.resources is None or c.resources.requests is None else tuple(c.resources.requests.items())
+                for c in spec.containers
+            )
+        try:
+            return self._by_requests[key]
+        except KeyError:
+            pass
+        except TypeError:  # an unhashable quantity
+            return req64_of(pod, res_vocab)
+        req = req64_of(pod, res_vocab)
+        if req is not None:
+            req.setflags(write=False)
+        if len(self._by_requests) >= self.CAPACITY:
+            self._by_requests = {}
+        self._by_requests[key] = req
+        return req
+
+
 @dataclass
 class SolveState:
     """Persisted solve state, aligned to one packed node axis.
@@ -93,8 +139,8 @@ class SolveState:
     # node name -> row in the padded axis.
     row: dict[str, int]
     # pod full name -> (node row or -1 for untracked nodes, node name,
-    # [R] i64 request) for every committed placement.
-    placements: dict[str, tuple[int, str, np.ndarray]] = field(default_factory=dict)
+    # [R] i64 request) for every committed placement: ``placements``.
+    _placements: dict[str, tuple[int, str, np.ndarray]] = field(default_factory=dict, repr=False)
     # pod full name -> (has_pod_affinity, gang name or None, blocking node
     # set or None, constrained): the skipped-verdict ledger.  Membership
     # means "proven unschedulable and the proof still stands";
@@ -108,6 +154,36 @@ class SolveState:
     unsched: dict[str, tuple[bool, str | None, frozenset | None, bool]] = field(default_factory=dict)
     generation: int = 0
     delta_cycles_since_full: int = 0
+    # Placements a full wave's rebuild has counted in ``used64`` but not yet
+    # written into the ledger (``defer_placements``): (pods on nodes, the
+    # cycle's commits by pod identity, their RequestVectors).
+    _deferred: tuple | None = field(default=None, repr=False)
+
+    @property
+    def placements(self) -> dict[str, tuple[int, str, np.ndarray]]:
+        """The placement ledger; a read writes any deferred placements
+        first, so every reader sees the whole ledger."""
+        if self._deferred is not None:
+            on_nodes, commits, requests = self._deferred
+            self._deferred = None
+            ledger, row, vocab = self._placements, self.row, self.res_vocab
+            for pod, node in (*on_nodes, *commits.values()):
+                name = node.name
+                ledger[full_name(pod)] = (row.get(name, -1), name, requests.of(pod, vocab))
+        return self._placements
+
+    def defer_placements(self, on_nodes: list, commits: dict, requests: RequestVectors) -> None:
+        """Leave the ledger's entries for ``on_nodes`` ((pod, node) pairs)
+        then ``commits`` (id(pod) -> (pod, node), in commit order) unwritten
+        until the ledger is read: ``used64`` already holds their capacity,
+        each pod's full name is distinct and every request lies inside the
+        vocabulary."""
+        self._deferred = (on_nodes, commits, requests)
+
+    def deferred_commits(self) -> dict | None:
+        """id(pod) -> (pod, node) for the deferred commits, or None when
+        nothing is deferred."""
+        return None if self._deferred is None else self._deferred[1]
 
     def residual_avail(self) -> np.ndarray:
         """The carried ``node_avail`` tensor — identical to what a fresh

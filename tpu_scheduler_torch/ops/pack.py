@@ -356,7 +356,17 @@ def _alloc_and_used64(
 ) -> tuple[np.ndarray, np.ndarray, dict[str, int]]:
     """Exact int64 (allocatable, bound-usage) per node, in base units, and
     the node name -> row map — shared by pack, the incremental avail refresh
-    and the delta engine's rebuild."""
+    and the delta engine's rebuild.  Memoized on the snapshot: callers must
+    not write into the arrays (the delta engine copies them)."""
+    key = (n_pad, tuple(res_vocab))
+    hit = snapshot._sweeps.get(key)
+    if hit is None:
+        hit = snapshot._sweeps[key] = _sweep(snapshot, n_pad, res_memo, res_vocab)
+    return hit
+
+
+def _sweep(snapshot: ClusterSnapshot, n_pad: int, res_memo: dict | None, res_vocab: tuple[str, ...]):
+    """The sweep ``_alloc_and_used64`` memoizes."""
     r = len(res_vocab)
     alloc64 = np.zeros((n_pad, r), dtype=np.int64)
     used64 = np.zeros((n_pad, r), dtype=np.int64)

@@ -38,6 +38,11 @@ slicing, mesh bindings, cross-replica gang reservations, live resize), and
 the SLO, latency and profile snapshots, the background rebalancer
 (``rebalance``) and the closed-loop autoscaler (``autoscale`` with its
 ``autoscale_provider``), both ticked after the cycle's scheduling work.
+With the same results, the pipelined cycle's bookkeeping looks pods up by
+name in the reflector's cache, and a cycle that runs while a bind batch is
+in flight, with nothing else pending, overlays the batch's assumed pods as
+a view of the snapshot instead of bound clones
+(``_prune_and_overlay_assumed``).
 """
 
 from __future__ import annotations
@@ -456,6 +461,11 @@ class Scheduler:
         self.delta_shadow_every = int(delta_shadow_every)
         self._delta_plan = None  # the running cycle's DeltaPlan (or None = full wave)
         self._delta_avail = None  # carried (alloc64, used64) for the next _pack, consume-once
+        # The snapshot behind this cycle's assumed-bind VIEW (None when the
+        # overlay cloned or had nothing to do), and the cycle's counts that
+        # CycleMetrics.spans carries beside the span seconds.
+        self._assumed_base: ClusterSnapshot | None = None
+        self._cycle_counts: dict[str, int] = {}
         self._cycle_bind_failures = 0  # bind-path failures this cycle (shadow comparability)
         if pipeline and profile.pool_key:
             logger.warning(
@@ -674,9 +684,11 @@ class Scheduler:
             self._pending_confirm.popitem(last=False)
         self._pending_confirm[pod_full] = meta[1] if meta is not None else "default"
 
-    def _drain_confirms(self, snapshot: ClusterSnapshot) -> None:
-        """Drain the watch-confirm tracker against the fresh reflector
-        snapshot: a tracked pod now visible as bound records
+    def _drain_confirms(self) -> None:
+        """Drain the watch-confirm tracker against the reflector's cache
+        (the cycle's raw snapshot shows it), each pod looked up by name and
+        the confirmed ones taken in the snapshot's order: a tracked pod now
+        visible as bound records
         ``bind-confirmed``, gets its waterfall reduced, and observes every
         segment into ``scheduler_ttb_segment_seconds{segment=,tier=}`` plus
         the per-tier accumulator ``latency_snapshot`` serves.  Pods deleted
@@ -686,17 +698,14 @@ class Scheduler:
         want = self._pending_confirm
         if not want:
             return
-        present: set[str] = set()
         confirmed: list[str] = []
-        for p in snapshot.pods:
-            pf = full_name(p)
-            if pf in want:
-                present.add(pf)
-                if is_pod_bound(p):
-                    confirmed.append(pf)
-        for pf in [pf for pf in want if pf not in present]:
-            del want[pf]
-        for pf in confirmed:
+        for pf in list(want):
+            p = self.reflector.get_pod(pf)
+            if p is None:
+                del want[pf]
+            elif is_pod_bound(p):
+                confirmed.append(pf)
+        for pf in self.reflector.in_store_order(confirmed):
             tier = want.pop(pf)
             self.recorder.record(pf, "bind-confirmed", self._cycle_tag)
             wf = waterfall(self.recorder.timeline(pf))
@@ -1199,6 +1208,7 @@ class Scheduler:
             _net_cache=snapshot._net_cache,
             _placed=snapshot._placed,
             _placed_with_terms=snapshot._placed_with_terms,
+            _sweeps=snapshot._sweeps,
         )
         object.__setattr__(view, "_pending", list(pending))
         return view
@@ -1394,8 +1404,9 @@ class Scheduler:
         self._dispatch_binds(result)
         # Dispatched placements count as this cycle's capacity (the
         # preemption pass and the next cycle's assumed overlay both see it).
+        # The pack named the batch's pending pods, in their order.
         node_by_name = {n.name: n for n in batch_snapshot.nodes}
-        pod_by_full = {full_name(p): p for p in batch_snapshot.pending_pods()}
+        pod_by_full = dict(zip(packed.pod_names, packed.pod_objs))
         for pod_full, node_name in result.bindings:
             pod_obj, node_obj = pod_by_full.get(pod_full), node_by_name.get(node_name)
             if pod_obj is not None and node_obj is not None:
@@ -1466,14 +1477,22 @@ class Scheduler:
         done.wait()
         self._bind_inflight = None
         unexpected: Exception | None = None
+        # Successes reach the breaker as a run, before the next failure and
+        # at the end (``record_successes``: the same outcomes in the same
+        # order), and the bindings counter once.
+        ok_run = ok_total = 0
+        record, assumed, tag = self.recorder.record, self._assumed, self._cycle_tag
         for pod_full, err in outcomes:
             if err is None:
-                self.breaker.record(True)
-                self.metrics.inc("scheduler_bindings_total")
-                self.recorder.record(pod_full, "bound", self._cycle_tag, node=self._assumed.get(pod_full))
+                ok_run += 1
+                record(pod_full, "bound", tag, node=assumed.get(pod_full))
                 self._await_confirm(pod_full)
                 self.requeue_at.pop(pod_full, None)
                 continue
+            if ok_run:
+                self.breaker.record_successes(ok_run)
+                ok_total += ok_run
+                ok_run = 0
             # Server-health taxonomy mirrors _post_binding: 4xx = healthy
             # server refusing one request; 5xx/transport = breaker evidence.
             self.breaker.record(isinstance(err, ApiError) and err.code < 500)
@@ -1489,6 +1508,11 @@ class Scheduler:
                 self._requeue(pod_full, f"async-bind-failed: {type(err).__name__}: {err}")
             elif unexpected is None:
                 unexpected = err  # surface AFTER the whole batch is folded
+        if ok_run:
+            self.breaker.record_successes(ok_run)
+            ok_total += ok_run
+        if ok_total:
+            self.metrics.inc("scheduler_bindings_total", ok_total)
         if unexpected is not None:
             raise unexpected  # programming error — surface, never absorb
 
@@ -1522,27 +1546,83 @@ class Scheduler:
             logger.info("takeover revalidation dropped %d stale assumed bind(s)", stale)
         return stale
 
-    def _prune_and_overlay_assumed(self, snapshot: ClusterSnapshot) -> ClusterSnapshot:
+    def _prune_and_overlay_assumed(self, snapshot: ClusterSnapshot, changed: list | None) -> ClusterSnapshot:
         """Drop assumptions the watch has confirmed (or whose pod vanished),
         then overlay the rest: an assumed pod appears bound to its node so
-        the cycle consumes its capacity and never re-schedules it."""
+        the cycle consumes its capacity and never re-schedules it.
+
+        ``changed``: when ``snapshot`` shows the reflector's cache as it
+        stands, the store keys of the pods deleted or seen bound since the
+        last cycle — the only assumptions whose pod can have been bound or
+        gone since — each looked up in the cache by name; None to check
+        every assumption against ``snapshot``.  When nothing but assumed
+        pods is pending — the cycle that runs while a bind batch is in
+        flight — the cycle solves nothing, and the overlay is a view of
+        ``snapshot`` with the pending list empty; the clones are made only
+        if the cycle escalates to a full wave (``_overlay_assumed``)."""
         if not self._assumed:
             return snapshot
-        by_full = {full_name(p): p for p in snapshot.pods}
-        for pod_full in list(self._assumed):
-            p = by_full.get(pod_full)
-            if p is None or is_pod_bound(p):
-                del self._assumed[pod_full]
+        if changed is None:
+            by_full = {full_name(p): p for p in snapshot.pods}
+            for pod_full in list(self._assumed):
+                p = by_full.get(pod_full)
+                if p is None or is_pod_bound(p):
+                    del self._assumed[pod_full]
+        else:
+            for ns, name in changed:
+                pod_full = f"{ns}/{name}" if ns else name
+                if pod_full in self._assumed:
+                    p = self.reflector.get_pod(pod_full)
+                    if p is None or is_pod_bound(p):
+                        del self._assumed[pod_full]
         if not self._assumed:
             return snapshot
+        unbound = len(snapshot.pods) - sum(map(len, snapshot._pods_by_node.values()))
+        if (
+            changed is not None
+            and unbound == len(self._assumed)
+            and set(self._assumed.values()) <= {n.name for n in snapshot.nodes}
+            and self._view_keeps_cycle(snapshot)
+        ):
+            # Every unbound pod is assumed onto a live node, so the overlay
+            # would leave nothing pending.
+            n = len(self._assumed)
+            self.metrics.inc("scheduler_assumed_overlay_view_pods_total", n)
+            self._cycle_counts["overlay/assumed_view_pods"] = n
+            self._assumed_base = snapshot
+            return self._reduced_view(snapshot, [])
+        return self._overlay_assumed(snapshot)
+
+    def _view_keeps_cycle(self, snapshot: ClusterSnapshot) -> bool:
+        """Whether a cycle with nothing pending reads no placement outside
+        the delta engine's rebuild, so the assumed pods need not appear
+        bound in it: no NoExecute eviction, PDB observation, rebalancer,
+        autoscaler or shard bookkeeping runs over its placements."""
+        if self.sharded or self.profile.preemption or self.rebalancer is not None or self.autoscaler is not None:
+            return False
+        for node in snapshot.nodes:
+            if node.spec is not None and node.spec.taints and any(t.effect == "NoExecute" for t in node.spec.taints):
+                return False
+        return True
+
+    def _overlay_assumed(self, snapshot: ClusterSnapshot) -> ClusterSnapshot:
+        """``snapshot`` with every assumed pod that is still unbound shown
+        bound, as a clone, to its target node."""
         node_by = {n.name: n for n in snapshot.nodes}
         pods = []
+        cloned = 0
         for p in snapshot.pods:
             target = self._assumed.get(full_name(p))
             if target is not None and not is_pod_bound(p) and target in node_by:
                 pods.append(self._bound_clone(p, node_by[target]))
+                cloned += 1
             else:
                 pods.append(p)
+        if cloned:
+            self.metrics.inc("scheduler_assumed_overlay_cloned_pods_total", cloned)
+            self._cycle_counts["overlay/assumed_cloned_pods"] = (
+                self._cycle_counts.get("overlay/assumed_cloned_pods", 0) + cloned
+            )
         return ClusterSnapshot.build(snapshot.nodes, pods)
 
     def _run_routed_cycle(self, snapshot: ClusterSnapshot, part, placed: list[tuple[Pod, Node]]) -> tuple[int, int, int]:
@@ -2218,7 +2298,9 @@ class Scheduler:
         # EVERY cycle, standby included (the standby path deliberately
         # skips the pending-set prune below, which used to leak backoff
         # entries for pods deleted while this instance stood by).
+        raw = snapshot
         deleted = self.reflector.take_deleted_pods()
+        bound = self.reflector.take_bound_pods()
         if deleted:
             pruned = 0
             for ns, name in deleted:
@@ -2235,7 +2317,7 @@ class Scheduler:
         # Confirm-drain BEFORE any overlay: the raw reflector snapshot is
         # the watch's truth about which POSTed binds the API server has
         # actually confirmed — overlaid snapshots would self-confirm.
-        self._drain_confirms(snapshot)
+        self._drain_confirms()
         # Control-plane ownership BEFORE any overlay is applied: a
         # takeover (new leadership / a newly acquired shard) must get to
         # revalidate stale assumed-bind state against the fresh
@@ -2279,7 +2361,7 @@ class Scheduler:
             # overlay in-flight assumptions onto the snapshot.
             if self._bind_inflight is not None and self._bind_inflight[1].is_set():
                 self._join_binds()
-            snapshot = self._prune_and_overlay_assumed(snapshot)
+            snapshot = self._prune_and_overlay_assumed(snapshot, deleted + bound if snapshot is raw else None)
         if self.profile.preemption:
             # Observe PDB peak healthy EVERY cycle — standby cycles
             # included (a successor must not baseline a crashed workload
@@ -2302,6 +2384,8 @@ class Scheduler:
         self._cycle_notes = []
         self._delta_plan = None
         self._delta_avail = None
+        self._assumed_base = None
+        self._cycle_counts = {}
         self._cycle_bind_failures = 0
         self._explain_snapshot = None
         self._explain_budget = self.EXPLAIN_WORK
@@ -2425,9 +2509,16 @@ class Scheduler:
                             self.reflector.node_set_signature(),
                             preempting=self.profile.preemption,
                         )
+                    if self.delta.escalated_early:
+                        self._cycle_counts["delta/early_escalations"] = 1
                     if self._delta_plan is not None:
                         pending = self._delta_plan.pods
                         self._delta_avail = self._delta_plan.alloc_used64
+                    elif self._assumed_base is not None:
+                        # A full wave under the assumed-bind view: the
+                        # rebuild counts every placement, the in-flight
+                        # assumptions too, so they are cloned after all.
+                        snapshot = solve_base = self._overlay_assumed(self._assumed_base)
             if pending:
                 # Schedule only eligible pods; bound pods — including
                 # bound-but-still-Pending ones (kubelet lag) — count capacity.
@@ -2604,14 +2695,16 @@ class Scheduler:
         return m
 
     def _fold_beyond_phases(self, m: CycleMetrics, trace: Trace, gc0: tuple, gc1: tuple, t0: float) -> list[dict]:
-        """Fill ``m``'s fields beyond the phases — the nested spans, the
-        collector's pauses over the cycle, the bind worker's batches that
-        ended before now — and return the recorder's lanes: each batch, and
-        each pause of ``GC_LONG_S`` or more since the cycle began."""
+        """Fill ``m``'s fields beyond the phases — the nested spans and the
+        cycle's counts, the collector's pauses over the cycle, the bind
+        worker's batches that ended before now — and return the recorder's
+        lanes: each batch, and each pause of ``GC_LONG_S`` or more since the
+        cycle began."""
         for path, seconds in trace.durations.items():
             if "/" in path:
                 key = "/".join(base_name(seg) for seg in path.split("/"))
                 m.spans[key] = m.spans.get(key, 0.0) + seconds
+        m.spans.update(self._cycle_counts)
         m.gc_pause_s = gc1[0] - gc0[0]
         m.gc_collections = [b - a for a, b in zip(gc0[1], gc1[1])]
         lanes = []
@@ -3140,16 +3233,26 @@ class Scheduler:
                 gangness = "gang" if (p.spec is not None and p.spec.gang) else "solo"
                 self._pending_meta[pf] = (now, tier_of(_pod_priority(p)), gangness)
         oldest: dict[str, float] = {}
-        for pf, (since, tier, gangness) in list(self._pending_meta.items()):
+        # Final ages by label set, in the walk's order within each set and
+        # the sets in the order they first occur, so each histogram is made
+        # and fed as one observe a pod would make and feed it.
+        leaving: dict[tuple[str, str], list[float]] = {}
+        gone: list[str] = []
+        for pf, (since, tier, gangness) in self._pending_meta.items():
             if pf not in live:
-                self.metrics.observe(
-                    "scheduler_pending_age_seconds", max(0.0, now - since), labels={"tier": tier, "gang": gangness}
-                )
-                del self._pending_meta[pf]
+                ages = leaving.get((tier, gangness))
+                if ages is None:
+                    ages = leaving[(tier, gangness)] = []
+                ages.append(max(0.0, now - since))
+                gone.append(pf)
                 continue
             age = now - since
             if age > oldest.get(tier, 0.0):
                 oldest[tier] = age
+        for pf in gone:
+            del self._pending_meta[pf]
+        for (tier, gangness), ages in leaving.items():
+            self.metrics.observe_many("scheduler_pending_age_seconds", ages, labels={"tier": tier, "gang": gangness})
         for tier, _floor, target in SLO_TIERS:
             age = oldest.get(tier, 0.0)
             self.metrics.set_gauge("scheduler_pending_oldest_age_seconds", round(age, 6), labels={"tier": tier})

@@ -13,7 +13,7 @@ poll emits no events, keeps the last-known store, and schedules the next
 attempt with exponential backoff + jitter instead of crashing the loop.
 
 Port: a copy of ``tpu_scheduler/runtime/reflector.py`` (pure host code),
-with the ``poll`` and ``fold`` spans.
+with the ``poll`` and ``fold`` spans, and lookups of cached pods by name.
 """
 
 from __future__ import annotations
@@ -177,6 +177,10 @@ class ClusterReflector:
         # stream so a pod deleted mid-backoff cannot leak its entry, even
         # across standby cycles that deliberately skip the pending-set prune.
         self._deleted_pods: list[tuple[str | None, str]] = []
+        # Keys of pods seen bound by an event since the last drain (with the
+        # DELETE keys, every pod whose bound-or-gone state may have changed):
+        # the assumed-bind prune's candidates.
+        self._bound_pods: list[tuple[str | None, str]] = []
         # External pod-event listeners ``(key, prev, new)`` — the incremental
         # delta engine (tpu_scheduler/delta) classifies watch deltas from
         # this feed; every listener sees the same fold the snapshot index
@@ -193,6 +197,11 @@ class ClusterReflector:
         self._pod_event_batch: list[tuple] = []
         self._dirty = True  # anything changed since the last snapshot()
         self._last_snap: ClusterSnapshot | None = None
+        # key -> the order in which it entered the pod store (a snapshot's
+        # ``pods`` follow it), so a lookup by name can give the order a
+        # walk over the snapshot would.
+        self._pod_seq: dict = {}
+        self._pod_seq_next = 0
 
     def _node_event(self, key, prev, new) -> None:
         self._dirty = True
@@ -214,6 +223,10 @@ class ClusterReflector:
             self._pod_event_batch.append((key, prev, new))
         if new is None:
             self._deleted_pods.append(key)  # (namespace, name)
+            self._pod_seq.pop(key, None)
+        elif prev is None:
+            self._pod_seq[key] = self._pod_seq_next
+            self._pod_seq_next += 1
         prev_node = prev.spec.node_name if prev is not None and prev.spec is not None else None
         new_node = new.spec.node_name if new is not None and new.spec is not None else None
         if prev_node is not None and (prev_node != new_node or prev is not new):
@@ -225,6 +238,7 @@ class ClusterReflector:
                         break
         if new_node is not None:
             self._by_node.setdefault(new_node, []).append(new)
+            self._bound_pods.append(key)
 
     def sync(self) -> tuple[int, int]:
         """Drain both watches; returns (node_events, pod_events).  Batch pod
@@ -242,6 +256,33 @@ class ClusterReflector:
         """Drain the (namespace, name) keys of pods deleted since the last
         call — the controller's per-pod-ledger prune feed."""
         out, self._deleted_pods = self._deleted_pods, []
+        return out
+
+    def get_pod(self, pod_full: str):
+        """The cached pod named ``pod_full`` (``full_name``), or None: the
+        pod a walk over the next snapshot would find under that name."""
+        store = self.pods.store
+        ns, sep, name = pod_full.partition("/")
+        if sep:
+            return store.get((ns, name))
+        pod = store.get((None, pod_full))
+        return pod if pod is not None else store.get(("", pod_full))
+
+    def in_store_order(self, pod_fulls: list[str]) -> list[str]:
+        """``pod_fulls`` (names of cached pods) in the order of a snapshot's
+        ``pods``."""
+        seq = self._pod_seq
+
+        def position(pod_full: str) -> int:
+            pod = self.get_pod(pod_full)
+            return seq[(pod.metadata.namespace, pod.metadata.name)]
+
+        return sorted(pod_fulls, key=position)
+
+    def take_bound_pods(self) -> list[tuple[str | None, str]]:
+        """Drain the (namespace, name) keys of pods an event showed bound
+        since the last call."""
+        out, self._bound_pods = self._bound_pods, []
         return out
 
     @property

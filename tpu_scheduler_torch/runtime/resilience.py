@@ -32,7 +32,8 @@ the main thread at drain, runtime/controller.py), so no locks are needed
 and none are taken.  Clocks are injected (``time.monotonic`` by default,
 ``VirtualClock`` in sim runs) — this module never reads wall time itself.
 
-Port: a copy of ``tpu_scheduler/runtime/resilience.py``, unchanged (pure host code).
+Port: a copy of ``tpu_scheduler/runtime/resilience.py`` (pure host code), with
+``CircuitBreaker.record_successes``, a run of successes folded at once.
 """
 
 from __future__ import annotations
@@ -318,6 +319,21 @@ class CircuitBreaker:
                     self._open_streak = 0
                     self._reset_window()
                     self._transition("closed")
+
+    def record_successes(self, n: int) -> None:
+        """``record(True)`` ``n`` times over.  A closed breaker with no
+        failure in its window cannot trip on a success, so it only moves
+        the window, at once; any other breaker takes them one by one."""
+        if self.state != "closed" or self._failures or self.config.failure_ratio <= 0:
+            for _ in range(n):
+                self.record(True)
+            return
+        window = self.config.window
+        fill = min(n, window - len(self._window))
+        self._window.extend([False] * fill)
+        if n > fill:
+            # The window is full of successes: each push replaces one.
+            self._window_pos = (self._window_pos + n - fill) % window
 
     def _trip(self) -> None:
         self._open_streak += 1

@@ -150,7 +150,11 @@ class CycleMetrics:
     # -- not phases: none of these ends in ``_seconds`` (cycle_phases) ------
     # They nest inside the phases, or run on another thread, so they never
     # add up with them.  ``spans``: nested span seconds by path (depth 1 and
-    # below, each segment at its base name: ``solve/round``).
+    # below, each segment at its base name: ``solve/round``), and the cycle's
+    # counts beside them: ``delta/early_escalations`` (a full wave decided
+    # before the fold), ``overlay/assumed_view_pods`` and
+    # ``overlay/assumed_cloned_pods`` (in-flight assumed pods overlaid by
+    # the view, and as bound clones).
     spans: dict = field(default_factory=dict)
     # Collector pauses inside the cycle, on every thread
     # (utils/profiler.install_gc_clock), and the collections by generation.
@@ -224,6 +228,18 @@ class MetricsRegistry:
         HISTOGRAM_BUCKETS, defaulting to the latency bounds)."""
         with self._lock:
             self._observe(name, value, labels)
+
+    def observe_many(self, name: str, values: list[float], labels: dict[str, str] | None = None) -> None:
+        """``observe`` each of ``values`` in turn under one label set, with
+        one hold of the lock."""
+        with self._lock:
+            per = self._histograms.setdefault(name, {})
+            ls = format_labels(labels)
+            h = per.get(ls)
+            if h is None:
+                h = per[ls] = _Histogram(HISTOGRAM_BUCKETS.get(name, LATENCY_BUCKETS))
+            for value in values:
+                h.observe(value)
 
     def set_gauge(self, name: str, value: float, labels: dict[str, str] | None = None) -> None:
         """Set an explicit gauge (e.g. ``scheduler_circuit_state``, or the
