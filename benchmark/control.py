@@ -1,6 +1,7 @@
 """The control: the plain reference scheduler in the program's place, with one
 guarantee the configuration states left unchecked (the configuration's
-``control`` key names it).  The benchmark's comparison must find it wrong.
+``control`` key names it: ``fit``, or ``affinity`` for every required
+inter-pod term).  The benchmark's comparison must find it wrong.
 
     python3 -m benchmark.control --workload basic-5k.backlog --seeds 11 12 13 --seconds 10
 

@@ -13,9 +13,10 @@ that stalls (``grace_s``) ends the window.
 
 After the window the run frees the program and hands the API server's log
 to the plain reference (``reference/check.py``), whose numbers decide
-``correct``.  Standard error gets each phase of set-up, and each wave's
-seconds split by the cycle's phases and the interpreter's garbage
-collections.
+``correct``; ``failed`` counts the measured pods never bound and each
+guarantee a binding broke.  Standard error gets each phase of set-up, and
+each wave's seconds split by the cycle's phases and the interpreter's
+garbage collections.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 
 from . import cluster as gen
 from . import devtrace
-from .reference.check import LIMITS, Cluster, replay
+from .reference.check import INTERPOD, LIMITS, Cluster, Kind, replay
 from .spec import Cell, load_reader
 from .stats import rate
 
@@ -92,6 +93,8 @@ class Run:
                 self.dep = gen.Deployment(**{**self.dep.__dict__, "nodes": value})
             else:
                 self.traffic[key] = value
+        self.kinds = gen.pod_types(self.dep)
+        self.type_rows: dict[str, np.ndarray] = {}  # pod name prefix -> each pod's index into ``kinds``
         self.driver_kind = driver
         self.fault = fault
         self.api = system.StampingApiServer()
@@ -104,17 +107,36 @@ class Run:
     # -- inputs ------------------------------------------------------------
 
     def make_pods(self, prefix: str, n: int, nodes=None) -> tuple[list, list[str]]:
+        """``n`` pods named ``<prefix>-<i>``; of the deployment's kinds, drawn
+        from the seed, unless they are plain (no kinds, or the pods bound at
+        the start, on ``nodes``)."""
         names = [f"{prefix}-{i}" for i in range(n)]
-        return self.system.make_pods(self.dep, names, nodes), names
+        rows = None
+        if self.dep.kinds and nodes is None:
+            rows = self.type_rows[prefix] = gen.type_rows(self.dep, n, gen.rng_for(self.seed, f"kinds/{prefix}"))
+        return self.system.make_pods(self.dep, names, nodes, rows), names
+
+    def kind_of(self, pod: str) -> int:
+        prefix, i = pod.rsplit("-", 1)
+        rows = self.type_rows.get(prefix)
+        return 0 if rows is None else int(rows[int(i)])
 
     def reference_cluster(self) -> Cluster:
         dep = self.dep
+        names = [self.system.node_name(i) for i in range(dep.nodes)]
+        extra = {}
+        if dep.kinds:
+            rows = [gen.labels_of_node(dep, i, name) for i, name in enumerate(names)]
+            labels = {key: [row[key] for row in rows] for key in rows[0]}
+            kinds = [Kind(gen.cpu_milli(k.cpu), gen.mem_bytes(k.memory), dict(k.labels), k.terms) for k in self.kinds]
+            extra = {"node_labels": labels, "kinds": kinds, "kind_of": self.kind_of}
         return Cluster(
-            node_index={self.system.node_name(i): i for i in range(dep.nodes)},
+            node_index={name: i for i, name in enumerate(names)},
             alloc_cpu=np.full(dep.nodes, gen.cpu_milli(dep.node_cpu)),
             alloc_mem=np.full(dep.nodes, gen.mem_bytes(dep.node_memory)),
             pod_cpu=gen.cpu_milli(dep.pod_cpu),
             pod_mem=gen.mem_bytes(dep.pod_memory),
+            **extra,
         )
 
     def load_cluster(self) -> None:
@@ -360,9 +382,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     counts = replay(r.reference_cluster(), r.api.log, marks)
     log(f"# reference replay over {len(r.api.log)} events: {time.perf_counter() - t_check:.3f} s")
     log(f"# bindings per node at each mark (least, median, most, nodes passed over): {marks}")
-    checks = {k: {"value": counts[k], "limit": limit} for k, limit in LIMITS.items()}
+    checks = {k: {"value": v, "limit": LIMITS[k]} for k, v in counts.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
-    failed = (out["attempted"] - out["bound"]) + counts["bad_binds"] + counts["overcommitted_binds"]
+    failed = (out["attempted"] - out["bound"]) + sum(counts.get(k, 0) for k in ("bad_binds", "overcommitted_binds",
+                                                                              *INTERPOD))
     if trace:
         metrics = {}
         for m in cell.per_layer:

@@ -26,13 +26,25 @@ def idle_share(trace: dict) -> float | None:
     return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
 
 
-def roofline_share(trace: dict) -> float | None:
-    """Kernel #1's share of its roofline: the least time of one pass over
-    every (pending pod, node) pair of the cycles whose solve launched only
-    #1, over those launches' device seconds, %."""
+# Each choose kernel's launch counter, and the other's.
+_LAUNCHES = {"1": ("launches", "launches_constrained"), "2": ("launches_constrained", "launches")}
+
+
+def roofline_share(trace: dict, kernel: str = "1") -> float | None:
+    """Kernel #1's (or #2's) share of its roofline: the least time of one
+    pass over every (pending pod, node) pair of the cycles whose solve
+    launched only that kernel, over those launches' device seconds, %.  #2's
+    pass also reads its constraint bitmaps, whose widths a cycle record
+    carries as ``constraint_widths``; without them #2 reads None."""
+    own, other = _LAUNCHES[kernel]
     least = device = 0.0
     for c in trace["cycles"]:
-        if c["launches"]["launches"] > 0 and c["launches"]["launches_constrained"] == 0 and c["pending"] > 0:
-            least += choose_bound_s(c["pending"], trace["nodes"])[0]
-            device += c["choose_s"]["1"]
+        if c["launches"][own] > 0 and c["launches"][other] == 0 and c["pending"] > 0:
+            widths = ()
+            if kernel == "2":
+                widths = c.get("constraint_widths")
+                if widths is None:
+                    return None
+            least += choose_bound_s(c["pending"], trace["nodes"], widths=widths)[0]
+            device += c["choose_s"][kernel]
     return 100.0 * least / device if device > 0 else None

@@ -20,9 +20,12 @@ from tpu_scheduler_torch.api.objects import (
     NodeStatus,
     ObjectMeta,
     Pod,
+    PodAffinityTerm,
     PodSpec,
     PodStatus,
     ResourceRequirements,
+    TopologySpreadConstraint,
+    WeightedPodAffinityTerm,
 )
 from tpu_scheduler_torch.backends import cuda as cuda_backend
 from tpu_scheduler_torch.models.profiles import PROFILES
@@ -32,12 +35,11 @@ from tpu_scheduler_torch.runtime.fake_api import FakeApiServer
 from tpu_scheduler_torch.utils.gc_tuning import enable_daemon_gc_tuning
 from tpu_scheduler_torch.utils.metrics import CycleMetrics
 
-from .cluster import Deployment
+from .cluster import Deployment, PodType, labels_of_node, pod_types
 
 __all__ = ["FAULTS", "StampingApiServer", "counters", "enable_daemon_gc_tuning", "make_nodes", "make_pods",
            "make_scheduler"]
 
-HOSTNAME_KEY = "kubernetes.io/hostname"
 NAMESPACE = "default"
 
 # The faults the harness can plant under the timed path (benchmark/tests):
@@ -92,19 +94,53 @@ def node_name(i: int) -> str:
 
 
 def make_nodes(dep: Deployment) -> list[Node]:
-    """The deployment's nodes: allocatable CPU and memory and the hostname
-    label the kubelet sets."""
-    return [Node(metadata=ObjectMeta(name=node_name(i), labels={HOSTNAME_KEY: node_name(i)}),
+    """The deployment's nodes: allocatable CPU and memory, the hostname
+    label the kubelet sets and the deployment's ``node_labels``."""
+    return [Node(metadata=ObjectMeta(name=node_name(i), labels=labels_of_node(dep, i, node_name(i))),
                  status=NodeStatus(allocatable={"cpu": dep.node_cpu, "memory": dep.node_memory}))
             for i in range(dep.nodes)]
 
 
-def make_pods(dep: Deployment, names: list[str], nodes: list[str] | None = None) -> list[Pod]:
+# The PodSpec field that holds each kind of term.
+_TERM_FIELDS = {"anti_affinity": "anti_affinity", "affinity": "pod_affinity", "spread": "topology_spread",
+                "preferred_affinity": "preferred_pod_affinity",
+                "preferred_anti_affinity": "preferred_pod_anti_affinity"}
+
+
+def _term_object(t):
+    if t.kind == "spread":
+        return TopologySpreadConstraint(topology_key=t.topology_key, max_skew=t.max_skew,
+                                        match_labels=dict(t.selector),
+                                        when_unsatisfiable="DoNotSchedule" if t.hard else "ScheduleAnyway")
+    term = PodAffinityTerm(match_labels=dict(t.selector), topology_key=t.topology_key)
+    return WeightedPodAffinityTerm(weight=t.weight, term=term) if t.kind.startswith("preferred") else term
+
+
+def _pod(name: str, kind: PodType, node: str | None) -> Pod:
+    """A pod of ``kind``: its labels, requests and inter-pod terms, each
+    object of its own."""
+    requests = {"cpu": kind.cpu, "memory": kind.memory}
+    terms: dict[str, list] = {}
+    for t in kind.terms:
+        terms.setdefault(_TERM_FIELDS[t.kind], []).append(_term_object(t))
+    return Pod(
+        metadata=ObjectMeta(name=name, namespace=NAMESPACE, labels=dict(kind.labels) or None),
+        spec=PodSpec(containers=[Container(name="pause", resources=ResourceRequirements(
+            requests=dict(requests), limits=dict(requests)))], node_name=node, **terms),
+        status=PodStatus(phase="Running" if node else "Pending"),
+    )
+
+
+def make_pods(dep: Deployment, names: list[str], nodes: list[str] | None = None, types=None) -> list[Pod]:
     """One API object per name, each of its own (as a client would send
     them), with the deployment's requests; bound to ``nodes[i]`` when
-    given."""
-    requests = {"cpu": dep.pod_cpu, "memory": dep.pod_memory}
+    given.  ``types``, when given, holds each pod's index into
+    ``cluster.pod_types(dep)``: its labels, requests and terms."""
+    if types is not None:
+        kinds = pod_types(dep)
+        return [_pod(name, kinds[types[i]], nodes[i] if nodes is not None else None) for i, name in enumerate(names)]
     out = []
+    requests = {"cpu": dep.pod_cpu, "memory": dep.pod_memory}
     for i, name in enumerate(names):
         node = nodes[i] if nodes is not None else None
         out.append(Pod(

@@ -1,5 +1,8 @@
 """Time to bind, rates, rooflines and the device reduction on hand-made
-numbers."""
+numbers, and the roofline on a trace recorded on the card."""
+
+import json
+import pathlib
 
 import pytest
 
@@ -54,3 +57,25 @@ def test_device_union_and_idle_by_phase():
                                      ("void choose_kernel<true, true, false>(ChooseArgs)", 2.0, 2.5)])
     assert devtrace.kernel_seconds(choose, 0.0, 3.0) == {"1": 0.25, "2": 0.5}
     assert devtrace.kernel_seconds(choose, 1.5, 3.0) == {"1": 0.0, "2": 0.5}
+
+
+def test_roofline_of_kernel_2():
+    least = choose_bound_s(100_000, 5_000, widths=(8, 4))[0]
+    assert least > choose_bound_s(100_000, 5_000)[0]
+    trace = {"nodes": 5_000, "cycles": [
+        cycle(100_000, 0, 40, 0.0, 2 * least, constraint_widths=[8, 4]),
+        cycle(100_000, 30, 0, 1.0, 0.0),  # #1 only: not #2's
+        cycle(50, 2, 3, 1.0, 1.0, constraint_widths=[8, 4]),  # both: neither's
+    ]}
+    assert roofline_share(trace, "2") == pytest.approx(50.0)
+    del trace["cycles"][0]["constraint_widths"]
+    assert roofline_share(trace, "2") is None
+    assert roofline_share(trace, "1") == pytest.approx(100.0 * choose_bound_s(100_000, 5_000)[0])
+
+
+def test_roofline_of_kernel_1_as_before_on_a_recorded_trace():
+    # The traced cycles of a basic-5k.backlog run on the H100 (seed 4200000201):
+    # #1's reading equals what the reader gave before it took a kernel.
+    trace = json.loads((pathlib.Path(__file__).parent / "trace_basic-5k.backlog.json").read_text())
+    assert roofline_share(trace) == 16.782938863124393
+    assert roofline_share(trace, "2") is None

@@ -6,6 +6,7 @@ import json
 import pytest
 
 from benchmark import cluster as gen
+from benchmark.reference.greedy import GUARANTEES
 from benchmark.spec import BENCH_DIR, ROOT, Cell, load_reader, load_spec, valid_name, valid_unit
 
 SPEC = load_spec()
@@ -32,7 +33,7 @@ def test_config_files_parse(path):
             assert entry["reduced"] == raw["reduced"] and ROOT / entry["file"] == path
     assert dep.controller["delta"] is True and dep.controller["pipeline"] is True
     assert len(raw["source"]) <= 200 and raw["assumed"]
-    assert raw["control"] == "fit"
+    assert raw["control"] in GUARANTEES
 
 
 @pytest.mark.parametrize("path", sorted((BENCH_DIR / "traffic").glob("*.json")), ids=lambda p: p.stem)
