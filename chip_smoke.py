@@ -201,7 +201,12 @@ from tpu_scheduler_torch.ops.choose import (
     pack_node_words,
     tile_live_mask,
 )
-from tpu_scheduler_torch.ops.constraints import augment_round_state, pack_constraints, round_blocked_masks
+from tpu_scheduler_torch.ops.constraints import (
+    augment_round_state,
+    pack_constraints,
+    round_blocked_masks,
+    spread_fill_operands,
+)
 from tpu_scheduler_torch.experiments import (
     bench_kernel_parts,
     bench_wide_kernel,
@@ -650,6 +655,32 @@ def negative_ppa_case(device, seed: int = 14) -> tuple:
     masks["ppa_cnt_node"] = torch.from_numpy(
         (rng.integers(1, 20, (k, n)) * (rng.random((k, n)) < 0.1)).astype(np.float32)).to(device)
     return args, cons_pod, masks
+
+
+def smem_window_cases(device, weights) -> list:
+    """budget_widths_case with 180–197 terms per family: the pod tile's
+    dynamic shared memory steps by 252 bytes across 48 KB less the
+    kernel's static shared memory, where the launcher must raise the
+    function's limit though the tile is under 48 KB."""
+    return [compare_constrained(f"smem_window_k{k}", *budget_widths_case(device, 15, k=k), weights, salt=k)[0]
+            for k in range(180, 198)]
+
+
+def spread_fill_case(device, weights) -> dict:
+    """A hard-spread round under the water-fill steering
+    (constraints.spread_fill_operands): the level term's pair replaced by
+    the one-hot targets and the penalty operand, [B, S·Ds] and [S·Ds, N]."""
+    snap = synth_cluster(n_nodes=1001, n_pending=61, n_bound=1500, seed=6, spread_fraction=0.5,
+                         schedule_anyway_fraction=0.3, anti_affinity_fraction=0.2)
+    packed, _ = with_constraints(snap, pack_snapshot(snap, pod_block=1, node_block=1))
+    cons = packed.constraints
+    arrays, masks = constrained_round(packed, device)
+    _cpods, meta, state = constraints_to_device(cons, device)
+    b = packed.padded_pods
+    cons_pod = block_cons(arrays, 0, b)
+    cons_pod["pod_sp_fill"], masks["sp_fill_node"] = spread_fill_operands(
+        augment_round_state(state, meta), meta, arrays["pod_sp_declares"][:b], arrays["pod_valid"][:b])
+    return compare_constrained("spread_fill", block_args(arrays, 0, b), cons_pod, masks, weights, salt=6)[0]
 
 
 def constrained_timing(phase: str, args: list, cons_pod: dict, masks: dict, weights, node_offset: int,
@@ -3787,6 +3818,8 @@ def main() -> int:
     if dense_hist["max"] != dense_hist["full_width"]:
         raise SystemExit(f"dense_union: no tile's live lists reach the full width ({dense_hist})")
     crecs.append(compare_constrained("negative_ppa_zero_counts", *negative_ppa_case(device), w_default, salt=8)[0])
+    crecs.extend(smem_window_cases(device, w_thr))
+    crecs.append(spread_fill_case(device, w_default))
     offsets_recs = [sharded_offsets("mixed_activity", mixed[0], w_thr, 4, mixed[1], mixed[2])]
     del mixed, dense
     # A mid-cycle state of the flagship (randomised domain marks and counts):

@@ -203,3 +203,48 @@ def test_constraint_commit(soft_spread, soft_pa, hard_pa):
         assert torch.equal(st_t[k], v), k
     if hard_pa:
         assert (ref["pa_inactive"] != st["pa_inactive"]).any()  # a term came alive
+
+
+def _water_fill_reference(counts, uses, declares, active):
+    """The steering's targets by the plain loop: each active declarer of a
+    constraint, in array order, takes the used domain with the fewest pods
+    so far (the lowest column on a tie) and adds one to it."""
+    counts = counts.copy()
+    target = {}
+    for p in range(declares.shape[0]):
+        if not active[p]:
+            continue
+        for s in np.flatnonzero(declares[p]):
+            used = np.flatnonzero(uses[s])
+            if used.size:
+                d = used[np.argmin(counts[s, used])]
+                counts[s, d] += 1.0
+                target[(p, s)] = d
+    return target
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_spread_fill_operands_match_water_filling(seed):
+    """The port's own steering (constraints.spread_fill_operands) on a real
+    packed ConstraintSet with randomised counts: each active declarer is
+    one-hot at the domain the plain water-filling loop gives it, and every
+    node outside a constraint's domain pays SPREAD_FILL_PENALTY."""
+    pods, meta, state = _case(seed)
+    rng = np.random.default_rng(seed)
+    active = rng.random(pods["pod_sp_declares"].shape[0]) < 0.8
+    t = {k: torch.from_numpy(v) for k, v in {**meta, **state}.items()}
+    aug = TC.augment_round_state({k: t[k] for k in state}, {k: t[k] for k in meta})
+    pod, node = TC.spread_fill_operands(aug, {k: t[k] for k in meta}, torch.from_numpy(pods["pod_sp_declares"]),
+                                        torch.from_numpy(active))
+    sel = meta["sp_dom_sel"]
+    uses, counts = (meta["sp_uses_dom"] @ sel) > 0, state["sp_counts"] @ sel
+    s_n, ds = uses.shape
+    want = np.zeros((active.shape[0], s_n * ds), np.float32)
+    targets = _water_fill_reference(counts, uses, pods["pod_sp_declares"], active)
+    assert targets
+    for (p, s), d in targets.items():
+        want[p, s * ds + d] = 1.0
+    np.testing.assert_array_equal(pod.numpy(), want)
+    outside = 1.0 - meta["node_dom_c"] @ sel
+    want_node = TC.SPREAD_FILL_PENALTY * outside.T[None, :, :] * uses[:, :, None]
+    np.testing.assert_array_equal(node.numpy(), want_node.reshape(s_n * ds, -1))

@@ -43,6 +43,7 @@ import tpu_scheduler_torch.runtime.controller as controller  # noqa: E402
 import tpu_scheduler_torch.runtime.fake_api as fake_api  # noqa: E402
 from tpu_scheduler_torch.backends.cuda import CudaBackend  # noqa: E402
 from tpu_scheduler_torch.cli import MIXED_WORKLOAD  # noqa: E402
+from tpu_scheduler_torch.core.predicates import make_spread_checker  # noqa: E402
 from tpu_scheduler_torch.delta import ESCALATION_REASONS  # noqa: E402
 from tpu_scheduler_torch.models.profiles import PROFILES  # noqa: E402
 
@@ -809,3 +810,200 @@ def test_reduced_view_shares_placed_state():
     assert view.pending_pods() == sub
     assert view.placed_pods() is snap.placed_pods()
     assert view.pods_on_node(snap.nodes[0].name) == snap.pods_on_node(snap.nodes[0].name)
+
+
+# --- pods the cycle was cut off from: the port's stated departure ---------------
+#
+# The JAX package marks every pod its auction left unplaced "no feasible node",
+# and its delta engine keeps that verdict standing.  The port does so only for
+# pods shown to fit no node: a pod the auction's round cap or stall rule, or
+# the stall mop-up's work cap, cut off is requeued as cut off, with no backoff
+# and no standing verdict, and the next cycle solves it again.  A stop that
+# leaves more pods than the stall mop-up takes first runs a bout of rounds
+# under the water-fill steering, and the mop-up leaves the pods the auction
+# was cut off from to the next cycle's auction.
+
+
+def _cut_off_cluster(w, spread_pods=6, plain_pods=12, max_rounds=1, mopup_max=2, n_nodes=9, spread_cpu="100m"):
+    """``n_nodes`` nodes of 8 CPUs in 3 zones; three Deployments of
+    ``spread_pods`` hard-spread pods each (max_skew 1 on the zone: one
+    round admits one pod a zone) and ``plain_pods`` plain pods of 3 CPUs
+    that herd onto the same nodes.  A one-round auction is cut off from
+    some of both kinds; the stall mop-up, and so the residue that runs the
+    bout, is capped at ``mopup_max`` pods."""
+    nodes = [jt.make_node(f"n{i}", cpu="8", memory="32Gi", labels={"zone": f"z{i % 3}"}) for i in range(n_nodes)]
+    pods = []
+    for d in range(3):
+        spread = [jax_objects.TopologySpreadConstraint(topology_key="zone", max_skew=1,
+                                                       match_labels={"app": f"web-{d}"})]
+        pods += [jt.make_pod(f"web-{d}-{i}", cpu=spread_cpu, memory="128Mi", labels={"app": f"web-{d}"},
+                             topology_spread=spread) for i in range(spread_pods)]
+    pods += [jt.make_pod(f"plain-{i}", cpu="3", memory="1Gi") for i in range(plain_pods)]
+    w.load(nodes, pods)
+    # A no-node verdict waits out a 5 s backoff on the frozen clock; a cut-off pod does not.
+    s = w.scheduler(profile_kw={"max_rounds": max_rounds}, requeue_seconds=5.0)
+    s.MOPUP_MAX = mopup_max
+    return s
+
+
+def _unbound(w):
+    return {f"default/{p.metadata.name}" for p in w.api.list_pods() if p.spec.node_name is None}
+
+
+def _spread_kept(w) -> bool:
+    """Every bound pod's hard spread in the port's world ``w``, judged by the
+    port's host sequential chain against the final state less the pod."""
+    snap = snapshot_mod.ClusterSnapshot.build(w.api.list_nodes(), w.api.list_pods())
+    by_name = {n.metadata.name: n for n in snap.nodes}
+    return all(
+        make_spread_checker(p, snap, exclude=frozenset({objects.full_name(p)}))(by_name[p.spec.node_name])
+        for p in snap.pods if p.spec.topology_spread and p.spec.node_name
+    )
+
+
+def test_cut_off_pods_get_no_standing_verdict_and_bind_in_later_cycles():
+    """Twelve pods of 1 CPU a Deployment on 12 nodes: the bout after the
+    round cap (one round more) still leaves pods of both kinds active."""
+    w = World(True)
+    s = _cut_off_cluster(w, spread_pods=12, n_nodes=12, spread_cpu="1")
+    m = w.cycle(s)
+    cut = dict(s._cycle_cut_off)
+    assert m.rounds == 2  # max_rounds, then the bout's max_rounds more
+    assert set(cut.values()) == {"round_cap"} and {pf.split("-")[0] for pf in cut} == {"default/web", "default/plain"}
+    assert m.spans["solve/cut_off_pods"] == m.spans["solve/cut_off_pods/round_cap"] == len(cut)
+    assert _unbound(w) == set(cut) and m.unschedulable == 0  # counted apart from the unschedulable
+    assert not set(cut) & set(s.delta.state.unsched)
+    counters = s.metrics.snapshot()
+    assert counters.get("scheduler_stall_mopup_attempted_total", 0) == 0  # left to the next cycle
+    assert counters['scheduler_requeues_by_reason_total{reason="cut-off"}'] == len(cut)
+    assert counters['scheduler_auction_cut_off_pods_total{cause="round_cap"}'] == len(cut)
+    assert not [k for k in counters if k.startswith("scheduler_unschedulable_total")]
+    for pf in cut:
+        assert pf not in s.requeue_at
+        assert [(e["kind"], e.get("reason")) for e in s.recorder.timeline(pf)][-1] == ("requeued", "cut-off")
+    m2 = w.cycle(s)
+    assert s.delta.stats()["delta_cycles"] == 1 and m2.pending == len(cut)
+    assert s._retry_names == set(cut)  # the retry steers by water filling
+    for _ in range(4):
+        w.cycle(s)
+    assert not _unbound(w) and _spread_kept(w)
+
+
+def test_pods_beyond_the_mopup_cap_are_retried_not_skipped():
+    """An auction that places nothing and cuts nothing off (every pod left
+    as if no node fit it) hands the mop-up the whole residue; capped at 2
+    pods, it places two, and the rest are cut off as ``mopup_cap``, which
+    the next plan keeps dirty."""
+
+    class PlacingNothingOnce(CudaBackend):
+        fail = True
+
+        def assign(self, packed, profile):
+            if self.fail and packed.constraints is not None:
+                self.fail = False
+                return np.full((packed.padded_pods,), -1, np.int32), 3
+            return super().assign(packed, profile)
+
+    w = World(True)
+    s = _cut_off_cluster(w, plain_pods=0, max_rounds=32)
+    s.backend = PlacingNothingOnce(device="cpu")
+    m = w.cycle(s)
+    capped = {pf for pf, c in s._cycle_cut_off.items() if c == "mopup_cap"}
+    assert m.bound == 2 and len(capped) == 16 and set(s._cycle_cut_off) == capped
+    assert _unbound(w) == capped and not capped & set(s.delta.state.unsched)
+    assert s.metrics.snapshot()["scheduler_stall_mopup_attempted_total"] == 2
+    w.cycle(s)
+    assert s.delta.stats()["dirty_sizes"] == [len(capped)] and s.delta.stats()["skipped_total"] == 0
+    for _ in range(4):
+        w.cycle(s)
+    assert not _unbound(w) and _spread_kept(w)
+
+
+def test_a_pod_no_node_can_hold_keeps_its_standing_verdict():
+    """Required anti-affinity on the zone for three pods of one app, two
+    zones: the third fits no node.  Nothing cuts it off, so its verdict
+    stands and the plan skips it, exactly as in the JAX package."""
+    rows = []
+    for port in (True, False):
+        w = World(port)
+        w.load([jt.make_node(f"n{i}", cpu="8", memory="32Gi", labels={"zone": f"z{i}"}) for i in range(2)],
+               [jt.make_pod(f"x-{i}", cpu="100m", memory="128Mi", labels={"app": "x"}, anti_affinity=[
+                   jax_objects.PodAntiAffinityTerm(topology_key="zone", match_labels={"app": "x"})]) for i in range(3)])
+        s = w.scheduler()
+        for _ in range(3):
+            w.cycle(s)
+        if port:
+            assert s._cycle_cut_off == {} and list(s.delta.state.unsched) == ["default/x-2"]
+            assert s.delta.state.unsched["default/x-2"][3] is True
+            assert s.delta.stats()["skipped_total"] == 2 and w.rows[-1][0][0] == 0
+            assert _unbound(w) == {"default/x-2"}
+        rows.append(w.rows)
+    assert rows[0] == rows[1]
+
+
+@pytest.mark.parametrize("mopup_max", [16, 2])
+def test_the_departure_begins_after_the_auction(mopup_max):
+    """On the scenario whose auction hits its round cap, with seven pods
+    still active after its one round.  With the stall mop-up's cap above
+    that residue (16) the auction is the JAX package's: both mop-ups place
+    the same spread pods by the host's chain, and the first cycle's
+    bindings and placement ledger are equal; the verdict ledger differs by
+    exactly the pods cut off (plain pods, which the mop-up does not take),
+    and so does what follows: the JAX package leaves them pending, the port
+    binds them.  With the cap below the residue (2) the departure begins in
+    the auction: a bout of max_rounds more rounds binds every pod the JAX
+    package's cycle binds and every pod it left unplaced."""
+    pw, jw = World(True), World(False)
+    ps, js = _cut_off_cluster(pw, mopup_max=mopup_max), _cut_off_cluster(jw, mopup_max=mopup_max)
+    mp, mj = pw.cycle(ps), jw.cycle(js)
+    cut = set(ps._cycle_cut_off)
+    p_bound = {pf for pf, node in pw.placement() if node}
+    j_bound = {pf for pf, node in jw.placement() if node}
+    p_counts, _p_stats, (p_unsched, p_placements) = pw.rows[0]
+    j_counts, _j_stats, (j_unsched, j_placements) = jw.rows[0]
+    assert not {pf for pf, _ in p_unsched} & cut
+    if mopup_max == 16:
+        assert (mp.rounds, mj.rounds) == (1, 1)
+        assert pw.placement() == jw.placement() and p_placements == j_placements
+        assert cut and {pf.split("-")[0] for pf in cut} == {"default/plain"}
+        assert p_counts[1] == j_counts[1] and p_counts[2] + len(cut) == j_counts[2]
+        assert {pf for pf, _ in j_unsched} == {pf for pf, _ in p_unsched} | cut
+        left = cut
+    else:
+        assert (mp.rounds, mj.rounds) == (2, 1) and not cut and not p_unsched
+        assert j_bound < p_bound and {pf for pf, _ in j_unsched} == p_bound - j_bound
+        left = p_bound - j_bound
+    for _ in range(3):
+        pw.cycle(ps)
+        jw.cycle(js)
+    assert _unbound(jw) == left and not _unbound(pw)
+
+
+def test_an_infeasible_residue_beyond_the_mopup_cap_is_proven_over_cycles():
+    """Ten pods with required anti-affinity on the hostname, four nodes:
+    six fit no node, more than the stall mop-up's cap of 2, while two new
+    plain pods bind in every cycle.  Nothing cuts the six off (no node
+    passes their filters), so the chain proves two a cycle, and within
+    three cycles each has its standing verdict and the plan skips it."""
+    w = World(True)
+    anti = [jax_objects.PodAntiAffinityTerm(topology_key="kubernetes.io/hostname", match_labels={"app": "x"})]
+    w.load([jt.make_node(f"n{i}", cpu="32", memory="64Gi") for i in range(4)],
+           [jt.make_pod(f"x-{i}", cpu="100m", memory="128Mi", labels={"app": "x"}, anti_affinity=anti)
+            for i in range(10)])
+    s = w.scheduler(requeue_seconds=5.0)
+    s.MOPUP_MAX = 2
+    proven = []
+    for c in range(3):
+        for i in range(2):
+            w.create_pod(jt.make_pod(f"plain-{c}-{i}", cpu="1", memory="1Gi"))
+        m = w.cycle(s)
+        assert m.bound >= 2 and not s._cycle_cut_off.keys() - {f"default/x-{i}" for i in range(10)}
+        assert set(s._cycle_cut_off.values()) <= {"mopup_cap"}
+        proven.append(len(s.delta.state.unsched))
+    infeasible = _unbound(w)
+    assert len(infeasible) == 6 and {pf.split("-")[0] for pf in infeasible} == {"default/x"}
+    assert proven == [2, 4, 6] and set(s.delta.state.unsched) == infeasible
+    assert s.metrics.snapshot()["scheduler_stall_mopup_attempted_total"] == 6
+    w.create_pod(jt.make_pod("plain-last", cpu="1", memory="1Gi"))
+    m = w.cycle(s)
+    assert m.bound == 1 and not s._cycle_cut_off and s.delta.stats()["dirty_sizes"][-1] == 1

@@ -24,8 +24,8 @@ from tpu_scheduler_torch.utils.metrics import CycleMetrics, cycle_phases
 torch.set_num_threads(1)
 
 # The CycleMetrics fields beyond the phases.
-OFF_PHASE_FIELDS = ("spans", "gc_pause_s", "gc_collections", "bind_posts", "bind_failures", "bind_wall_s",
-                    "bind_cpu_s")
+OFF_PHASE_FIELDS = ("spans", "constraint_widths", "gc_pause_s", "gc_collections", "bind_posts", "bind_failures",
+                    "bind_wall_s", "bind_cpu_s")
 # The phases, as they were before the fields above: none of those may read as one.
 PHASES = ("pack", "solve", "bind", "sync", "mopup", "overlay", "noexecute", "queue", "delta", "constrained",
           "preempt", "gang", "slo", "rebalance", "autoscale", "other")
@@ -272,3 +272,30 @@ def test_every_post_is_folded_once_under_fast_thread_switching():
     finally:
         sys.setswitchinterval(saved)
     assert api.accepted == 25 * 12 and posts == api.accepted
+
+
+def test_constraint_widths_are_what_the_constrained_choose_reads(monkeypatch):
+    """A constrained cycle records kernel #2's bitmap widths as ops/choose
+    reads them off the pod operands (L, T, A, A2, Ts) and times the
+    constraint packing under ``pack/constraints``; a plain cycle records
+    neither."""
+    import tpu_scheduler_torch.ops.assign as assign_mod
+    from tpu_scheduler_torch.testing import synth_cluster
+
+    seen = set()
+    real = assign_mod.choose_block_constrained
+
+    def spy(*args, **kw):
+        seen.add(tuple(int(args[i].shape[1]) for i in (1, 3, 4, 6, 7)))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(assign_mod, "choose_block_constrained", spy)
+    snap = synth_cluster(n_nodes=12, n_pending=60, n_bound=12, seed=4, selector_fraction=0.3, tainted_fraction=0.3,
+                         soft_taint_fraction=0.3, preferred_affinity_fraction=0.3, anti_affinity_fraction=0.2,
+                         spread_fraction=0.2)
+    api = FakeApiServer()
+    api.load(snap.nodes, snap.pods)
+    m = _scheduler(api).run_cycle()
+    assert seen == {tuple(m.constraint_widths)} and m.spans["pack/constraints"] > 0.0
+    plain = _scheduler(_api()).run_cycle()
+    assert plain.constraint_widths is None and "pack/constraints" not in plain.spans

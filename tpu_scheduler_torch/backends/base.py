@@ -3,7 +3,9 @@
 The boundary is one cycle-level call: packed tensors in, per-pod node
 assignments out.  ``schedule`` turns a backend's padded assignment into
 bindings, exactly as the JAX package does, so results compare field by
-field across the two packages.
+field across the two packages.  One field is the port's own:
+``CycleResult.cut_off``, the unschedulable pods the auction stopped before
+it had shown that no node fits them (a backend's ``cut_off`` extra).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..models.profiles import DEFAULT_PROFILE, SchedulingProfile
+from ..ops.assign import CUT_OFF_CAUSES
 from ..ops.pack import PackedCluster
 
 __all__ = ["CycleResult", "SchedulingBackend"]
@@ -28,6 +31,9 @@ class CycleResult:
     unschedulable: list[str]  # pod full names with no feasible node this cycle
     rounds: int
     stats: dict = field(default_factory=dict)
+    # Of ``unschedulable``, the pods a stop of the auction cut off, each with
+    # its cause (ops/assign.CUT_OFF_CAUSES): not shown infeasible.
+    cut_off: dict[str, str] = field(default_factory=dict)
 
 
 class SchedulingBackend(abc.ABC):
@@ -53,7 +59,8 @@ class SchedulingBackend(abc.ABC):
         """Run the cycle over padded tensors; return (assigned [padded_pods],
         rounds) or (assigned, rounds, extras) where ``extras`` carries
         per-pod diagnostics (acceptance round, priority rank) into
-        ``CycleResult.stats``."""
+        ``CycleResult.stats``; a ``cut_off`` extra (each pod's index into
+        ops/assign.CUT_OFF_CAUSES) becomes ``CycleResult.cut_off``."""
 
     def schedule(self, packed: PackedCluster, profile: SchedulingProfile = DEFAULT_PROFILE) -> CycleResult:
         result = self.assign(packed, profile)
@@ -66,12 +73,19 @@ class SchedulingBackend(abc.ABC):
         bindings = list(zip(pod_arr[placed].tolist(), node_arr[assigned[placed]].tolist()))
         unschedulable = pod_arr[np.flatnonzero(assigned < 0)].tolist()
         stats = {"backend": self.name}
+        cut_off = {}
         for k, v in extras.items():
-            stats[k] = np.asarray(v)[: packed.num_pods]
+            if k == "cut_off":
+                codes = np.asarray(v)[: packed.num_pods]
+                rows = np.flatnonzero(codes)
+                cut_off = dict(zip(pod_arr[rows].tolist(), (CUT_OFF_CAUSES[c] for c in codes[rows].tolist())))
+            else:
+                stats[k] = np.asarray(v)[: packed.num_pods]
         return CycleResult(
             assigned=assigned,
             bindings=bindings,
             unschedulable=unschedulable,
             rounds=int(rounds),
             stats=stats,
+            cut_off=cut_off,
         )

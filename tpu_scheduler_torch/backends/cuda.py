@@ -3,7 +3,7 @@
 Uploads the packed tensors — with the inter-pod constraint tensors and the
 topology (gang-locality) tensors when the cluster carries them — runs the
 auction (ops/assign.py, with the hand-written choose kernels on the card)
-and brings the result home as ONE stacked [4, P] int32 tensor.  Runs on
+and brings the result home as ONE stacked [5, P] int32 tensor.  Runs on
 the card unless the caller asks for the CPU (``device="cpu"``, the plain
 torch versions — what the tests use).  There is no fallback: without CUDA
 the constructor raises, and a CUDA runtime failure during a cycle raises
@@ -196,23 +196,25 @@ class CudaBackend(SchedulingBackend):
                 pods.update(cpods)
                 kw.update(
                     cmeta=cmeta, cstate=cstate, soft_spread=cons.n_spread_soft > 0, soft_pa=cons.n_ppa_terms > 0,
-                    hard_pa=cons.n_pa_terms > 0,
+                    hard_pa=cons.n_pa_terms > 0, spread_fill=cons.spread_fill, fill_bout_above=cons.fill_bout_above,
                 )
             if packed.topology is not None:
                 tpods, tmeta, tstate = topology_to_device(packed.topology, self.device, put=self._put)
                 pods.update(tpods)
                 kw.update(tmeta=tmeta, tstate=tstate)
-            assigned, rounds, _avail, acc_round, rank_of = assign_cycle(
+            assigned, rounds, _avail, acc_round, rank_of, cut_off = assign_cycle(
                 nodes, pods, profile.weights(), max_rounds=profile.max_rounds, block=profile.pod_block, **kw
             )
             # ONE device→host fetch for the whole result.
-            combined = torch.stack([assigned, acc_round, rank_of, torch.full_like(assigned, rounds)]).cpu().numpy()
+            combined = torch.stack(
+                [assigned, acc_round, rank_of, torch.full_like(assigned, rounds), cut_off]
+            ).cpu().numpy()
         except RuntimeError as e:
             if self.device.type == "cuda" and _is_device_failure(e):
                 self._drop_dev_cache()
                 raise BackendUnavailable(f"cuda backend runtime failure: {e}") from e
             raise
-        return combined[0], int(combined[3, 0]), {"acc_round": combined[1], "rank": combined[2]}
+        return combined[0], int(combined[3, 0]), {"acc_round": combined[1], "rank": combined[2], "cut_off": combined[4]}
 
 
 def make_backend(name: str, **kw) -> SchedulingBackend:

@@ -735,22 +735,24 @@ __global__ void __launch_bounds__(THREADS, 2) choose_kernel(const ChooseArgs a) 
 
 // Launch one instance on `stream`: the dynamic shared memory it needs (the
 // pod words, the pref_w rows, the requests and, constrained, the constraint
-// rows and their live lists), raising the kernel's limit past the 48 KB
-// default when it must.  Returns 0, TSCHED_ERR_SMEM when the device cannot
-// grant it, or a CUDA error.
+// rows and their live lists), raising the kernel's limit when it must.  The
+// limit is the function's own: 48 KB less its static shared memory until it
+// is raised, so a launch just under 48 KB of dynamic memory needs it raised
+// too.  Returns 0, TSCHED_ERR_SMEM when the device cannot grant it, or a
+// CUDA error.
 template <bool CONSTRAINED, bool ONE_WORD, bool TOPO>
 static int launch(const ChooseArgs& a, cudaStream_t stream) {
   const Slots<ONE_WORD> sl(a.L, a.T, a.A, a.A2, a.Ts);
   const size_t wc = CONSTRAINED ? (size_t)a.Wb + a.Ss + a.S + a.Tp : 0;
   const size_t smem = 4 * ((size_t)PODS * ((size_t)sl.per_pod + a.A2 + a.R + wc) + wc);
   const void* fn = (const void*)choose_kernel<CONSTRAINED, ONE_WORD, TOPO>;
-  if (smem > 48 * 1024) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > (size_t)attr.maxDynamicSharedSizeBytes) {
     int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, fn);
     if (e != cudaSuccess) return (int)e;
     if (smem + attr.sharedSizeBytes > (size_t)optin) return TSCHED_ERR_SMEM;
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

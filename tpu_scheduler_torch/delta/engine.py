@@ -40,7 +40,9 @@ without a standing verdict already pass the overflow threshold escalates
 before the fold (``escalated_early``, counted in
 ``scheduler_delta_early_escalations_total``); the rebuild takes the pack's
 capacity sweep of the same snapshot; and it leaves the placement ledger to
-be written when first read (``SolveState.defer_placements``).
+be written when first read (``SolveState.defer_placements``).  One
+departure changes results: the verdicts a commit records leave out the pods
+the cycle was cut off from (``_record_verdicts``).
 """
 
 from __future__ import annotations
@@ -273,7 +275,12 @@ class DeltaEngine:
         """Write this cycle's unschedulable verdicts into the ledger, each
         with its per-node blocking set (budgeted — beyond
         ``BLOCKING_BUDGET`` pod×node probes the rest record blocked=None
-        and retire coarsely) and its constraint-entanglement flag."""
+        and retire coarsely) and its constraint-entanglement flag.
+
+        The controller hands in only the pods shown to fit no node: unlike
+        the JAX package's, it leaves out the pods the cycle was cut off from
+        (the auction's round cap or stall, the mop-up's work cap), so no
+        verdict stands for them and the next plan keeps them dirty."""
         if not unschedulable:
             return
         by_full = {full_name(p): p for p in pending_all}

@@ -32,7 +32,19 @@ pending pods are assigned in a few auction rounds; each round:
      only touches ceil(n_active / block) blocks.
 
 A constrained cycle also stops after STALL_ROUNDS consecutive rounds that
-accept nobody: the filter can defer the same pods forever.
+accept nobody: the filter can defer the same pods forever.  The rows still
+active when the round cap or the stall stops the cycle are reported as cut
+off (``cut_off``, coded by ``CUT_OFF_CAUSES``): no node was shown to refuse
+them, unlike the rows that went inactive because none passed their filters.
+
+Two pieces are the port's own, and change results only where a stop would
+cut pods off: the water-fill steering of hard-spread declarers
+(``spread_fill``, constraints.spread_fill_operands), which a cycle that
+retries cut-off pods runs from its first round; and the bout of
+``max_rounds`` more rounds under that steering that a constrained auction
+runs when a stop leaves more than ``fill_bout_above`` pods active (the
+controller passes its stall mop-up's cap, so the bout takes the residue
+that the mop-up could not).
 
 The JAX package runs the rounds as ``lax.while_loop``s inside one jit
 program; here the same round body is a Python loop with one host read of
@@ -65,13 +77,23 @@ from .choose import (
     choose_block_constrained,
     pack_node_words,
 )
-from .constraints import augment_round_state, constraint_commit, constraint_filter, round_blocked_masks
+from .constraints import (
+    augment_round_state,
+    constraint_commit,
+    constraint_filter,
+    round_blocked_masks,
+    spread_fill_operands,
+)
 from .pack import INT32_MAX, STALL_ROUNDS
 from ..utils.tracing import span
 
 _NULL = contextlib.nullcontext()
 
-__all__ = ["accept_claims", "assign_cycle", "commit_claims", "split_device_arrays"]
+__all__ = ["CUT_OFF_CAUSES", "accept_claims", "assign_cycle", "commit_claims", "split_device_arrays"]
+
+# Why a pod was still active when the auction stopped, by the code
+# assign_cycle's ``cut_off`` carries (0: it was not cut off).
+CUT_OFF_CAUSES = ("", "round_cap", "stall")
 
 # Pod-side keys the choose step reads, in choose_block's argument order.
 _CHOOSE_KEYS = (
@@ -169,19 +191,22 @@ class _Constraints:
     soft_spread: bool
     soft_pa: bool
     hard_pa: bool
+    spread_fill: bool = False
+    fill_bout_above: int | None = None
     stall: int = 0
 
 
 def _choose(
     avail, ps: dict, n_active: int, nodes: dict, words: tuple, weights, block: int, salt: int, masks=None,
-    gang=None,
+    gang=None, fill=None,
 ):
     """Per-pod best feasible node vs current capacity, blockwise over the
     compacted pods: only the first ceil(n_active / block) blocks run.
     ``words``: the cycle's node bitmap words (choose.pack_node_words);
     ``masks`` (a constrained round's node masks) selects the constrained
     choose; ``gang`` (a topology round's locality.GangTerm, its gang ids
-    None) adds each pod's gang term, with the block's gang ids."""
+    None) adds each pod's gang term, with the block's gang ids; ``fill``
+    (constraints.spread_fill_operands) replaces the level term's pair."""
     p = ps["pod_req"].shape[0]
     node_args = (avail,) + tuple(nodes[k] for k in _NODE_KEYS)
 
@@ -191,6 +216,8 @@ def _choose(
         if masks is None:
             return choose_block(*pod_args, *node_args, weights, salt, node_words=words, topo=topo)[:2]
         cons_pod = {k: ps[k][lo:hi] for k in CONSTRAINT_POD_KEYS}
+        if fill is not None:
+            cons_pod["pod_sp_fill"] = fill[0][lo:hi]
         return choose_block_constrained(
             *pod_args, *node_args, cons_pod, masks, weights, salt, node_words=words, topo=topo
         )[:2]
@@ -263,17 +290,21 @@ def _round(
         n = avail.shape[0]
         masks = None
         gang = None
+        fill = None
         with span("mask") if detail else _NULL:
             if cons is not None:
                 masks = round_blocked_masks(cons.state, cons.meta, cons.soft_spread, cons.soft_pa, cons.hard_pa)
+                if cons.spread_fill:
+                    fill = spread_fill_operands(cons.state, cons.meta, ps["pod_sp_declares"], ps["active"])
+                    masks["sp_fill_node"] = fill[1]
             if topo is not None:
                 gang = gang_round_operands(
                     topo["cycle"], topo["state"], topo["meta"], avail, ps["pod_gang_id"], ps["pod_req"], ps["active"],
                     weights[6],
                 )
         with span("score") if detail else _NULL:
-            choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, gang)
-        del gang
+            choice, has = _choose(avail, ps, n_active, nodes, words, weights, block, rounds, masks, gang, fill)
+        del gang, fill
         with span("choose") if detail else _NULL:
             cand = ps["active"] & has
             ch = torch.where(cand, choice.to(torch.int64), n)  # sentinel segment n for non-claimants
@@ -335,6 +366,8 @@ def assign_cycle(
     hard_pa: bool = True,
     tmeta: dict | None = None,
     tstate: dict | None = None,
+    spread_fill: bool = False,
+    fill_bout_above: int | None = None,
 ):
     """Assign all pending pods to nodes in one cycle.
 
@@ -344,14 +377,21 @@ def assign_cycle(
     (ConstraintSet meta_arrays/state_arrays as tensors) switch on the
     constraint path; ``pods`` must then also carry the ConstraintSet
     pod_arrays, and the three flags say which optional features the cycle
-    has (the JAX package's assign_cycle contract).  ``tmeta``/``tstate``
+    has (the JAX package's assign_cycle contract); ``spread_fill`` steers
+    its hard-spread declarers by water filling from the first round (the
+    port's own, constraints.spread_fill_operands); without it, a stop that
+    leaves more than ``fill_bout_above`` pods active turns it on for one
+    bout of max_rounds more rounds (None: never, as in the JAX package).  ``tmeta``/``tstate``
     (TopologySet meta_arrays as tensors, and the per-(gang, domain) zeros
     ``{"placed": [G+1, Dt], "total": [G+1]}`` float32,
     convert.topology_to_device) switch on the gang term; ``pods`` must then
     also carry ``pod_gang_id``, and ``tstate`` is updated in place.  Returns (assigned [P]
-    int32 — node index or −1, rounds int, remaining node_avail [N,R] int32,
+    int32 — node index or −1, rounds int (beyond ``max_rounds`` after a
+    bout), remaining node_avail [N,R] int32,
     acc_round [P] int32 — the round each pod was accepted in or −1,
-    rank_of [P] int32 — each pod's priority rank).  Every bitmap operand
+    rank_of [P] int32 — each pod's priority rank, cut_off [P] int32 — the
+    index into CUT_OFF_CAUSES of the stop that cut a still-active pod off,
+    0 for every other pod).  Every bitmap operand
     must be 0/1 (ValueError otherwise, before any round): the choose
     kernels read the node bitmaps as words, built here once per cycle.
     Gang ids outside [0, G], and domain ids outside the state's columns,
@@ -367,13 +407,16 @@ def assign_cycle(
     perm, ps = _prepare_pods(pods, block)
     cons = None
     if cmeta is not None:
-        cons = _Constraints(cmeta, augment_round_state(cstate, cmeta), soft_spread, soft_pa, hard_pa)
+        cons = _Constraints(
+            cmeta, augment_round_state(cstate, cmeta), soft_spread, soft_pa, hard_pa, spread_fill, fill_bout_above
+        )
     p = ps["pod_req"].shape[0]
     device = ps["pod_req"].device
     sizes = _size_chain(p, block)
 
     assigned_rank = torch.zeros((p,), dtype=torch.int32, device=device)
     acc_round_rank = torch.zeros((p,), dtype=torch.int32, device=device)
+    cut_rank = torch.zeros((p,), dtype=torch.int32, device=device)
     avail = nodes["node_avail"]
     n_active = int(ps["active"].sum())
     rounds = 0
@@ -381,6 +424,7 @@ def assign_cycle(
     # pool or a stall makes every later stage run zero rounds, so the
     # stage-transition slice (which may drop still-active rows) is safe.
     done = False
+    round_cap = max_rounds
     for i, size in enumerate(sizes):
         if i > 0:
             # Fold the rows about to be dropped, then slice to the stage size.
@@ -388,13 +432,22 @@ def assign_cycle(
             acc_round_rank[ps["ranks"].to(torch.int64)] = ps["acc_round"]
             ps = {k: v[:size] for k, v in ps.items()}
         next_size = sizes[i + 1] if i + 1 < len(sizes) else 0
-        while (
-            not done and rounds < max_rounds and n_active > 0 and not _stalled(cons)
-            and (not next_size or n_active > next_size)
-        ):
+        while not done and (not next_size or n_active > next_size):
+            if rounds >= round_cap or n_active <= 0 or _stalled(cons):
+                bout = cons is not None and not cons.spread_fill and cons.fill_bout_above is not None
+                if not bout or n_active <= cons.fill_bout_above:
+                    break
+                # The port's own: a bout of max_rounds more rounds under the
+                # water-fill steering, in place of cutting the pods off.
+                cons.spread_fill, cons.stall, round_cap = True, 0, rounds + max_rounds
             avail, ps, n_active = _round(avail, ps, n_active, rounds, nodes, words, weights, block, cons, topo)
             rounds += 1
-        done = done or rounds >= max_rounds or n_active <= 0 or _stalled(cons)
+        stop = rounds >= round_cap or n_active <= 0 or _stalled(cons)
+        if stop and not done and n_active > 0:
+            # Before the next stage's slice drops them: the rows a stop cut off.
+            cause = CUT_OFF_CAUSES.index("round_cap" if rounds >= round_cap else "stall")
+            cut_rank[ps["ranks"].to(torch.int64)] = torch.where(ps["active"], cause, 0).to(torch.int32)
+        done = done or stop
 
     # Undo compaction (rank space), then the priority permutation, dropping
     # block padding.
@@ -407,4 +460,6 @@ def assign_cycle(
     acc_round[perm] = acc_round_rank[:p_out]
     rank_of = torch.zeros((p_out,), dtype=torch.int32, device=device)
     rank_of[perm] = torch.arange(p_out, dtype=torch.int32, device=device)
-    return out, rounds, avail, acc_round, rank_of
+    cut_off = torch.zeros((p_out,), dtype=torch.int32, device=device)
+    cut_off[perm] = cut_rank[:p_out]
+    return out, rounds, avail, acc_round, rank_of, cut_off

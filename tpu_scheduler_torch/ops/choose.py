@@ -381,15 +381,26 @@ def choose_block_constrained_plain(
     args = (req, sel, selc, ntol, aff, has_aff, pref_w, ntol_soft, active, ranks,
             avail, alloc, valid, labels, taints, node_aff, node_pref, taints_soft)
     soft_sp, soft_pa = "sp_penalty_node" in masks, "ppa_cnt_node" in masks
+    spd, spl = _level_pair(cons_pod, masks)
     terms = dict(
         pod_sps_declares=cons_pod["pod_sps_declares"] if soft_sp else None,
         sp_penalty_node=masks.get("sp_penalty_node"),
-        pod_sp_declares=cons_pod["pod_sp_declares"],
-        sp_level_node=masks["sp_level_node"],
+        pod_sp_declares=spd,
+        sp_level_node=spl,
         pod_ppa_w=cons_pod["pod_ppa_w"] if soft_pa else None,
         ppa_cnt_node=masks.get("ppa_cnt_node"),
     )
     return _plain(args, weights, salt, node_offset, blocked_block(cons_pod, masks), terms, topo)
+
+
+def _level_pair(cons_pod: dict, masks: dict) -> tuple:
+    """The level term's (pod, node) operands: the hard-spread declarations
+    and each domain's height above the water line, or the water-fill
+    steering's pair in their place (``pod_sp_fill``/``sp_fill_node``,
+    constraints.spread_fill_operands)."""
+    if "sp_fill_node" in masks:
+        return cons_pod["pod_sp_fill"], masks["sp_fill_node"]
+    return cons_pod["pod_sp_declares"], masks["sp_level_node"]
 
 
 def constrained_node_operands(masks: dict) -> tuple:
@@ -407,7 +418,7 @@ def constrained_node_operands(masks: dict) -> tuple:
     return (
         torch.cat(band).contiguous(),
         masks.get("sp_penalty_node", empty).contiguous(),
-        masks["sp_level_node"].contiguous(),
+        masks.get("sp_fill_node", masks["sp_level_node"]).contiguous(),
         masks.get("ppa_cnt_node", empty).contiguous(),
     )
 
@@ -427,7 +438,7 @@ def constrained_pod_operands(cons_pod: dict, masks: dict) -> tuple:
     return (
         torch.cat(band, dim=1).contiguous(),
         cons_pod["pod_sps_declares"].contiguous() if "sp_penalty_node" in masks else empty,
-        spd.contiguous(),
+        _level_pair(cons_pod, masks)[0].contiguous(),
         cons_pod["pod_ppa_w"].contiguous() if "ppa_cnt_node" in masks else empty,
     )
 

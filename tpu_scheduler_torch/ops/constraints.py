@@ -27,6 +27,12 @@ it computes and where the torch form departs in mechanics:
 * ``.at[].min/.max`` become ``scatter_reduce_(…, "amin"/"amax",
   include_self=True)`` and ``.at[].add`` becomes ``index_add_``.
 
+One piece is the port's own: :func:`spread_fill_operands`, the hard-spread
+steering of a cycle that retries pods an earlier cycle's auction was cut off
+from (``ConstraintSet.spread_fill``), or that a stop would leave with more
+active pods than ``ConstraintSet.fill_bout_above`` (ops/assign.py).  Every
+other cycle steers as the JAX package does.
+
 Every value the engine sums is an exact small-integer float32 (0/1
 bitmaps, domain counts, ranks below 2^24), so summation order — atomics in
 ``index_add_``, chunked scans, dense vs. scatter formulations, cuBLAS vs.
@@ -57,7 +63,9 @@ __all__ = [
     "blocked_block",
     "constraint_filter",
     "constraint_commit",
+    "spread_fill_operands",
     "RANK_INF",
+    "SPREAD_FILL_PENALTY",
 ]
 
 _NULL_SPAN_CTX = contextlib.nullcontext()
@@ -99,6 +107,11 @@ def _dense_ok(p: int, cells: int) -> bool:
 # can lift a constraint's certain minimum one level.  A global constant: a
 # size-dependent count would make admission depend on the stage shape.
 SPREAD_CASCADE = 4
+
+# Score a hard-spread declarer loses, under the water-fill steering, on a
+# node outside the domain it is steered to: more than LeastRequested and
+# BalancedAllocation together can give (200), so the domain decides.
+SPREAD_FILL_PENALTY = 1024.0
 
 # Pod-axis tile of the JAX package's jit active-set scans.  The port gathers
 # the exact accepted rows instead (the NumPy oracle's form), so it does not
@@ -241,6 +254,14 @@ class ConstraintSet:
     n_ppa_terms: int
     n_spread: int
     n_spread_soft: int
+    # The port's own: steer the hard-spread declarers by water filling
+    # (spread_fill_operands), in a cycle that retries pods an earlier
+    # cycle's auction was cut off from.
+    spread_fill: bool = False
+    # The port's own: a stop that leaves more active pods than this runs a
+    # bout of rounds under that steering (ops/assign.assign_cycle); None
+    # runs none, as the JAX package does.
+    fill_bout_above: int | None = None
 
     def pod_arrays(self) -> dict:
         return {
@@ -944,6 +965,53 @@ def constraint_filter(accepted, choice, ranks, ps: dict, state: dict, meta: dict
     out = torch.zeros_like(accepted)
     out[gperm] = keep
     return out
+
+
+def spread_fill_operands(state: dict, meta: dict, declares: torch.Tensor, active: torch.Tensor) -> tuple:
+    """The water-fill steering of the hard-spread declarers: the pod and node
+    operands that replace the level term's (``pod_sp_declares``,
+    ``sp_level_node``) in the choose, [P, S·Ds] and [S·Ds, N].
+
+    The active declarers of a spread constraint fill its domains level by
+    level from its round-start counts, in rank (array) order: the k-th one
+    is given the k-th free slot (level l, domain d), l ≥ the domain's count,
+    ordered by level and then domain column.  Its pod operand is one-hot at
+    (s, d); every node outside d costs ``SPREAD_FILL_PENALTY``.  So a
+    Deployment's pods spread over the domains the way the filter admits
+    them within a round, where the level term alone lets resource scores
+    herd them onto the best node of one domain, above the water line.  It
+    only steers: the filter admits as it always does.  The level is found
+    by a bisection of F(l) = Σ_d max(0, l − count_d), the slots below level
+    l: the largest l with F(l) ≤ k.  One host sync, for the declarers'
+    nonzero entries."""
+    sel = meta["sp_dom_sel"]
+    uses = (meta["sp_uses_dom"] @ sel) > 0  # [S, Ds]
+    counts = state["sp_counts"] @ sel
+    p, s_n = declares.shape
+    ds = uses.shape[1]
+    decl = declares * active[:, None].to(_F32)
+    place = torch.cumsum(decl, 0) - decl  # [P, S] each declarer's place among its constraint's
+    pi, si = torch.nonzero(decl > 0, as_tuple=True)
+    k = place[pi, si][:, None]  # [E, 1]
+    u, c = uses[si], counts[si]  # [E, Ds]
+    lo = torch.amin(torch.where(u, c, RANK_INF), dim=1, keepdim=True)  # F(lo) = 0 ≤ k
+    hi = lo + k + 1.0  # F(hi) ≥ k + 1: a used domain gains k + 1 slots
+
+    def slots_below(level):
+        return torch.where(u, torch.clamp(level - c, min=0.0), 0.0).sum(dim=1, keepdim=True)
+
+    for _ in range(max(1, int(p).bit_length() + 1)):  # hi − lo ≤ P + 1 halves to 1
+        mid = torch.floor((lo + hi) * 0.5)
+        below = slots_below(mid) <= k
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    open_ = u & (c <= lo)
+    r = k - slots_below(lo)  # the slot's place among the open domains, in column order
+    target = torch.argmax((open_ & (torch.cumsum(open_.to(_F32), dim=1) == r + 1.0)).to(torch.int32), dim=1)
+    pod = torch.zeros((p, s_n * ds), dtype=_F32, device=declares.device)
+    pod[pi, si * ds + target] = 1.0
+    outside = 1.0 - meta["node_dom_c"] @ sel  # [N, Ds]
+    node = SPREAD_FILL_PENALTY * outside.T[None, :, :] * uses[:, :, None].to(_F32)  # [S, Ds, N]
+    return pod, node.reshape(s_n * ds, -1).contiguous()
 
 
 def constraint_commit(

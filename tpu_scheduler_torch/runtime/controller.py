@@ -43,6 +43,17 @@ name in the reflector's cache, and a cycle that runs while a bind batch is
 in flight, with nothing else pending, overlays the batch's assumed pods as
 a view of the snapshot instead of bound clones
 (``_prune_and_overlay_assumed``).
+
+One departure changes results: a pod the auction was cut off from — by its
+round cap or stall rule, or because it lies beyond the stall mop-up's work
+cap — is requeued as cut off (``_mark_unplaced``), not as "no feasible
+node": it gets no backoff and no standing verdict in the delta engine, so
+the next cycle solves it again, steering its hard-spread declarers by water
+filling (``ConstraintSet.spread_fill``; before it cuts off more pods than
+the stall mop-up takes, the auction itself runs a bout under that steering,
+``ConstraintSet.fill_bout_above``, ops/assign.py).  The stall mop-up leaves
+the cut-off pods of a residue beyond its cap to that cycle when the auction
+placed any pod.  Where nothing is cut off, the cycle is the JAX package's.
 """
 
 from __future__ import annotations
@@ -353,7 +364,17 @@ class Scheduler:
         # Collector pauses are counted process-wide, on every thread; each
         # cycle folds the change over its own run.
         install_gc_clock()
-        self._cycle_unschedulable: list[str] = []  # this cycle's no-node pods
+        # This cycle's unplaced pods, in the order the cycle gave up on them
+        # (the preemption pass's candidates), and those of them it was cut
+        # off from, with the cause (ops/assign.CUT_OFF_CAUSES, "mopup_cap").
+        self._cycle_unschedulable: list[str] = []
+        self._cycle_cut_off: dict[str, str] = {}
+        # The pods the previous cycle was cut off from: a constrained batch
+        # that holds any of them steers by water filling.
+        self._retry_names: set[str] = set()
+        # The widths of #2's bitmap operands as the cycle packed them
+        # (CycleMetrics.constraint_widths); None without a constrained solve.
+        self._cycle_constraint_widths: list[int] | None = None
         self._cycle_gangs: dict[str, set[str]] = {}  # gang -> CYCLE-wide member names
         # Leader election (SURVEY.md §5 — the reference has none): only the
         # lease holder schedules; standbys keep their reflector caches warm
@@ -610,13 +631,54 @@ class Scheduler:
             self._pod_by_full_cache = cache = (snap, {full_name(p): p for p in snap.pending_pods()})
         return cache[1].get(pod_full)
 
+    def _mark_unplaced(self, result) -> int:
+        """Requeue a cycle result's unschedulable pods: each one a stop cut
+        off (``result.cut_off``) as cut off, every other one as
+        unschedulable.  Returns the count of the unschedulable.
+
+        A cut-off pod was not shown to fit no node: the auction's round cap
+        or stall rule, or the stall mop-up's work cap (its cause), stopped
+        first.  It stays a candidate of the preemption pass, as every
+        unplaced pod is, but it is counted apart (``solve/cut_off_pods``,
+        ``scheduler_auction_cut_off_pods_total``), requeued under the reason
+        ``cut-off`` with no backoff, and kept out of the delta engine's
+        verdict ledger (``_cycle_verdicts``), so the next cycle solves it
+        again.  The JAX package marks such a pod unschedulable."""
+        causes: dict[str, int] = {}
+        for pod_full in result.unschedulable:
+            cause = result.cut_off.get(pod_full)
+            if cause is None:
+                self._mark_unschedulable(pod_full)
+                continue
+            causes[cause] = causes.get(cause, 0) + 1
+            self._cycle_unschedulable.append(pod_full)
+            self._cycle_cut_off[pod_full] = cause
+            self.requeue_at.pop(pod_full, None)
+            self.recorder.record(pod_full, "requeued", self._cycle_tag, reason="cut-off", detail=f"cut off: {cause}")
+        n_cut = sum(causes.values())
+        if n_cut:
+            counts = self._cycle_counts
+            counts["solve/cut_off_pods"] = counts.get("solve/cut_off_pods", 0) + n_cut
+            for cause, n in causes.items():
+                key = f"solve/cut_off_pods/{cause}"
+                counts[key] = counts.get(key, 0) + n
+                self.metrics.inc("scheduler_auction_cut_off_pods_total", n, labels={"cause": cause})
+            self.metrics.inc("scheduler_requeues_total", n_cut)
+            self.metrics.inc("scheduler_requeues_by_reason_total", n_cut, labels={"reason": "cut-off"})
+            logger.info("%d pods cut off before the cycle placed them; the next cycle retries them", n_cut)
+        return len(result.unschedulable) - n_cut
+
     def _mark_unschedulable(self, pod_full: str) -> None:
         """Requeue a pod the cycle could not place, remember it for the
         end-of-cycle preemption pass (profile.preemption), and ATTRIBUTE the
         verdict: the dominant typed InvalidNodeReason plus per-reason
         candidate-node counts (budgeted), a labeled
         ``scheduler_unschedulable_total{reason=...}`` increment, and an
-        "unschedulable" timeline event the /debug why-pending route serves."""
+        "unschedulable" timeline event the /debug why-pending route serves.
+        The delta engine records the verdict as standing.  Unlike the JAX
+        package, a pod the cycle was cut off from is requeued as cut off
+        instead (``_mark_unplaced``): only a pod shown to fit no node comes
+        here."""
         self._cycle_unschedulable.append(pod_full)
         reason_value, counts, feasible, total = "Unknown", None, None, None
         snap = self._explain_snapshot
@@ -1308,6 +1370,7 @@ class Scheduler:
             unschedulable=sorted(set(result.unschedulable) | rejected_pods),
             rounds=result.rounds,
             stats=result.stats,
+            cut_off={pf: c for pf, c in result.cut_off.items() if pf not in rejected_pods},
         )
 
     @staticmethod
@@ -1369,7 +1432,8 @@ class Scheduler:
             return self.fallback_backend.schedule(packed, self.profile)
 
     def _bind_result(self, batch_snapshot: ClusterSnapshot, result, placed: list[tuple[Pod, Node]]) -> tuple[int, int]:
-        """POST a cycle result's bindings; requeue its unschedulables."""
+        """POST a cycle result's bindings; requeue its unschedulables.
+        Returns (bound, unschedulable less the pods cut off)."""
         bound = 0
         node_by_name = {n.name: n for n in batch_snapshot.nodes}
         pod_by_full = {full_name(p): p for p in batch_snapshot.pending_pods()}
@@ -1381,9 +1445,7 @@ class Scheduler:
                 if pod_obj is not None and node_obj is not None:
                     placed.append((pod_obj, node_obj))
                     self._cycle_placed.append((pod_obj, node_obj))
-        for pod_full in result.unschedulable:
-            self._mark_unschedulable(pod_full)
-        return bound, len(result.unschedulable)
+        return bound, self._mark_unplaced(result)
 
     # -- pipelined binding (SURVEY.md §2b PP) -------------------------------
 
@@ -1411,9 +1473,7 @@ class Scheduler:
             pod_obj, node_obj = pod_by_full.get(pod_full), node_by_name.get(node_name)
             if pod_obj is not None and node_obj is not None:
                 self._cycle_placed.append((pod_obj, node_obj))
-        for pod_full in result.unschedulable:
-            self._mark_unschedulable(pod_full)
-        return len(result.bindings), len(result.unschedulable), result.rounds
+        return len(result.bindings), self._mark_unplaced(result), result.rounds
 
     def _bind_worker_loop(self) -> None:
         while True:
@@ -1713,21 +1773,35 @@ class Scheduler:
             if with_constraints:
                 from ..ops.constraints import pack_constraints
 
-                cons = pack_constraints(
-                    batch_snapshot,
-                    batch_snapshot.pending_pods(),
-                    packed.padded_pods,
-                    packed.node_names,
-                    packed.padded_nodes,
-                    match_memo=self._cons_memo,
-                    **self.constraint_budgets,
-                )
+                with span("constraints"):
+                    cons = pack_constraints(
+                        batch_snapshot,
+                        batch_snapshot.pending_pods(),
+                        packed.padded_pods,
+                        packed.node_names,
+                        packed.padded_nodes,
+                        match_memo=self._cons_memo,
+                        **self.constraint_budgets,
+                    )
                 if cons is not None:
+                    # The port's own steering: from the first round in a batch
+                    # that retries pods a stop cut off, else as a bout once a
+                    # stop leaves more pods than the stall mop-up would take.
+                    retry = bool(self._retry_names) and any(
+                        full_name(p) in self._retry_names for p in batch_snapshot.pending_pods()
+                    )
+                    cons = replace(
+                        cons, spread_fill=retry, fill_bout_above=self._mopup_pod_cap(len(batch_snapshot.nodes))
+                    )
                     # Attached to a per-cycle copy only: the cached pack is
                     # reused incrementally, but domain state depends on the
                     # cycle's placements and is rebuilt every time.
                     packed = replace(packed, constraints=cons)
                     self.metrics.inc("scheduler_constraint_tensor_cycles_total")
+                    # What the constrained choose reads its bitmap widths off
+                    # (ops/choose._words), before any node compaction.
+                    bitmaps = (packed.pod_sel, packed.pod_ntol, packed.pod_aff, packed.pod_pref_w, packed.pod_ntol_soft)
+                    self._cycle_constraint_widths = [int(a.shape[1]) for a in bitmaps]
             if self._delta_plan is not None:
                 # Delta cycle, plain batch: drop node columns no dirty pod
                 # can land on (delta/repack.py — the accepted-claimant
@@ -1787,7 +1861,21 @@ class Scheduler:
         (scheduler_stall_mopup_* metrics) and closing it in the same cycle.
         Unaffected residue pods are untouched: only the constraint filter
         defers feasible pods, so an unaffected unschedulable is already
-        proof of infeasibility."""
+        proof of infeasibility — unless the auction was cut off from it
+        (``result.cut_off``), which the returned result keeps.  The
+        affected pods beyond the work cap are cut off too, under the
+        auction's cause or else as ``mopup_cap``: no verdict stands for
+        them, and the next cycle retries them.
+
+        Unlike the JAX package, the pass takes none of the pods the auction
+        was cut off from when the residue exceeds its cap and the auction
+        placed any pod: the next cycle's auction retries them with the
+        water-fill steering, where the exact chain costs a scalar check a
+        (pod, node) pair on the host and would take many cycles.  The pass
+        spends its cap on the pods the auction refused, so a residue of
+        infeasible pods is proven at ``cap`` pods a cycle.  An auction that
+        placed nothing gets the pass on its whole residue up to its cap, so
+        every cycle makes progress."""
         pod_by_full = {full_name(p): p for p in batch_snapshot.pending_pods()}
         declarers = []
         passthrough = []
@@ -1802,10 +1890,30 @@ class Scheduler:
         if not declarers:
             return result, 0, 0
         declarers.sort(key=_pod_priority, reverse=True)
+        cut_off = {pf: result.cut_off[pf] for pf in passthrough if pf in result.cut_off}
         cap = self._mopup_pod_cap(len(batch_snapshot.nodes))
+        if len(declarers) > cap and result.bindings:
+            # The chain cannot finish this residue in the cycle: the pods the
+            # auction was cut off from go to the next cycle's auction, and
+            # the chain spends its cap on those the auction refused, so that
+            # the ones it refuses too stand proven.
+            refused = []
+            for p in declarers:
+                pf = full_name(p)
+                if pf in result.cut_off:
+                    passthrough.append(pf)
+                    cut_off[pf] = result.cut_off[pf]
+                else:
+                    refused.append(p)
+            declarers = refused
         if len(declarers) > cap:
-            passthrough.extend(full_name(p) for p in declarers[cap:])
+            for p in declarers[cap:]:
+                pf = full_name(p)
+                passthrough.append(pf)
+                cut_off[pf] = result.cut_off.get(pf, "mopup_cap")
             declarers = declarers[:cap]
+        if not declarers:
+            return replace(result, unschedulable=passthrough, cut_off=cut_off), 0, 0
         # The sequential phase must see the auction's accepted placements as
         # consumed capacity/domain state; they are not in ``placed`` yet
         # (binding happens after), so seed a working copy.
@@ -1826,7 +1934,7 @@ class Scheduler:
             )
         # _run_constrained_phase binds + marks its own failures; the caller
         # must not re-mark the pods it handled.
-        return replace(result, unschedulable=passthrough), bound, unsched
+        return replace(result, unschedulable=passthrough, cut_off=cut_off), bound, unsched
 
     def _run_batch_cycle(self, snapshot: ClusterSnapshot, trace: Trace) -> tuple[int, int, int]:
         # Plain-vs-constrained classification is per-pod probe work over the
@@ -2378,6 +2486,9 @@ class Scheduler:
         t0 = time.perf_counter()
         gc0 = gc_totals()
         self._cycle_unschedulable = []
+        self._retry_names = set(self._cycle_cut_off)
+        self._cycle_cut_off = {}
+        self._cycle_constraint_widths = None
         self._cycle_placed = []
         self._cycle_gangs = {}
         self._cycle_tag = self._cycle_count + 1
@@ -2583,10 +2694,13 @@ class Scheduler:
                     bound, unsched = self._run_sample_cycle(cycle_snapshot, pending)
                     rounds = self.attempts
                 if self.profile.preemption and self._cycle_unschedulable:
+                    n_placed = len(self._cycle_placed)
                     with span("preempt"):
                         p_bound, _victims = self._attempt_preemption(cycle_snapshot)
+                    # A cut-off pod it binds was never counted unschedulable.
+                    rescued = sum(1 for q, _ in self._cycle_placed[n_placed:] if full_name(q) in self._cycle_cut_off)
                     bound += p_bound
-                    unsched -= p_bound
+                    unsched -= p_bound - rescued
                 if self._cycle_gangs:
                     with span("gang"):
                         self._account_gangs(eligible_names, compiled_topo)
@@ -2607,7 +2721,7 @@ class Scheduler:
                                 self._packed,
                                 self.reflector.node_set_signature(),
                                 self._cycle_placed,
-                                self._cycle_unschedulable,
+                                self._cycle_verdicts(),
                                 pending_all,
                                 self._res_memo,
                             )
@@ -2694,17 +2808,25 @@ class Scheduler:
         set_log_cycle(None)
         return m
 
+    def _cycle_verdicts(self) -> list[str]:
+        """The cycle's unplaced pods less those it was cut off from: the
+        verdicts the delta engine may keep standing."""
+        if not self._cycle_cut_off:
+            return self._cycle_unschedulable
+        return [pf for pf in self._cycle_unschedulable if pf not in self._cycle_cut_off]
+
     def _fold_beyond_phases(self, m: CycleMetrics, trace: Trace, gc0: tuple, gc1: tuple, t0: float) -> list[dict]:
         """Fill ``m``'s fields beyond the phases — the nested spans and the
-        cycle's counts, the collector's pauses over the cycle, the bind
-        worker's batches that ended before now — and return the recorder's
-        lanes: each batch, and each pause of ``GC_LONG_S`` or more since the
-        cycle began."""
+        cycle's counts, #2's operand widths, the collector's pauses over
+        the cycle, the bind worker's batches that ended before now — and
+        return the recorder's lanes: each batch, and each pause of
+        ``GC_LONG_S`` or more since the cycle began."""
         for path, seconds in trace.durations.items():
             if "/" in path:
                 key = "/".join(base_name(seg) for seg in path.split("/"))
                 m.spans[key] = m.spans.get(key, 0.0) + seconds
         m.spans.update(self._cycle_counts)
+        m.constraint_widths = self._cycle_constraint_widths
         m.gc_pause_s = gc1[0] - gc0[0]
         m.gc_collections = [b - a for a, b in zip(gc0[1], gc1[1])]
         lanes = []

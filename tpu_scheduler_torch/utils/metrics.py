@@ -16,7 +16,8 @@ Thread-safety contract: every mutation AND every read path goes through
 scrape mid-iteration (dict-resize under iteration was a real crash class).
 
 Port: a copy of ``tpu_scheduler/utils/metrics.py`` (pure host code), with
-``CycleMetrics``' fields beyond the phases: ``spans``, ``gc_*``, ``bind_*``.
+``CycleMetrics``' fields beyond the phases: ``spans``, ``constraint_widths``,
+``gc_*``, ``bind_*``.
 """
 
 from __future__ import annotations
@@ -154,8 +155,14 @@ class CycleMetrics:
     # counts beside them: ``delta/early_escalations`` (a full wave decided
     # before the fold), ``overlay/assumed_view_pods`` and
     # ``overlay/assumed_cloned_pods`` (in-flight assumed pods overlaid by
-    # the view, and as bound clones).
+    # the view, and as bound clones), ``solve/cut_off_pods`` and, by cause,
+    # ``solve/cut_off_pods/<cause>`` (pods the cycle was cut off from:
+    # ``round_cap``, ``stall``, ``mopup_cap``).
     spans: dict = field(default_factory=dict)
+    # The widths of kernel #2's bitmap operands as the cycle packed them
+    # (L, T, A, A2, Ts: what ops/choose reads off the pod operands), on a
+    # cycle that solved with inter-pod constraints; None otherwise.
+    constraint_widths: list | None = None
     # Collector pauses inside the cycle, on every thread
     # (utils/profiler.install_gc_clock), and the collections by generation.
     gc_pause_s: float = 0.0

@@ -99,6 +99,7 @@ SPAN_CATALOGUE = (
     "close",       # delta sub-span: invalidation closure over standing verdicts
     "repack",      # delta sub-span: carried residual-capacity materialization
     "rebuild",     # delta/commit sub-span: SolveState rebuild after a full wave
+    "constraints", # pack sub-span: the inter-pod constraint tensors (ops/constraints.pack_constraints)
     "poll",        # sync sub-span: one watch poll (each reflector, each cycle)
     "fold",        # sync sub-span: watch events into the store and index, and the batch-listener flush
     "shadow",      # delta sub-span: sim-only full-solve parity check
